@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (mpx_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line of findings (any failure raises, and the
+script exits nonzero without the final line):
+
+0. device: the card's name and power limit, torch and CUDA versions;
+1. build: compile K1 (mpx_torch/csrc/*.cu) with nvcc for sm_90a;
+2. K1 against its plain PyTorch version on the card, band level, f32 and
+   f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
+   jobs, with CUDA-event times of both;
+3. end to end, f64, n=131072, m=128 (data/benchmark/131072.txt.gz) through
+   kernel='auto' (K1), against kernel='mxu' on the card and against an
+   exact float64 numpy row scan on 64 sampled rows;
+4. end to end, f32, n=2^20, m=256, band 4096, chunk 32768 (a random walk
+   from a fixed seed) through K1, against the exact row scan;
+5. the command line: ``python -m mpx_torch compute`` on data/binary/16384.tsb.
+
+The line before the last is a JSON object with one entry per K1 dtype
+(launches counted in that dtype's end-to-end run); the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED = 20260101
+K1_SOURCE = "mpx_torch/csrc/mxu_fused.cu"
+K1_REPLACES = "mpx/kernels/mxu_fused.py:50"
+# Band-level tolerances (values) and end-to-end distance tolerances.
+BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
+DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
+ZERO_VARIANCE_REL = 1e-10
+
+
+def require(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[phase {phase}] " + json.dumps(fields), flush=True)
+
+
+def random_walk(n: int, seed: int) -> np.ndarray:
+    return np.cumsum(np.random.default_rng(seed).standard_normal(n))
+
+
+# ---------------------------------------------------------------- oracle
+
+
+def unit_windows64(T: np.ndarray, m: int, lo: int, hi: int):
+    """Exact float64 unit-normalized windows [lo, hi) (two-pass mean and
+    norm per window) and their degenerate (zero-variance) mask."""
+    wv = np.lib.stride_tricks.sliding_window_view(T, m)[lo:hi]
+    cent = wv - wv.mean(axis=1, keepdims=True)
+    ssq = np.einsum("ij,ij->i", cent, cent)
+    degenerate = ssq <= ZERO_VARIANCE_REL * np.einsum("ij,ij->i", wv, wv)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        Z = cent / np.sqrt(ssq)[:, None]
+    Z[degenerate] = 0.0
+    return Z, degenerate
+
+
+def row_scan64(T: np.ndarray, m: int, rows: np.ndarray) -> np.ndarray:
+    """Exact z-normalized distances (len(rows), w) of the sampled rows to
+    every window, +inf inside the exclusion zone and for degenerate
+    windows; blockwise so memory stays bounded."""
+    w = T.shape[0] - m + 1
+    Zq = np.stack([unit_windows64(T, m, r, r + 1)[0][0] for r in rows])
+    degenerate = np.zeros(w, bool)
+    D = np.empty((len(rows), w))
+    blk = 1 << 16
+    for o in range(0, w, blk):
+        Z, deg = unit_windows64(T, m, o, min(o + blk, w))
+        degenerate[o : o + Z.shape[0]] = deg
+        P = Zq @ Z.T
+        D[:, o : o + Z.shape[0]] = np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0))
+    cols = np.arange(w)
+    D[np.abs(cols[None, :] - rows[:, None]) < m // 4] = np.inf
+    D[:, degenerate] = np.inf
+    D[degenerate[rows]] = np.inf
+    return D
+
+
+def check_rows(T, m, MP, MPI, rows, tol) -> float:
+    """MP/MPI on the sampled rows against the exact scan; an index may
+    differ from the scan's argmin only when equidistant within tol."""
+    D = row_scan64(T, m, rows)
+    worst = 0.0
+    for k, r in enumerate(rows):
+        best = D[k].min()
+        if not np.isfinite(best):
+            require(MPI[r] == -1, f"row {r}: no valid neighbor, got MPI {MPI[r]}")
+            continue
+        err = abs(float(MP[r]) - best)
+        worst = max(worst, err)
+        require(err <= tol, f"row {r}: MP {MP[r]} vs exact {best} (tol {tol})")
+        j = int(MPI[r])
+        require(0 <= j and abs(D[k, j] - best) <= tol,
+                f"row {r}: MPI {j} at distance {D[k, j]}, exact nearest {best}")
+    return worst
+
+
+def check_profiles_agree(T, m, MP, MPI, MP2, MPI2, tol) -> float:
+    """Two profiles of one series: distances within tol, indices equal
+    or equidistant within tol."""
+    err = float(np.abs(MP - MP2).max())
+    require(err <= tol, f"profiles differ by {err} (tol {tol})")
+    diff = np.nonzero(MPI != MPI2)[0]
+    if diff.size:
+        D = row_scan64(T, m, diff)
+        for k, r in enumerate(diff):
+            require(abs(D[k, MPI[r]] - D[k, MPI2[r]]) <= tol,
+                    f"row {r}: MPI {MPI[r]} vs {MPI2[r]} not equidistant")
+    return err
+
+
+# ---------------------------------------------------------------- phases
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say("0 device", nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, devices=torch.cuda.device_count())
+    return smi
+
+
+def phase_build():
+    from mpx_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    regs = [ln.strip() for ln in (_build.BUILD_LOG or "").splitlines()
+            if "registers" in ln or "spill" in ln]
+    say("1 build", seconds=time.perf_counter() - t0, library=os.path.relpath(
+        _build.library_path(), REPO), ptxas=regs)
+
+
+def time_ms(torch, fn, reps: int = 5) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_band(torch, dtype: str) -> dict:
+    """K1 vs sweep_band_mxu on the card at the main path's job shape."""
+    from mpx_torch.kernels.common import band_geometry
+    from mpx_torch.kernels.mxu import sweep_band_mxu
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+    from mpx_torch.ops.precompute import precompute_statistics
+
+    n, m, S, W = 65536, 256, 4096, 16384
+    T = random_walk(n, SEED)
+    T[30000:30700] = T[30000]  # a constant run: zero-variance windows
+    w = n - m + 1
+    stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dtype, device="cuda")
+    geom = band_geometry(S, W, m, w)
+    tol = BAND_TOL[dtype]
+    jobs = {
+        "first band": (0, 0),
+        "exclusion zone": (8192, 0),
+        "constant run": (28672, 0),
+        "rows past w-1": ((w - 1) // S * S, 0),
+        "columns past w-1": ((w - W - 1) // S * S, W),
+    }
+    U64 = stats.windows.double()
+    worst = 0.0
+    for what, (r0, k0) in jobs.items():
+        a = sweep_band_mxu(stats, r0, k0, geom, dtype)
+        b = sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        for side, base in (("row", r0), ("col", r0 + k0)):
+            pa, pb = getattr(a, side), getattr(b, side)
+            err = float((pa.value.double() - pb.value.double()).abs().max())
+            worst = max(worst, err)
+            require(err <= tol, f"{dtype} {what} {side}: K1 vs plain {err} > {tol}")
+            ia, ib = pa.index.long(), pb.index.long()
+            bad = torch.nonzero(ia != ib).flatten()
+            require(bool(((ia[bad] >= 0) & (ib[bad] >= 0)).all()),
+                    f"{dtype} {what} {side}: a masked aggregate differs")
+            own = U64[base + bad]
+            gap = ((own * U64[ia[bad]]).sum(1) - (own * U64[ib[bad]]).sum(1)).abs()
+            require(bool((gap <= tol).all()),
+                    f"{dtype} {what} {side}: index differs where values do not tie")
+    r0, k0 = 4096, W  # an interior job of the main path's grid
+    plain1 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
+    k1a = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
+    k1b = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
+    plain2 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
+    ms, plain_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2
+    flops = 2.0 * S * W * m
+    say(f"2 band {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
+        max_abs_err=worst, tol=tol, k1_ms=[k1a, k1b], plain_ms=[plain1, plain2],
+        k1_tflops=flops / ms / 1e9, plain_tflops=flops / plain_ms / 1e9)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def reset_counts():
+    from mpx_torch.kernels import mxu, mxu_fused
+
+    mxu.CALLS = 0
+    mxu_fused.LAUNCHES = 0
+
+
+def counts():
+    from mpx_torch.kernels import mxu, mxu_fused
+
+    return mxu_fused.LAUNCHES, mxu.CALLS
+
+
+def run_profile(torch, T, cfg):
+    from mpx_torch import compute_matrix_profile
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    prof = BenchmarkProfile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    MP, MPI = MP.cpu().numpy(), MPI.cpu().numpy()
+    w = T.shape[0] - cfg.m + 1
+    require(MP.shape == (w,) and MPI.shape == (w,), f"shapes {MP.shape} {MPI.shape}")
+    require(np.isfinite(MP).all(), "non-finite distances")
+    require(((MPI >= -1) & (MPI < w)).all(), "index out of range")
+    phases = {k: v / 1e9 for k, v in prof.category_totals().items()}
+    return MP, MPI, wall, phases
+
+
+def sample_rows(w: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.sort(np.concatenate([[0, w - 1], rng.choice(w, 62, replace=False)]))
+
+
+def phase_e2e_f64(torch) -> int:
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+
+    T = read_series(os.path.join(REPO, "data", "benchmark", "131072.txt.gz"))
+    m, tol = 128, DIST_TOL["float64"]
+    w = T.shape[0] - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
+    reset_counts()
+    MP, MPI, wall, phases = run_profile(torch, T, cfg)
+    launches, calls = counts()
+    require(launches > 0 and calls == 0,
+            f"auto f64 run: K1 launches {launches}, plain calls {calls}")
+    MPp, MPIp, wall_plain, _ = run_profile(
+        torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu", device="cuda"))
+    vs_plain = check_profiles_agree(T, m, MP, MPI, MPp, MPIp, tol)
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED), tol)
+    pairs = w * (w - 1) / 2
+    say("3 e2e f64", n=T.shape[0], m=m, band=cfg.band, chunk=cfg.chunk,
+        k1_launches=launches, plain_calls=calls, wall_s=wall,
+        pairs_per_s=pairs / wall, phases_s=phases, plain_wall_s=wall_plain,
+        max_err_vs_plain=vs_plain, max_err_vs_exact_64_rows=vs_exact, tol=tol)
+    return launches
+
+
+def phase_e2e_f32(torch) -> int:
+    from mpx_torch import MatrixProfileConfig
+
+    n, m, tol = 1 << 20, 256, DIST_TOL["float32"]
+    T = random_walk(n, SEED + 1)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=4096, chunk=32768,
+                              device="cuda")
+    reset_counts()
+    MP, MPI, wall, phases = run_profile(torch, T, cfg)
+    launches, calls = counts()
+    require(launches > 0 and calls == 0,
+            f"auto f32 run: K1 launches {launches}, plain calls {calls}")
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 1), tol)
+    pairs = w * (w - 1) / 2
+    say("4 e2e f32", n=n, m=m, band=cfg.band, chunk=cfg.chunk,
+        k1_launches=launches, plain_calls=calls, wall_s=wall,
+        pairs_per_s=pairs / wall, phases_s=phases,
+        max_err_vs_exact_64_rows=vs_exact, tol=tol)
+    return launches
+
+
+def phase_cli():
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    m = 256
+    w = os.path.getsize(src) // 8 - m + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mpx_torch", "compute", "-i", src, "-m", str(m),
+             "-o", out], cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        require(proc.returncode == 0, f"CLI failed:\n{proc.stdout}{proc.stderr}")
+        sizes = (os.path.getsize(out + ".mpb"), os.path.getsize(out + ".mpib"))
+        require(sizes == (8 * w, 4 * w), f"output sizes {sizes}, expected w={w}")
+        MP = np.fromfile(out + ".mpb", "<f8")
+        require(np.isfinite(MP).all(), "CLI wrote non-finite distances")
+        say("5 cli", command="python -m mpx_torch compute -i data/binary/16384.tsb "
+            f"-m {m} -o <tmp>/out", seconds=time.perf_counter() - t0,
+            mpb_bytes=sizes[0], mpib_bytes=sizes[1])
+
+
+def main() -> int:
+    import torch
+
+    smi = phase_device(torch)
+    sys.path.insert(0, REPO)
+    phase_build()
+    band = {dt: phase_band(torch, dt) for dt in ("float32", "float64")}
+    launches = {"float64": phase_e2e_f64(torch), "float32": phase_e2e_f32(torch)}
+    phase_cli()
+    kernels = [
+        {"name": f"mxu_fused[{dt}]", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": launches[dt], **band[dt]}
+        for dt in ("float32", "float64")
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

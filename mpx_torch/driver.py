@@ -1,0 +1,112 @@
+"""Driver: job loop, on-device merging, and the public API.
+
+Counterpart of ``mpx/driver.py``.  The statistics are staged once, then a
+Python loop walks the job grid in mpx's order (k0 outer, r0 inner), sweeps
+each job with the selected kernel, and max-merges its ``BandOut`` into
+global (w + S + W,) row/column aggregates at offsets r0 and r0 + k0.  The
+merge order is mpx's, so ties across jobs resolve to the same job.  Kernel
+launches and merges are queued on the device's current stream; the host
+never waits inside the loop.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
+from mpx_torch.kernels import band_geometry, get_sweep_fn, resolve_kernel
+from mpx_torch.ops.aggregates import (
+    init_aggregates,
+    merge_window,
+    postcompute,
+    postcompute_left_right,
+)
+from mpx_torch.ops.precompute import precompute_statistics
+from mpx_torch.types import Stats
+from mpx_torch.utils.profile import phase
+
+
+def _agg_length(w: int, S: int, W: int) -> int:
+    # Column windows reach at most c0 + W with c0 <= w - 1; row windows r0 + S.
+    return w + S + W
+
+
+def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
+    """Sweep every job of ``grid`` and merge the outputs.  Returns (row
+    Aggregates, column Aggregates), each (w + S + W,)."""
+    sweep = get_sweep_fn(kernel)
+    L = _agg_length(geom.w, geom.S, geom.W)
+    dev = stats.windows.device
+    rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
+    cols = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
+    for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
+        out = sweep(stats, r0, k0, geom, dtype)
+        merge_window(rows, out.row, r0)
+        merge_window(cols, out.col, r0 + k0)
+    return rows, cols
+
+
+def compute_matrix_profile(
+    T,
+    m: Optional[int] = None,
+    config: Optional[MatrixProfileConfig] = None,
+    *,
+    stats: Optional[Stats] = None,
+    profile=None,
+    left_right: bool = False,
+):
+    """Compute the self-join matrix profile of ``T`` on ``config.device``.
+
+    Returns (MP, MPI) as tensors on that device: z-normalized Euclidean
+    distances in the compute dtype and int32 nearest-neighbor indices
+    (untouched entries: sqrt(2m(1+1e12)) / -1).  With ``left_right=True``
+    returns (MP_left, MPI_left, MP_right, MPI_right): the nearest earlier /
+    later neighbor profiles.
+
+    ``stats`` takes already staged statistics (with ``windows``) for the
+    same series, band and chunk; ``profile`` a
+    :class:`mpx_torch.utils.profile.BenchmarkProfile` for per-phase times.
+    """
+    if config is None:
+        config = MatrixProfileConfig(m=m if m is not None else 32)
+    elif m is not None and m != config.m:
+        raise ValueError(f"m={m} conflicts with config.m={config.m}")
+    m = config.m
+
+    T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
+    n = T.shape[0]
+    config.validate_series(n, T)
+    w = n - m + 1
+    config = config.shrink_to(w)
+    S, W = config.band, config.chunk
+    dt = torch_dtype(config.dtype)
+    device = torch.device(config.device)
+    kernel = resolve_kernel(config.kernel, device)
+
+    if stats is None:
+        with phase(profile, "1. Pre-Computation", device=device):
+            stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt,
+                                          device=device)
+    elif stats.windows is None or stats.windows.dtype != dt:
+        raise ValueError("stats must carry windows in the compute dtype")
+
+    grid = make_job_grid(w, S, W)
+    geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
+    with phase(profile, f"2. Compute [{kernel}]", device=device):
+        rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel=kernel)
+
+    with phase(profile, "3. Post-Computation", device=device):
+        if left_right:
+            return postcompute_left_right(rows, cols, m, w)
+        return postcompute(rows, cols, m, w)
+
+
+def matrix_profile(T, m: int, **kwargs):
+    """Convenience wrapper: numpy in, numpy out."""
+    config = MatrixProfileConfig(m=m, **kwargs)
+    MP, MPI = compute_matrix_profile(T, config=config)
+    return MP.cpu().numpy(), MPI.cpu().numpy()

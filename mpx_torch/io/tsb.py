@@ -1,0 +1,91 @@
+"""Binary/ascii time-series codecs, counterpart of ``mpx/io/tsb.py``
+(numpy only, byte-compatible with mpx's files).
+
+* ``.tsb``  — raw little-endian float64 time series (n values)
+* ``.mpb``  — raw little-endian float64 matrix profile (n - m + 1 values)
+* ``.mpib`` — raw little-endian int32 matrix profile index
+* ``.txt`` / ``.txt.gz`` — whitespace-separated ascii
+
+A binary file must hold a whole number of elements, and exactly ``n``
+of them when ``n`` is given.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+from typing import Optional
+
+import numpy as np
+
+_BINARY_DTYPES = {
+    "double": np.dtype("<f8"),
+    "int": np.dtype("<i4"),
+}
+# Magic of mpx's fixed-point MPXQ container (mpx/io/apfixed.py).
+_MPXQ_MAGIC = b"MPXQ"
+
+
+def _dtype_for(type_name: str) -> np.dtype:
+    if type_name not in _BINARY_DTYPES:
+        raise ValueError(
+            f"Unknown type '{type_name}'. Type has to be one of: "
+            f"{', '.join(_BINARY_DTYPES)}"
+        )
+    return _BINARY_DTYPES[type_name]
+
+
+def read_binary(path: str, type_name: str = "double", n: Optional[int] = None) -> np.ndarray:
+    dt = _dtype_for(type_name)
+    size = os.path.getsize(path)
+    if size % dt.itemsize != 0:
+        raise ValueError(
+            f"{path} contains {size} bytes, not a multiple of {dt.itemsize} "
+            f"bytes (type = {type_name})"
+        )
+    if n is not None and size != n * dt.itemsize:
+        raise ValueError(
+            f"{path} contains unexpected number of elements: expected {n} "
+            f"[{n * dt.itemsize} bytes], file contains {size} bytes"
+        )
+    return np.fromfile(path, dtype=dt)
+
+
+def write_binary(path: str, data, type_name: str = "double") -> None:
+    dt = _dtype_for(type_name)
+    np.asarray(data).astype(dt).tofile(path)
+
+
+def read_ascii(path: str) -> np.ndarray:
+    """Whitespace-separated floats from .txt or .txt.gz."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        text = f.read()
+    return np.array([float(x) for x in text.split()], dtype=np.float64)
+
+
+def read_series(path: str) -> np.ndarray:
+    """Load a time series from any supported container by extension."""
+    with open(path, "rb") as f:
+        if f.read(4) == _MPXQ_MAGIC:
+            raise NotImplementedError(
+                f"{path} is an MPXQ fixed-point container; reading it is not "
+                f"ported to mpx_torch yet: ROADMAP.md queue 1 item 7 "
+                f"(io/apfixed.py)"
+            )
+    if path.endswith(".tsb") or path.endswith(".mpb"):
+        return read_binary(path, "double")
+    if path.endswith(".mpib"):
+        return read_binary(path, "int")
+    if path.endswith(".txt") or path.endswith(".gz"):
+        return read_ascii(path)
+    return read_binary(path, "double")
+
+
+def write_results(base_path: str, MP, MPI) -> tuple[str, str]:
+    """Persist MP/MPI as <base>.mpb / <base>.mpib."""
+    mpb = base_path + ".mpb"
+    mpib = base_path + ".mpib"
+    write_binary(mpb, MP, "double")
+    write_binary(mpib, np.asarray(MPI, dtype=np.int32), "int")
+    return mpb, mpib

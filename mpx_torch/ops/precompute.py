@@ -1,0 +1,121 @@
+"""O(n) precomputation of SCAMP statistics, counterpart of
+``mpx/ops/precompute.py``.
+
+The statistics are accumulated in float64 on the host with numpy (the
+same two-pass estimator as mpx's numpy and native backends), cast to the
+compute dtype, zero-padded and staged on the device.  The unit-window
+matrix that the sweep kernels read is then built on the device in the
+compute dtype, exactly as mpx builds it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpx_torch.dtypes import torch_dtype
+from mpx_torch.types import Stats
+
+# A window's centered sum-of-squares below REL * (its raw sum-of-squares)
+# is numerically indistinguishable from a constant subsequence; those
+# windows get inv = inf and every kernel masks them.
+ZERO_VARIANCE_REL = 1e-10
+
+_WINDOWS_BLOCK = 8192
+
+
+def _padded_width(w: int, band: int, chunk: int) -> int:
+    """Pad the subsequence count so every job's panel slice is in bounds
+    (a job reads rows up to w - 1 + band and columns up to
+    w - 1 + chunk), rounded up to 8192 like mpx."""
+    pw = int(w + band + chunk)
+    return ((pw + _WINDOWS_BLOCK - 1) // _WINDOWS_BLOCK) * _WINDOWS_BLOCK
+
+
+def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
+    """Float64 statistics of an unpadded series (host-side, BLAS)."""
+    T = np.asarray(T, dtype=np.float64)
+    n = T.shape[0]
+    if m < 4:
+        raise ValueError("m must be >= 4")
+    if n < m:
+        raise ValueError("n must be >= m")
+    w = n - m + 1
+
+    c1 = np.concatenate([[0.0], np.cumsum(T)])
+    mu = (c1[m:] - c1[:-m]) / m
+
+    df = np.zeros(w, dtype=np.float64)
+    dg = np.zeros(w, dtype=np.float64)
+    df[1:] = (T[m:] - T[:w - 1]) / 2
+    dg[1:] = (T[m:] - mu[1:]) + (T[:w - 1] - mu[:w - 1])
+
+    # Two-pass centered sum-of-squares: the same estimator as mpx's native
+    # and streaming paths, so the zero-variance classification agrees.
+    windows = np.lib.stride_tricks.sliding_window_view(T, m)
+    ssq = np.empty(w, dtype=np.float64)
+    sumsq = np.empty(w, dtype=np.float64)
+    blk = 1 << 16  # bound the materialized centered block to ~128 MB
+    for o in range(0, w, blk):
+        wv = windows[o : o + blk]
+        cent = wv - mu[o : o + blk, None]
+        ssq[o : o + blk] = np.einsum("ij,ij->i", cent, cent)
+        sumsq[o : o + blk] = np.einsum("ij,ij->i", wv, wv)
+    ssq = np.where(ssq <= ZERO_VARIANCE_REL * np.abs(sumsq), 0.0, ssq)
+    with np.errstate(divide="ignore"):
+        inv = 1.0 / np.sqrt(ssq)
+
+    sdp0 = windows @ T[:m]
+    qt0 = sdp0 - m * mu[0] * mu
+
+    return {"mu": mu, "df": df, "dg": dg, "inv": inv, "qt0": qt0}
+
+
+def build_windows(stats: Stats, m: int) -> torch.Tensor:
+    """Unit-normalized window matrix (padded_w, m) on the stats' device,
+    in their dtype: ``(T[i:i+m] - mu[i]) * inv[i]``, with zero rows for
+    zero-variance (inv = inf) and padded (inv = 0) windows."""
+    pw = stats.mu.shape[0]
+    invc = torch.where(torch.isfinite(stats.inv), stats.inv,
+                       torch.zeros((), dtype=stats.inv.dtype, device=stats.inv.device))
+    U = stats.T.unfold(0, m, 1)[:pw] - stats.mu[:, None]
+    return U.mul_(invc[:, None])  # in place: one (pw, m) allocation
+
+
+def stats_from_numpy(arrays: dict, dtype, device) -> Stats:
+    """Stage padded statistics given as numpy arrays (the fields of a
+    ``Stats``, e.g. mpx's) as a device ``Stats`` in ``dtype``.  The window
+    matrix is taken from ``arrays['windows']`` when present, else built."""
+    dt = torch_dtype(dtype)
+
+    def t(name):
+        return torch.tensor(np.asarray(arrays[name]), dtype=dt, device=device)
+
+    stats = Stats(T=t("T"), mu=t("mu"), df=t("df"), dg=t("dg"),
+                  inv=t("inv"), qt0=t("qt0"))
+    if arrays.get("windows") is not None:
+        return stats._replace(windows=t("windows").contiguous())
+    m = stats.T.shape[0] - stats.mu.shape[0] + 1
+    return stats._replace(windows=build_windows(stats, m))
+
+
+def precompute_statistics(T, m: int, *, band: int, chunk: int,
+                          dtype="float32", device="cpu") -> Stats:
+    """Device-resident, padded statistics and unit windows in the compute
+    dtype.  Accumulation is float64 on the host; the pad region is zero
+    so out-of-range lanes behave like the reference's ``InputDataPack(0)``."""
+    T64 = np.asarray(T, dtype=np.float64)
+    w = T64.shape[0] - m + 1
+    pw = _padded_width(w, band, chunk)
+    s = precompute_statistics_numpy(T64, m)
+    npdt = np.float64 if torch_dtype(dtype) == torch.float64 else np.float32
+
+    def padn(x, width):
+        out = np.zeros(width, dtype=npdt)
+        out[: x.shape[0]] = x.astype(npdt)
+        return out
+
+    arrays = {"T": padn(T64, pw + m - 1)}
+    for name in ("mu", "df", "dg", "inv", "qt0"):
+        arrays[name] = padn(s[name], pw)
+    return stats_from_numpy(arrays, dtype, device)

@@ -1,0 +1,97 @@
+"""mpx_torch on an NVIDIA GPU: K1 against its plain version, and the
+self-join end to end against the numpy golden oracle.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports neither JAX nor mpx, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: band values 1e-5 (float32) / 1e-12 (float64), the two sides
+summing m products in different orders; distances 2e-3 / 1e-8, the
+repo's profile tolerances.  Indices may differ only between ties.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpx_torch import MatrixProfileConfig, compute_matrix_profile
+from mpx_torch.kernels import mxu, mxu_fused
+from mpx_torch.kernels.common import band_geometry
+from mpx_torch.ops.precompute import precompute_statistics
+from mpx_torch.reference import compute_matrix_profile_reference
+
+BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
+DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
+N, M, S, W = 2048, 64, 256, 512
+W_PROFILE = N - M + 1
+EDGE_JOBS = [(0, 0), (768, 0), (1792, 0), (1280, 512)]
+
+
+def _series(n: int, seed: int, constant_run: bool = True) -> np.ndarray:
+    T = np.cumsum(np.random.default_rng(seed).standard_normal(n))
+    if constant_run:
+        T[n // 3 : n // 3 + 200] = T[n // 3]  # zero-variance windows
+    return T
+
+
+def _znorm_distance(T, m, i, j) -> float:
+    a, b = T[i : i + m], T[j : j + m]
+    a, b = (a - a.mean()) / a.std(), (b - b.mean()) / b.std()
+    return float(np.sqrt(np.sum((a - b) ** 2)))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_matches_plain_on_card(card, dtype):
+    stats = precompute_statistics(_series(N, 7), M, band=S, chunk=W, dtype=dtype,
+                                  device=card)
+    U64 = stats.windows.double()
+    geom = band_geometry(S, W, M, W_PROFILE)
+    launches = mxu_fused.LAUNCHES
+    for r0, k0 in EDGE_JOBS:
+        ours = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
+        ref = mxu.sweep_band_mxu(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        for side, base in (("row", r0), ("col", r0 + k0)):
+            a, b = getattr(ours, side), getattr(ref, side)
+            err = (a.value.double() - b.value.double()).abs().max().item()
+            assert err <= BAND_TOL[dtype], (r0, k0, side, err)
+            bad = torch.nonzero(a.index != b.index).flatten()
+            assert bool(((a.index[bad] >= 0) & (b.index[bad] >= 0)).all())
+            own = U64[base + bad]
+            gap = ((own * U64[a.index[bad].long()]).sum(1)
+                   - (own * U64[b.index[bad].long()]).sum(1)).abs()
+            assert bool((gap <= BAND_TOL[dtype]).all()), (r0, k0, side)
+    assert mxu_fused.LAUNCHES == launches + len(EDGE_JOBS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("left_right", [False, True])
+def test_auto_profile_on_card_matches_golden(card, dtype, left_right):
+    T = _series(3000, 11, constant_run=False)
+    m = 32
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, band=256, chunk=512, device="cuda")
+    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    out = compute_matrix_profile(T, config=cfg, left_right=left_right)
+    assert mxu.CALLS == calls and mxu_fused.LAUNCHES > launches
+    assert all(o.device.type == "cuda" for o in out)
+    out = [o.cpu().numpy() for o in out]
+    MP_exp, MPI_exp = compute_matrix_profile_reference(T, m)
+    if left_right:
+        # The nearer of the left and right neighbors is the profile.
+        right_wins = out[2] < out[0]
+        out = [np.where(right_wins, out[2], out[0]), np.where(right_wins, out[3], out[1])]
+    MP, MPI = out
+    np.testing.assert_allclose(MP, MP_exp, rtol=0, atol=DIST_TOL[dtype])
+    for i in np.nonzero(MPI != MPI_exp)[0]:
+        gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPI_exp[i])
+        assert abs(gap) <= DIST_TOL[dtype], f"MPI[{i}] not an equidistant tie"

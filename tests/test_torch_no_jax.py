@@ -1,0 +1,111 @@
+"""mpx_torch stands alone: no JAX, no mpx, no silent fallbacks."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mpx_torch import MatrixProfileConfig
+from mpx_torch.io.tsb import read_series
+from tests.conftest import REPO_ROOT
+
+PKG = os.path.join(REPO_ROOT, "mpx_torch")
+
+
+def test_fresh_process_imports_neither_jax_nor_mpx():
+    code = (
+        "import sys, numpy as np\n"
+        "import mpx_torch\n"
+        "T = np.cumsum(np.random.default_rng(0).standard_normal(300))\n"
+        "MP, MPI = mpx_torch.matrix_profile(T, 16, band=64, chunk=64, device='cpu')\n"
+        "assert MP.shape == (285,) and (MPI >= 0).all()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mpx'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_module_of_the_package_imports_jax_or_mpx():
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
+               for f in fs if f.endswith(".py")]
+    sources.append(os.path.join(REPO_ROOT, "chip_smoke.py"))
+    assert len(sources) > 15
+    for path in sources:
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "mpx"), (path, mod)
+
+
+def test_cuda_device_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MatrixProfileConfig(m=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MatrixProfileConfig(m=16, device="cuda:0")
+    assert MatrixProfileConfig(m=16, device="cpu").device == "cpu"
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(kernel="hybrid"), "queue 1 item 8"),
+    (dict(kernel="xla"), "queue 1 item 9"),
+    (dict(kernel="pallas"), "queue 2 item 1"),
+    (dict(num_shards=2), "queue 1 item 13"),
+    (dict(shard_mode="ring"), "queue 1 item 13"),
+    (dict(input_quant="ap16"), "queue 1 item 7"),
+    (dict(dtype="ap32"), "queue 1 item 7"),
+    (dict(dispatch_group=64), "Not to port"),
+])
+def test_unported_options_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        MatrixProfileConfig(m=16, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(kernel="fused"), dict(dtype="bfloat16"), dict(m=3), dict(band=0),
+    dict(shard_mode="mesh"), dict(band=12, tile_rows=8),
+])
+def test_invalid_options_raise(kwargs):
+    with pytest.raises(ValueError):
+        MatrixProfileConfig(**{"m": 16, "device": "cpu", **kwargs})
+
+
+def test_quantized_container_is_not_read_as_doubles(tmp_path):
+    path = tmp_path / "q.tsb"
+    path.write_bytes(b"MPXQ" + bytes(20))
+    with pytest.raises(NotImplementedError, match="io/apfixed.py"):
+        read_series(str(path))
+
+
+def test_kernel_library_is_not_built_at_import():
+    from mpx_torch.kernels import _build
+
+    assert _build._LIB is None
+    so = _build.library_path()
+    assert so.startswith(os.path.join(PKG, "_build"))
+    assert os.path.basename(so).startswith("libmpx_torch_")
+
+
+def test_validate_series():
+    cfg = MatrixProfileConfig(m=16, device="cpu")
+    with pytest.raises(ValueError):
+        cfg.validate_series(10)
+    T = np.ones(100)
+    T[40] = np.nan
+    with pytest.raises(ValueError, match="index 40"):
+        cfg.validate_series(100, T)
