@@ -7,7 +7,8 @@ Phases, each printing one line of findings (any failure raises, and the
 script exits nonzero without the final line):
 
 0. device: the card's name and power limit, torch and CUDA versions;
-1. build: compile K1 (mpx_torch/csrc/*.cu) with nvcc for sm_90a;
+1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc over both) for
+   sm_90a;
 2. K1 against its plain PyTorch version on the card, band level, f32 and
    f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
    jobs, with CUDA-event times of both;
@@ -16,10 +17,22 @@ script exits nonzero without the final line):
    exact float64 numpy row scan on 64 sampled rows;
 4. end to end, f32, n=2^20, m=256, band 4096, chunk 32768 (a random walk
    from a fixed seed) through K1, against the exact row scan;
-5. the command line: ``python -m mpx_torch compute`` on data/binary/16384.tsb.
+5. the command line: ``python -m mpx_torch compute`` on data/binary/16384.tsb;
+6. K3 against its plain PyTorch version (``sweep_band_xla``) on the card,
+   band level, f32 and f64, on phase 2's series and edge jobs, with
+   CUDA-event times of K3, the plain version and K1 at the same job shape;
+7. the f64 showcase through K3 (``kernel='pallas'``): n=2^20, m=256, band
+   4096, chunk 32768, a random walk from a fixed seed, one K3 launch per
+   job and no plain call, against the exact row scan;
+8. parity: ``kernel='pallas'`` in f64 and f32 on phase 3's series against
+   phase 3's K1 profile;
+9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
+   (peak device memory), against ``kernel='mxu_fused'`` on the same series.
 
-The line before the last is a JSON object with one entry per K1 dtype
-(launches counted in that dtype's end-to-end run); the last line is
+The line before the last but one is a JSON object with one entry per
+kernel and dtype (launches counted in that kernel's main-path run: K1 in
+phases 3 and 4, K3 in phases 7 and 8); the line before the last is the
+card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
 
@@ -38,8 +51,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260101
 K1_SOURCE = "mpx_torch/csrc/mxu_fused.cu"
 K1_REPLACES = "mpx/kernels/mxu_fused.py:50"
-# Band-level tolerances (values) and end-to-end distance tolerances.
+K3_SOURCE = "mpx_torch/csrc/band_recurrence.cu"
+K3_REPLACES = "mpx/kernels/pallas_tpu.py:55"
+# Band-level tolerances (values) and end-to-end distance tolerances.  K1
+# and its plain version sum the same m products; K3 and its plain version
+# carry the recurrence's rounding down the band's rows in another order
+# (1e-4 in f32, the bound mpx holds its Pallas kernel to against its XLA
+# sweep).
 BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
+K3_BAND_TOL = {"float32": 1e-4, "float64": 1e-12}
 DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
 ZERO_VARIANCE_REL = 1e-10
 
@@ -81,7 +101,7 @@ def row_scan64(T: np.ndarray, m: int, rows: np.ndarray) -> np.ndarray:
     Zq = np.stack([unit_windows64(T, m, r, r + 1)[0][0] for r in rows])
     degenerate = np.zeros(w, bool)
     D = np.empty((len(rows), w))
-    blk = 1 << 16
+    blk = max(1, (128 << 20) // (8 * m))  # ~128 MB of windows per block
     for o in range(0, w, blk):
         Z, deg = unit_windows64(T, m, o, min(o + blk, w))
         degenerate[o : o + Z.shape[0]] = deg
@@ -113,17 +133,27 @@ def check_rows(T, m, MP, MPI, rows, tol) -> float:
     return worst
 
 
+def pair_distances64(T, m, a, b) -> np.ndarray:
+    """Exact z-normalized distances between windows a[k] and b[k]."""
+    wv = np.lib.stride_tricks.sliding_window_view(T, m)
+    za, zb = (wv[x] - wv[x].mean(axis=1, keepdims=True) for x in (a, b))
+    P = np.einsum("ij,ij->i", za, zb) / np.sqrt(
+        np.einsum("ij,ij->i", za, za) * np.einsum("ij,ij->i", zb, zb))
+    return np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0))
+
+
 def check_profiles_agree(T, m, MP, MPI, MP2, MPI2, tol) -> float:
     """Two profiles of one series: distances within tol, indices equal
     or equidistant within tol."""
-    err = float(np.abs(MP - MP2).max())
+    err = float(np.abs(MP.astype(np.float64) - MP2).max())
     require(err <= tol, f"profiles differ by {err} (tol {tol})")
     diff = np.nonzero(MPI != MPI2)[0]
-    if diff.size:
-        D = row_scan64(T, m, diff)
-        for k, r in enumerate(diff):
-            require(abs(D[k, MPI[r]] - D[k, MPI2[r]]) <= tol,
-                    f"row {r}: MPI {MPI[r]} vs {MPI2[r]} not equidistant")
+    require(bool(((MPI[diff] >= 0) & (MPI2[diff] >= 0)).all()),
+            "a row has a neighbor in one profile and none in the other")
+    gap = np.abs(pair_distances64(T, m, diff, MPI[diff])
+                 - pair_distances64(T, m, diff, MPI2[diff]))
+    require(bool((gap <= tol).all()),
+            f"{int((gap > tol).sum())} rows: indices differ and are not equidistant")
     return err
 
 
@@ -148,7 +178,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load()
     regs = [ln.strip() for ln in (_build.BUILD_LOG or "").splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
     say("1 build", seconds=time.perf_counter() - t0, library=os.path.relpath(
         _build.library_path(), REPO), ptxas=regs)
 
@@ -165,11 +195,10 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_band(torch, dtype: str) -> dict:
-    """K1 vs sweep_band_mxu on the card at the main path's job shape."""
+def band_setup(dtype: str):
+    """The band-level series, statistics (with windows), geometry and
+    edge jobs at the main path's job shape (S=4096, W=16384, m=256)."""
     from mpx_torch.kernels.common import band_geometry
-    from mpx_torch.kernels.mxu import sweep_band_mxu
-    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
     from mpx_torch.ops.precompute import precompute_statistics
 
     n, m, S, W = 65536, 256, 4096, 16384
@@ -178,7 +207,6 @@ def phase_band(torch, dtype: str) -> dict:
     w = n - m + 1
     stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dtype, device="cuda")
     geom = band_geometry(S, W, m, w)
-    tol = BAND_TOL[dtype]
     jobs = {
         "first band": (0, 0),
         "exclusion zone": (8192, 0),
@@ -186,25 +214,46 @@ def phase_band(torch, dtype: str) -> dict:
         "rows past w-1": ((w - 1) // S * S, 0),
         "columns past w-1": ((w - W - 1) // S * S, W),
     }
+    return stats, geom, jobs
+
+
+def compare_band(torch, what: str, a, b, U64, r0: int, k0: int, tol: float) -> float:
+    """Band outputs a (plain) and b (kernel): values within tol, indices
+    equal or tied within tol on the exact unit windows U64."""
+    worst = 0.0
+    for side, base in (("row", r0), ("col", r0 + k0)):
+        pa, pb = getattr(a, side), getattr(b, side)
+        require(pa.value.shape == pb.value.shape, f"{what} {side}: shapes differ")
+        err = float((pa.value.double() - pb.value.double()).abs().max())
+        worst = max(worst, err)
+        require(err <= tol, f"{what} {side}: kernel vs plain {err} > {tol}")
+        ia, ib = pa.index.long(), pb.index.long()
+        bad = torch.nonzero(ia != ib).flatten()
+        require(bool(((ia[bad] >= 0) & (ib[bad] >= 0)).all()),
+                f"{what} {side}: a masked aggregate differs")
+        own = U64[base + bad]
+        gap = ((own * U64[ia[bad]]).sum(1) - (own * U64[ib[bad]]).sum(1)).abs()
+        require(bool((gap <= tol).all()),
+                f"{what} {side}: index differs where values do not tie")
+    return worst
+
+
+def phase_band(torch, dtype: str) -> dict:
+    """K1 vs sweep_band_mxu on the card at the main path's job shape."""
+    from mpx_torch.kernels.mxu import sweep_band_mxu
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+
+    stats, geom, jobs = band_setup(dtype)
+    S, W, m = geom.S, geom.W, geom.m
+    tol = BAND_TOL[dtype]
     U64 = stats.windows.double()
     worst = 0.0
     for what, (r0, k0) in jobs.items():
         a = sweep_band_mxu(stats, r0, k0, geom, dtype)
         b = sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
         torch.cuda.synchronize()
-        for side, base in (("row", r0), ("col", r0 + k0)):
-            pa, pb = getattr(a, side), getattr(b, side)
-            err = float((pa.value.double() - pb.value.double()).abs().max())
-            worst = max(worst, err)
-            require(err <= tol, f"{dtype} {what} {side}: K1 vs plain {err} > {tol}")
-            ia, ib = pa.index.long(), pb.index.long()
-            bad = torch.nonzero(ia != ib).flatten()
-            require(bool(((ia[bad] >= 0) & (ib[bad] >= 0)).all()),
-                    f"{dtype} {what} {side}: a masked aggregate differs")
-            own = U64[base + bad]
-            gap = ((own * U64[ia[bad]]).sum(1) - (own * U64[ib[bad]]).sum(1)).abs()
-            require(bool((gap <= tol).all()),
-                    f"{dtype} {what} {side}: index differs where values do not tie")
+        worst = max(worst, compare_band(torch, f"K1 {dtype} {what}", a, b, U64,
+                                        r0, k0, tol))
     r0, k0 = 4096, W  # an interior job of the main path's grid
     plain1 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
     k1a = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
@@ -219,16 +268,29 @@ def phase_band(torch, dtype: str) -> dict:
 
 
 def reset_counts():
-    from mpx_torch.kernels import mxu, mxu_fused
+    from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 
-    mxu.CALLS = 0
-    mxu_fused.LAUNCHES = 0
+    mxu.CALLS = xla.CALLS = 0
+    mxu_fused.LAUNCHES = recurrence.LAUNCHES = 0
 
 
-def counts():
-    from mpx_torch.kernels import mxu, mxu_fused
+def counts() -> dict:
+    """Launches of K1 and K3, calls of their plain versions."""
+    from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 
-    return mxu_fused.LAUNCHES, mxu.CALLS
+    return {"k1": mxu_fused.LAUNCHES, "mxu": mxu.CALLS,
+            "k3": recurrence.LAUNCHES, "xla": xla.CALLS}
+
+
+def require_only(c: dict, kernel: str, what: str, launches=None) -> int:
+    """The run launched ``kernel`` (``launches`` times, when given) and
+    nothing else of the four counted paths."""
+    others = {k: v for k, v in c.items() if k != kernel}
+    ok = c[kernel] > 0 if launches is None else c[kernel] == launches
+    require(ok and not any(others.values()),
+            f"{what}: counts {c}, expected only {kernel}"
+            f"{'' if launches is None else f' x{launches}'}")
+    return c[kernel]
 
 
 def run_profile(torch, T, cfg):
@@ -255,29 +317,35 @@ def sample_rows(w: int, seed: int) -> np.ndarray:
     return np.sort(np.concatenate([[0, w - 1], rng.choice(w, 62, replace=False)]))
 
 
-def phase_e2e_f64(torch) -> int:
-    from mpx_torch import MatrixProfileConfig
+def parity_series():
     from mpx_torch.io.tsb import read_series
 
-    T = read_series(os.path.join(REPO, "data", "benchmark", "131072.txt.gz"))
-    m, tol = 128, DIST_TOL["float64"]
+    return read_series(os.path.join(REPO, "data", "benchmark", "131072.txt.gz")), 128
+
+
+def phase_e2e_f64(torch):
+    """Returns K1's launches and its profile of the series."""
+    from mpx_torch import MatrixProfileConfig
+
+    T, m = parity_series()
+    tol = DIST_TOL["float64"]
     w = T.shape[0] - m + 1
     cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
     reset_counts()
     MP, MPI, wall, phases = run_profile(torch, T, cfg)
-    launches, calls = counts()
-    require(launches > 0 and calls == 0,
-            f"auto f64 run: K1 launches {launches}, plain calls {calls}")
+    launches = require_only(counts(), "k1", "auto f64 run")
+    reset_counts()
     MPp, MPIp, wall_plain, _ = run_profile(
         torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu", device="cuda"))
+    require_only(counts(), "mxu", "kernel='mxu' f64 run")
     vs_plain = check_profiles_agree(T, m, MP, MPI, MPp, MPIp, tol)
     vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED), tol)
     pairs = w * (w - 1) / 2
     say("3 e2e f64", n=T.shape[0], m=m, band=cfg.band, chunk=cfg.chunk,
-        k1_launches=launches, plain_calls=calls, wall_s=wall,
+        k1_launches=launches, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases, plain_wall_s=wall_plain,
         max_err_vs_plain=vs_plain, max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return launches
+    return launches, (MP, MPI)
 
 
 def phase_e2e_f32(torch) -> int:
@@ -290,13 +358,11 @@ def phase_e2e_f32(torch) -> int:
                               device="cuda")
     reset_counts()
     MP, MPI, wall, phases = run_profile(torch, T, cfg)
-    launches, calls = counts()
-    require(launches > 0 and calls == 0,
-            f"auto f32 run: K1 launches {launches}, plain calls {calls}")
+    launches = require_only(counts(), "k1", "auto f32 run")
     vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 1), tol)
     pairs = w * (w - 1) / 2
     say("4 e2e f32", n=n, m=m, band=cfg.band, chunk=cfg.chunk,
-        k1_launches=launches, plain_calls=calls, wall_s=wall,
+        k1_launches=launches, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
     return launches
@@ -323,6 +389,117 @@ def phase_cli():
             mpb_bytes=sizes[0], mpib_bytes=sizes[1])
 
 
+def phase_band_k3(torch, dtype: str) -> dict:
+    """K3 vs sweep_band_xla on the card on phase 2's series and jobs,
+    timed beside the plain version and K1 at the same job shape."""
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+    from mpx_torch.kernels.recurrence import sweep_band_recurrence
+    from mpx_torch.kernels.xla import sweep_band_xla
+
+    stats, geom, jobs = band_setup(dtype)
+    S, W, m = geom.S, geom.W, geom.m
+    tol = K3_BAND_TOL[dtype]
+    U64 = stats.windows.double()
+    worst = 0.0
+    for what, (r0, k0) in jobs.items():
+        a = sweep_band_xla(stats, r0, k0, geom, dtype)
+        b = sweep_band_recurrence(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        require(b.col.value.shape == (S + W,), f"K3 column window {b.col.value.shape}")
+        worst = max(worst, compare_band(torch, f"K3 {dtype} {what}", a, b, U64,
+                                        r0, k0, tol))
+    r0, k0 = 4096, W  # an interior job of the main path's grid
+    k3 = lambda: sweep_band_recurrence(stats, r0, k0, geom, dtype)  # noqa: E731
+    k1 = lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype)  # noqa: E731
+    plain = lambda: sweep_band_xla(stats, r0, k0, geom, dtype)  # noqa: E731
+    # The plain version is a Python loop of ~S x 15 launches: one run each.
+    plain1 = time_ms(torch, plain, reps=1)
+    k3a, k1a, k1b, k3b = (time_ms(torch, f) for f in (k3, k1, k1, k3))
+    plain2 = time_ms(torch, plain, reps=1)
+    ms, k1_ms, plain_ms = (k3a + k3b) / 2, (k1a + k1b) / 2, (plain1 + plain2) / 2
+    pairs = float(S * W)
+    say(f"6 band K3 {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
+        max_abs_err=worst, tol=tol, k3_ms=[k3a, k3b], k1_ms=[k1a, k1b],
+        plain_ms=[plain1, plain2], k3_pairs_per_s=pairs / ms * 1e3,
+        k1_pairs_per_s=pairs / k1_ms * 1e3, plain_pairs_per_s=pairs / plain_ms * 1e3)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_showcase_k3(torch) -> int:
+    """The reference's showcase job in double precision through K3."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.config import make_job_grid
+
+    n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
+    T = random_walk(n, SEED + 2)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="pallas", band=4096,
+                              chunk=32768, device="cuda")
+    grid = cfg.shrink_to(w)
+    jobs = len(make_job_grid(w, grid.band, grid.chunk).r0)
+    reset_counts()
+    MP, MPI, wall, phases = run_profile(torch, T, cfg)
+    launches = require_only(counts(), "k3", "kernel='pallas' f64 showcase", jobs)
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 2), tol)
+    pairs = w * (w - 1) / 2
+    say("7 showcase f64 K3", n=n, m=m, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
+        k3_launches=launches, plain_calls=0, wall_s=wall, pairs_per_s=pairs / wall,
+        phases_s=phases, max_err_vs_exact_64_rows=vs_exact, tol=tol)
+    return launches
+
+
+def phase_parity_k3(torch, k1_profile) -> int:
+    """kernel='pallas' in f64 and f32 against phase 3's K1 f64 profile of
+    the same series.  Returns K3's launches in the f32 run."""
+    from mpx_torch import MatrixProfileConfig
+
+    T, m = parity_series()
+    MP1, MPI1 = k1_profile
+    out = {}
+    for dt in ("float64", "float32"):
+        reset_counts()
+        MP, MPI, wall, _ = run_profile(
+            torch, T, MatrixProfileConfig(m=m, dtype=dt, kernel="pallas", device="cuda"))
+        launches = require_only(counts(), "k3", f"kernel='pallas' {dt} run")
+        err = check_profiles_agree(T, m, MP, MPI, MP1, MPI1, DIST_TOL[dt])
+        out[dt] = dict(k3_launches=launches, wall_s=wall, max_err_vs_k1_f64=err,
+                       index_differs=int((MPI != MPI1).sum()), tol=DIST_TOL[dt])
+    say("8 parity K3 vs K1", n=T.shape[0], m=m, **out)
+    return out["float32"]["k3_launches"]
+
+
+def phase_auto_large_m(torch):
+    """auto in f64 at m > MXU_MAX_M goes through K3 and builds no window
+    matrix; K1 on the same series agrees."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.kernels import MXU_MAX_M
+
+    n, m, tol = 65536, 8192, DIST_TOL["float64"]
+    require(m > MXU_MAX_M, "m must exceed MXU_MAX_M")
+    T = random_walk(n, SEED + 3)
+    w = n - m + 1
+    windows_bytes = w * m * 8  # the unpadded window matrix K1 reads
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    MP, MPI, wall, phases = run_profile(
+        torch, T, MatrixProfileConfig(m=m, dtype="float64", device="cuda"))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = require_only(counts(), "k3", "auto f64 m=8192 run")
+    require(peak < windows_bytes / 4,
+            f"auto f64 m={m}: peak {peak} B, a window matrix is {windows_bytes} B")
+    reset_counts()
+    MP1, MPI1, wall1, _ = run_profile(
+        torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu_fused",
+                                      device="cuda"))
+    require_only(counts(), "k1", "kernel='mxu_fused' f64 m=8192 run")
+    err = check_profiles_agree(T, m, MP, MPI, MP1, MPI1, tol)
+    say("9 auto f64 large m", n=n, m=m, k3_launches=launches, wall_s=wall,
+        phases_s=phases, peak_bytes=peak, window_matrix_bytes=windows_bytes,
+        k1_wall_s=wall1, max_err_vs_k1=err, tol=tol)
+
+
 def main() -> int:
     import torch
 
@@ -330,11 +507,19 @@ def main() -> int:
     sys.path.insert(0, REPO)
     phase_build()
     band = {dt: phase_band(torch, dt) for dt in ("float32", "float64")}
-    launches = {"float64": phase_e2e_f64(torch), "float32": phase_e2e_f32(torch)}
+    k1_f64, k1_profile = phase_e2e_f64(torch)
+    launches = {"mxu_fused": {"float64": k1_f64, "float32": phase_e2e_f32(torch)}}
     phase_cli()
+    band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
+    launches["band_recurrence"] = {"float64": phase_showcase_k3(torch),
+                                   "float32": phase_parity_k3(torch, k1_profile)}
+    phase_auto_large_m(torch)
     kernels = [
-        {"name": f"mxu_fused[{dt}]", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches[dt], **band[dt]}
+        {"name": f"{name}[{dt}]", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name][dt], **times[dt]}
+        for name, source, replaces, times in (
+            ("mxu_fused", K1_SOURCE, K1_REPLACES, band),
+            ("band_recurrence", K3_SOURCE, K3_REPLACES, band_k3))
         for dt in ("float32", "float64")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -2,12 +2,13 @@
 
 * ``m``          — subsequence length
 * ``dtype``      — compute dtype: float32 or float64
-* ``kernel``     — 'auto' | 'mxu' | 'mxu_fused' (see mpx_torch.kernels)
+* ``kernel``     — 'auto' | 'mxu' | 'mxu_fused' | 'xla' | 'pallas' (see
+  mpx_torch.kernels)
 * ``band``       — rows per job
 * ``chunk``      — diagonals per job
 * ``tile_rows`` / ``tile_cols`` — kept for API parity with mpx: they only
-  round ``band``/``chunk`` in ``shrink_to``; the CUDA kernel picks its own
-  tiles and masks the ragged edges
+  round ``band``/``chunk`` in ``shrink_to``; the CUDA kernels pick their
+  own tiles and mask the ragged edges
 * ``device``     — torch device every tensor of the run lives on
 
 Options that mpx has and the port does not yet implement are accepted as
@@ -26,11 +27,9 @@ import torch
 from mpx_torch.dtypes import canonical_dtype
 from mpx_torch.types import JobGrid
 
-_KERNELS = ("auto", "mxu", "mxu_fused")
+_KERNELS = ("auto", "mxu", "mxu_fused", "xla", "pallas")
 _UNPORTED_KERNELS = {
     "hybrid": "ROADMAP.md queue 1 item 8 (the hybrid tier)",
-    "xla": "ROADMAP.md queue 1 item 9 (the recurrence tier)",
-    "pallas": "ROADMAP.md queue 2 item 1 (K3, the diagonal-recurrence kernel)",
 }
 
 

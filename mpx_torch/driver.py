@@ -18,7 +18,7 @@ import torch
 
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
-from mpx_torch.kernels import band_geometry, get_sweep_fn, resolve_kernel
+from mpx_torch.kernels import band_geometry, get_sweep_fn, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import (
     init_aggregates,
     merge_window,
@@ -40,7 +40,7 @@ def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
     Aggregates, column Aggregates), each (w + S + W,)."""
     sweep = get_sweep_fn(kernel)
     L = _agg_length(geom.w, geom.S, geom.W)
-    dev = stats.windows.device
+    dev = stats.T.device
     rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
     cols = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
     for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
@@ -67,8 +67,8 @@ def compute_matrix_profile(
     returns (MP_left, MPI_left, MP_right, MPI_right): the nearest earlier /
     later neighbor profiles.
 
-    ``stats`` takes already staged statistics (with ``windows``) for the
-    same series, band and chunk; ``profile`` a
+    ``stats`` takes already staged statistics for the same series, band
+    and chunk (with ``windows`` when the kernel reads them); ``profile`` a
     :class:`mpx_torch.utils.profile.BenchmarkProfile` for per-phase times.
     """
     if config is None:
@@ -85,14 +85,17 @@ def compute_matrix_profile(
     S, W = config.band, config.chunk
     dt = torch_dtype(config.dtype)
     device = torch.device(config.device)
-    kernel = resolve_kernel(config.kernel, device)
+    kernel = resolve_kernel(config.kernel, device, dt, m)
+    windows = needs_windows(kernel)
 
     if stats is None:
         with phase(profile, "1. Pre-Computation", device=device):
             stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt,
-                                          device=device)
-    elif stats.windows is None or stats.windows.dtype != dt:
-        raise ValueError("stats must carry windows in the compute dtype")
+                                          device=device, windows=windows)
+    elif stats.T.dtype != dt or (windows and (stats.windows is None
+                                               or stats.windows.dtype != dt)):
+        raise ValueError(f"stats must be in the compute dtype"
+                         f"{' and carry windows' if windows else ''} for kernel={kernel!r}")
 
     grid = make_job_grid(w, S, W)
     geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)

@@ -1,26 +1,46 @@
 """Kernel backends, counterpart of ``mpx/kernels/__init__.py``.
 
-Two implementations of the same band-sweep contract
+Four implementations of the same band-sweep contract
 (:mod:`mpx_torch.kernels.common`):
 
 * ``mxu_fused`` — K1, the hand-written CUDA tile sweep
   (``csrc/mxu_fused.cu``); ``auto``'s choice on a CUDA device, for float32
   and float64 alike (the H100 has native FP64);
 * ``mxu``       — the plain PyTorch matmul-mask-reduce; ``auto``'s choice on
-  the CPU, and on the card only when asked for by name.
+  the CPU, and on the card only when asked for by name;
+* ``pallas``    — K3, the hand-written CUDA SCAMP diagonal recurrence
+  (``csrc/band_recurrence.cu``), O(1) work per pair; named after the mpx
+  kernel it ports so calls read the same;
+* ``xla``       — the plain PyTorch recurrence, K3's reference.
+
+``auto`` follows mpx's policy for large m: float64 with ``m > MXU_MAX_M``
+takes the recurrence (K3 on the card, the plain version on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import BandOut, band_geometry
 
+# mpx's ceiling for the windows-matmul tiers; past it float64 runs the
+# strict recurrence (mpx/kernels/__init__.py).
+MXU_MAX_M = 4096
 
-def resolve_kernel(kernel: str, device) -> str:
+
+def resolve_kernel(kernel: str, device, dtype=None, m: int = 0) -> str:
     if kernel != "auto":
         return kernel
-    return "mxu_fused" if torch.device(device).type == "cuda" else "mxu"
+    cuda = torch.device(device).type == "cuda"
+    if dtype is not None and torch_dtype(dtype) == torch.float64 and m > MXU_MAX_M:
+        return "pallas" if cuda else "xla"
+    return "mxu_fused" if cuda else "mxu"
+
+
+def needs_windows(kernel: str) -> bool:
+    """Whether the sweep reads the (padded_w, m) unit-window matrix."""
+    return kernel in ("mxu", "mxu_fused")
 
 
 def get_sweep_fn(kernel: str):
@@ -32,7 +52,16 @@ def get_sweep_fn(kernel: str):
         from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
 
         return sweep_band_mxu_fused
+    if kernel == "xla":
+        from mpx_torch.kernels.xla import sweep_band_xla
+
+        return sweep_band_xla
+    if kernel == "pallas":
+        from mpx_torch.kernels.recurrence import sweep_band_recurrence
+
+        return sweep_band_recurrence
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
-__all__ = ["BandOut", "band_geometry", "resolve_kernel", "get_sweep_fn"]
+__all__ = ["BandOut", "band_geometry", "resolve_kernel", "needs_windows",
+           "get_sweep_fn", "MXU_MAX_M"]

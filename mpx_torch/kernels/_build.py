@@ -85,8 +85,18 @@ def load() -> ctypes.CDLL:
                                p, p, p, p,                # row/col outputs
                                p]                         # stream
                 fn.restype = i
-            for name in ("mpx_k1_block_m", "mpx_k1_block_n"):
+            for name in ("mpx_k3_sweep_f32", "mpx_k3_sweep_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p, p, p,  # row df/dg/inv, col df/dg/inv, seed
+                               i, i, i, i, i, i,     # r0, k0, S, W, w, excl
+                               p, p, p, p,           # row/col partials
+                               p, p, p, p,           # row/col outputs
+                               p]                    # stream
+                fn.restype = i
+            for name in ("mpx_k1_block_m", "mpx_k1_block_n", "mpx_k3_block_w"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
+            lib.mpx_k3_block_columns.argtypes = [i]
+            lib.mpx_k3_block_columns.restype = i
             _LIB = lib
         return _LIB

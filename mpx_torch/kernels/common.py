@@ -1,11 +1,19 @@
 """Shared band-sweep kernel contract, counterpart of ``mpx/kernels/common.py``.
 
-A *job* sweeps the rectangle rows ``[r0, r0+S)`` x columns
-``[c0, c0+W)`` of the self-join, ``c0 = r0 + k0``.  Outputs are
-(value, index) aggregate pairs:
+A *job* sweeps a row band ``r0 .. r0+S`` of the self-join against W
+columns or diagonals, ``c0 = r0 + k0``:
+
+* the windows-matmul kernels (K1 and its plain version) sweep the
+  rectangle rows ``[r0, r0+S)`` x columns ``[c0, c0+W)``;
+* the recurrence kernels (K3 and its plain version) sweep the rhombus
+  rows ``[r0, r0+S)`` x diagonals ``[k0, k0+W)``: at local row ``i``,
+  lane ``j`` touches column ``c0 + i + j``.
+
+Outputs are (value, index) aggregate pairs:
 
 * ``row`` — (S,)  row aggregates for rows r0..r0+S
-* ``col`` — (W,)  column aggregates for columns c0..c0+W
+* ``col`` — column aggregates from column c0 on: (W,) for the rectangle,
+  (S + W,) for the rhombus
 
 The driver max-merges these windows into global row/column profiles, so
 jobs may run in any order.
@@ -24,12 +32,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
+from mpx_torch.ops.precompute import sliding_dot_product
 from mpx_torch.types import Aggregates
 
 
 class BandOut(NamedTuple):
     row: Aggregates  # (S,) rows r0 .. r0+S
-    col: Aggregates  # (W,) columns c0 .. c0+W
+    col: Aggregates  # (W,) or, for the recurrence, (S + W,) columns from c0
 
 
 class BandGeometry(NamedTuple):
@@ -57,3 +68,27 @@ def band_geometry(
         tr=tr, tc=tc,
         wc=w if wc is None else wc,
     )
+
+
+def seed_qt(stats, r0: int, c0: int, W: int, m: int) -> torch.Tensor:
+    """Exact QT seed for row r0 against columns [c0, c0+W):
+
+    ``QT(r0, c) = sum_j (T[r0+j] - mu[r0]) (T[c+j] - mu[c])``.  This closed
+    form replaces the reference's row-serial QT carry and makes bands
+    independent.
+
+    It is evaluated in mpx's cancellation-resistant form: with a centered
+    query ``qc = T[r0:r0+m] - mu[r0]`` and the column segment re-based to
+    its own mean ``g``,
+
+        QT(r0, c) = SDP(qc, T[seg] - g) - (mu[c] - g) * sum(qc),
+
+    so every product is O(local deviation) and float32 keeps ~sqrt(m) ulps
+    of the result."""
+    r0, c0 = int(r0), int(c0)
+    qc = stats.T[r0 : r0 + m] - stats.mu[r0]
+    seg = stats.T[c0 : c0 + W + m - 1]
+    g = seg.mean()
+    sdp = sliding_dot_product(qc, seg - g)
+    # sum(qc) is ~0 up to rounding; the correction keeps the identity exact.
+    return sdp - (stats.mu[c0 : c0 + W] - g) * qc.sum()

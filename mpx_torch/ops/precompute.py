@@ -2,10 +2,13 @@
 ``mpx/ops/precompute.py``.
 
 The statistics are accumulated in float64 on the host with numpy (the
-same two-pass estimator as mpx's numpy and native backends), cast to the
+window mean of mpx's default, native backend and the same two-pass
+sum-of-squares estimator as its numpy and native backends), cast to the
 compute dtype, zero-padded and staged on the device.  The unit-window
 matrix that the sweep kernels read is then built on the device in the
-compute dtype, exactly as mpx builds it.
+compute dtype, exactly as mpx builds it, when the sweep kernel reads it
+(``windows=True``: K1 and its plain version; the recurrence tier reads
+only ``T, mu, df, dg, inv``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from mpx_torch.types import Stats
 ZERO_VARIANCE_REL = 1e-10
 
 _WINDOWS_BLOCK = 8192
+# Bytes of a materialized block of windows: the host's centered block
+# (float64) and the window copy of one block of sliding_dot_product.
+_BLOCK_BYTES = 128 << 20
 
 
 def _padded_width(w: int, band: int, chunk: int) -> int:
@@ -33,7 +39,16 @@ def _padded_width(w: int, band: int, chunk: int) -> int:
 
 
 def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
-    """Float64 statistics of an unpadded series (host-side, BLAS)."""
+    """Float64 statistics of an unpadded series (host-side, BLAS).
+
+    The window mean is the reference's running mean
+    (``mu[i] = mu[i-1] + (T[i+m-1] - T[i-1]) / m``), bit for bit what
+    mpx's default, native backend computes.  The recurrence's update
+    assumes ``mu[i] - mu[i-1] = 2 df[i] / m``; the running mean keeps that
+    to one rounding of ``mu`` per step.  A difference of prefix sums (mpx's
+    numpy backend) rounds with the running sum instead (1.6e-9 on ``mu`` at
+    n = 2^20 of a random walk) and breaks that identity, so the float64
+    recurrence would miss 1e-8 on distances there."""
     T = np.asarray(T, dtype=np.float64)
     n = T.shape[0]
     if m < 4:
@@ -42,8 +57,9 @@ def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
         raise ValueError("n must be >= m")
     w = n - m + 1
 
-    c1 = np.concatenate([[0.0], np.cumsum(T)])
-    mu = (c1[m:] - c1[:-m]) / m
+    # Sequential sums (np.cumsum), in the native loop's order.
+    steps = np.concatenate([[np.cumsum(T[:m])[-1] / m], (T[m:] - T[:w - 1]) / m])
+    mu = np.cumsum(steps)
 
     df = np.zeros(w, dtype=np.float64)
     dg = np.zeros(w, dtype=np.float64)
@@ -55,7 +71,7 @@ def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
     windows = np.lib.stride_tricks.sliding_window_view(T, m)
     ssq = np.empty(w, dtype=np.float64)
     sumsq = np.empty(w, dtype=np.float64)
-    blk = 1 << 16  # bound the materialized centered block to ~128 MB
+    blk = max(1, _BLOCK_BYTES // (8 * m))
     for o in range(0, w, blk):
         wv = windows[o : o + blk]
         cent = wv - mu[o : o + blk, None]
@@ -71,6 +87,24 @@ def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
     return {"mu": mu, "df": df, "dg": dg, "inv": inv, "qt0": qt0}
 
 
+def sliding_dot_product(q: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """SDP(c) = sum_k q[k] * T[c+k] for c in [0, len(T) - m + 1), m = len(q).
+
+    A plain matrix product of the sliding windows:
+    mpx lowers it as a convolution at ``Precision.HIGHEST``; here a float32
+    convolution would run in TF32 through cuDNN, and the seed that uses
+    this cancels later, so it stays a matmul in full precision.  The
+    product copies the overlapping window view, so it runs in blocks of
+    ``_BLOCK_BYTES``."""
+    if T.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    U = T.unfold(0, q.shape[0], 1)
+    blk = max(1, _BLOCK_BYTES // (U.shape[1] * U.element_size()))
+    if U.shape[0] <= blk:
+        return U @ q
+    return torch.cat([U[o : o + blk] @ q for o in range(0, U.shape[0], blk)])
+
+
 def build_windows(stats: Stats, m: int) -> torch.Tensor:
     """Unit-normalized window matrix (padded_w, m) on the stats' device,
     in their dtype: ``(T[i:i+m] - mu[i]) * inv[i]``, with zero rows for
@@ -82,10 +116,11 @@ def build_windows(stats: Stats, m: int) -> torch.Tensor:
     return U.mul_(invc[:, None])  # in place: one (pw, m) allocation
 
 
-def stats_from_numpy(arrays: dict, dtype, device) -> Stats:
+def stats_from_numpy(arrays: dict, dtype, device, windows: bool = True) -> Stats:
     """Stage padded statistics given as numpy arrays (the fields of a
-    ``Stats``, e.g. mpx's) as a device ``Stats`` in ``dtype``.  The window
-    matrix is taken from ``arrays['windows']`` when present, else built."""
+    ``Stats``, e.g. mpx's) as a device ``Stats`` in ``dtype``.  With
+    ``windows`` the window matrix is taken from ``arrays['windows']`` when
+    present, else built; without it the stats carry none."""
     dt = torch_dtype(dtype)
 
     def t(name):
@@ -93,6 +128,8 @@ def stats_from_numpy(arrays: dict, dtype, device) -> Stats:
 
     stats = Stats(T=t("T"), mu=t("mu"), df=t("df"), dg=t("dg"),
                   inv=t("inv"), qt0=t("qt0"))
+    if not windows:
+        return stats
     if arrays.get("windows") is not None:
         return stats._replace(windows=t("windows").contiguous())
     m = stats.T.shape[0] - stats.mu.shape[0] + 1
@@ -100,10 +137,12 @@ def stats_from_numpy(arrays: dict, dtype, device) -> Stats:
 
 
 def precompute_statistics(T, m: int, *, band: int, chunk: int,
-                          dtype="float32", device="cpu") -> Stats:
-    """Device-resident, padded statistics and unit windows in the compute
-    dtype.  Accumulation is float64 on the host; the pad region is zero
-    so out-of-range lanes behave like the reference's ``InputDataPack(0)``."""
+                          dtype="float32", device="cpu", windows: bool = True) -> Stats:
+    """Device-resident, padded statistics in the compute dtype, with the
+    unit-window matrix when ``windows`` (the (padded_w, m) matrix only the
+    windows-matmul kernels read).  Accumulation is float64 on the host
+    (:func:`precompute_statistics_numpy`); the pad region is zero so
+    out-of-range lanes behave like the reference's ``InputDataPack(0)``."""
     T64 = np.asarray(T, dtype=np.float64)
     w = T64.shape[0] - m + 1
     pw = _padded_width(w, band, chunk)
@@ -118,4 +157,4 @@ def precompute_statistics(T, m: int, *, band: int, chunk: int,
     arrays = {"T": padn(T64, pw + m - 1)}
     for name in ("mu", "df", "dg", "inv", "qt0"):
         arrays[name] = padn(s[name], pw)
-    return stats_from_numpy(arrays, dtype, device)
+    return stats_from_numpy(arrays, dtype, device, windows=windows)

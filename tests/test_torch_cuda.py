@@ -1,14 +1,17 @@
-"""mpx_torch on an NVIDIA GPU: K1 against its plain version, and the
-self-join end to end against the numpy golden oracle.
+"""mpx_torch on an NVIDIA GPU: K1 and K3 against their plain versions,
+and the self-join end to end against the numpy golden oracle.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor mpx, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: band values 1e-5 (float32) / 1e-12 (float64), the two sides
-summing m products in different orders; distances 2e-3 / 1e-8, the
-repo's profile tolerances.  Indices may differ only between ties.
+Tolerances: K1's band values 1e-5 (float32) / 1e-12 (float64), the two
+sides summing m products in different orders; K3's 1e-4 / 1e-12, the
+recurrence carrying its rounding down the band's rows in another order
+(1e-4 is the bound mpx holds its Pallas kernel to against its XLA sweep);
+distances 2e-3 / 1e-8, the repo's profile tolerances.  Indices may differ
+only between ties.
 """
 
 import numpy as np
@@ -16,12 +19,13 @@ import pytest
 import torch
 
 from mpx_torch import MatrixProfileConfig, compute_matrix_profile
-from mpx_torch.kernels import mxu, mxu_fused
+from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.reference import compute_matrix_profile_reference
 
 BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
+K3_BAND_TOL = {"float32": 1e-4, "float64": 1e-12}
 DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
 N, M, S, W = 2048, 64, 256, 512
 W_PROFILE = N - M + 1
@@ -44,8 +48,22 @@ def _znorm_distance(T, m, i, j) -> float:
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+        pytest.skip("needs a CUDA device: K1 and K3 are CUDA kernels with no CPU mode")
     return torch.device("cuda")
+
+
+def _assert_band_close(ours, ref, U64, r0, k0, tol):
+    for side, base in (("row", r0), ("col", r0 + k0)):
+        a, b = getattr(ours, side), getattr(ref, side)
+        assert a.value.shape == b.value.shape, (r0, k0, side)
+        err = (a.value.double() - b.value.double()).abs().max().item()
+        assert err <= tol, (r0, k0, side, err)
+        bad = torch.nonzero(a.index != b.index).flatten()
+        assert bool(((a.index[bad] >= 0) & (b.index[bad] >= 0)).all())
+        own = U64[base + bad]
+        gap = ((own * U64[a.index[bad].long()]).sum(1)
+               - (own * U64[b.index[bad].long()]).sum(1)).abs()
+        assert bool((gap <= tol).all()), (r0, k0, side)
 
 
 @pytest.mark.cuda
@@ -60,17 +78,25 @@ def test_k1_matches_plain_on_card(card, dtype):
         ours = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
         ref = mxu.sweep_band_mxu(stats, r0, k0, geom, dtype)
         torch.cuda.synchronize()
-        for side, base in (("row", r0), ("col", r0 + k0)):
-            a, b = getattr(ours, side), getattr(ref, side)
-            err = (a.value.double() - b.value.double()).abs().max().item()
-            assert err <= BAND_TOL[dtype], (r0, k0, side, err)
-            bad = torch.nonzero(a.index != b.index).flatten()
-            assert bool(((a.index[bad] >= 0) & (b.index[bad] >= 0)).all())
-            own = U64[base + bad]
-            gap = ((own * U64[a.index[bad].long()]).sum(1)
-                   - (own * U64[b.index[bad].long()]).sum(1)).abs()
-            assert bool((gap <= BAND_TOL[dtype]).all()), (r0, k0, side)
+        _assert_band_close(ours, ref, U64, r0, k0, BAND_TOL[dtype])
     assert mxu_fused.LAUNCHES == launches + len(EDGE_JOBS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k3_matches_plain_on_card(card, dtype):
+    stats = precompute_statistics(_series(N, 7), M, band=S, chunk=W, dtype=dtype,
+                                  device=card)
+    U64 = stats.windows.double()
+    geom = band_geometry(S, W, M, W_PROFILE)
+    launches = recurrence.LAUNCHES
+    for r0, k0 in EDGE_JOBS:
+        ours = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dtype)
+        ref = xla.sweep_band_xla(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        assert ours.col.value.shape == (S + W,)
+        _assert_band_close(ours, ref, U64, r0, k0, K3_BAND_TOL[dtype])
+    assert recurrence.LAUNCHES == launches + len(EDGE_JOBS)
 
 
 @pytest.mark.cuda
@@ -91,6 +117,23 @@ def test_auto_profile_on_card_matches_golden(card, dtype, left_right):
         right_wins = out[2] < out[0]
         out = [np.where(right_wins, out[2], out[0]), np.where(right_wins, out[3], out[1])]
     MP, MPI = out
+    np.testing.assert_allclose(MP, MP_exp, rtol=0, atol=DIST_TOL[dtype])
+    for i in np.nonzero(MPI != MPI_exp)[0]:
+        gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPI_exp[i])
+        assert abs(gap) <= DIST_TOL[dtype], f"MPI[{i}] not an equidistant tie"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pallas_profile_on_card_matches_golden(card, dtype):
+    T = _series(3000, 11, constant_run=False)
+    m = 32
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel="pallas", band=256, chunk=512,
+                              device="cuda")
+    calls, launches = xla.CALLS, recurrence.LAUNCHES
+    MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+    assert xla.CALLS == calls and recurrence.LAUNCHES > launches
+    MP_exp, MPI_exp = compute_matrix_profile_reference(T, m)
     np.testing.assert_allclose(MP, MP_exp, rtol=0, atol=DIST_TOL[dtype])
     for i in np.nonzero(MPI != MPI_exp)[0]:
         gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPI_exp[i])

@@ -1,7 +1,8 @@
 """mpx_torch.compute_matrix_profile (CPU) against mpx and the golden oracle.
 
 The same series, band and chunk go through both packages (mpx with
-``kernel='mxu'``, the plain sweep the port's CPU path mirrors).
+``kernel='mxu'``, the plain sweep the port's CPU path mirrors, and with
+``kernel='xla'`` for the port's recurrence tier).
 Tolerances are the repo's profile tolerances (tests/helpers.py):
 distances within 1e-8 (float64) and 2e-3 (float32), indices equal or
 equidistant.
@@ -154,3 +155,106 @@ def test_job_grid_and_shrink_match_mpx(w, band, chunk):
     cfg = MatrixProfileConfig(m=16, band=band, chunk=chunk, device="cpu").shrink_to(w)
     ref_cfg = mpx.MatrixProfileConfig(m=16, band=band, chunk=chunk).shrink_to(w)
     assert (cfg.band, cfg.chunk) == (ref_cfg.band, ref_cfg.chunk)
+
+
+# The recurrence tier: kernel='xla' (plain) and kernel='pallas' (K3, which
+# takes the plain version on the CPU) against mpx's kernel='xla'.
+RECURRENCE_DATASETS = [DATASETS[0], DATASETS[2], DATASETS[3]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("path,limit,m,band,chunk", RECURRENCE_DATASETS)
+def test_recurrence_profile_matches_mpx_and_golden(path, limit, m, band, chunk,
+                                                   kernel, dtype):
+    T = _load(path, limit)
+    eps = distance_epsilon(dtype)
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=band,
+                              chunk=chunk, device="cpu")
+    MP, MPI = _np(compute_matrix_profile(T, config=cfg))
+    assert MP.dtype == np.dtype(dtype) and MPI.dtype == np.int32
+    ref_cfg = mpx.MatrixProfileConfig(m=m, dtype=dtype, kernel="xla", band=band,
+                                      chunk=chunk)
+    MP_ref, MPI_ref = (np.asarray(x) for x in mpx.compute_matrix_profile(T, config=ref_cfg))
+    assert_profile_close(T, m, MP, MPI, MP_ref, MPI_ref, eps=eps)
+    MP_gold, MPI_gold = _golden(T, m)
+    assert_profile_close(T, m, MP, MPI, MP_gold, MPI_gold, eps=eps)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("path,limit,m,band,chunk", [DATASETS[0], DATASETS[3]])
+def test_recurrence_left_right_matches_mpx(path, limit, m, band, chunk, kernel, dtype):
+    T = _load(path, limit)
+    eps = distance_epsilon(dtype)
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=band,
+                              chunk=chunk, device="cpu")
+    ours = _np(compute_matrix_profile(T, config=cfg, left_right=True))
+    ref_cfg = mpx.MatrixProfileConfig(m=m, dtype=dtype, kernel="xla", band=band,
+                                      chunk=chunk)
+    ref = [np.asarray(x) for x in
+           mpx.compute_matrix_profile(T, config=ref_cfg, left_right=True)]
+    for side in (0, 2):  # left, right
+        assert_profile_close(T, m, ours[side], ours[side + 1], ref[side],
+                             ref[side + 1], eps=eps)
+
+
+def test_recurrence_stages_no_windows(monkeypatch):
+    """The recurrence reads only T, mu, df, dg and inv: no window matrix is
+    built for it, and staged stats without one serve it (not K1)."""
+    import mpx_torch.ops.precompute as pre
+    from mpx_torch.kernels import xla
+
+    T = _load("test/1024.txt", None)
+    cfg = MatrixProfileConfig(m=16, dtype="float64", kernel="pallas", band=128,
+                              chunk=256, device="cpu")
+    ref = _np(compute_matrix_profile(T, config=cfg))
+    stats = pre.precompute_statistics(T, 16, band=128, chunk=256, dtype="float64",
+                                      device="cpu", windows=False)
+    assert stats.windows is None
+
+    def no_windows(*args, **kwargs):
+        raise AssertionError("the recurrence tier built the window matrix")
+
+    monkeypatch.setattr(pre, "build_windows", no_windows)
+    calls = xla.CALLS
+    got = _np(compute_matrix_profile(T, config=cfg, stats=stats))
+    assert xla.CALLS > calls
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    with pytest.raises(ValueError, match="windows"):
+        compute_matrix_profile(T, config=MatrixProfileConfig(
+            m=16, dtype="float64", band=128, chunk=256, device="cpu"), stats=stats)
+
+
+def test_auto_f64_large_m_takes_the_recurrence(monkeypatch):
+    """mpx's policy: float64 with m > MXU_MAX_M runs the recurrence (the
+    plain version on the CPU), with no window matrix."""
+    import mpx_torch.ops.precompute as pre
+    from mpx_torch.kernels import MXU_MAX_M, mxu, xla
+
+    m = MXU_MAX_M + 4
+    T = np.cumsum(np.random.default_rng(3).standard_normal(m + 300))
+    monkeypatch.setattr(pre, "build_windows", None)  # any call would raise
+    calls, mxu_calls = xla.CALLS, mxu.CALLS
+    MP, MPI = matrix_profile(T, m, dtype="float64", device="cpu")
+    assert xla.CALLS > calls and mxu.CALLS == mxu_calls
+    MP_ref, MPI_ref = (np.asarray(x) for x in mpx.compute_matrix_profile(
+        T, config=mpx.MatrixProfileConfig(m=m, dtype="float64", kernel="xla")))
+    assert_profile_close(T, m, MP, MPI, MP_ref, MPI_ref, eps=1e-8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cli_compute_pallas_matches_mpx_files(tmp_path, dtype):
+    inp = os.path.join(DATA_DIR, "binary", "1024.tsb")
+    common = ["compute", "-i", inp, "-m", "16", "--dtype", dtype,
+              "--band", "256", "--chunk", "512"]
+    ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
+    assert port_main(common + ["-o", ours, "--device", "cpu", "--kernel", "pallas"]) == 0
+    assert mpx_main(common + ["-o", ref, "--kernel", "xla"]) == 0
+    T = read_series(inp)
+    MP, MPI = read_binary(ours + ".mpb", "double"), read_binary(ours + ".mpib", "int")
+    MP_ref = read_binary(ref + ".mpb", "double")
+    MPI_ref = read_binary(ref + ".mpib", "int")
+    assert MP.shape == MP_ref.shape == (T.shape[0] - 15,)
+    assert_profile_close(T, 16, MP, MPI, MP_ref, MPI_ref, eps=distance_epsilon(dtype))

@@ -141,5 +141,5 @@ def test_resolve_kernel():
     assert resolve_kernel("mxu", "cuda") == "mxu"
     assert resolve_kernel("mxu_fused", "cpu") == "mxu_fused"
     with pytest.raises(ValueError):
-        get_sweep_fn("pallas")
+        get_sweep_fn("hybrid")
 

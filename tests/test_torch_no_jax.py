@@ -63,8 +63,6 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(kernel="hybrid"), "queue 1 item 8"),
-    (dict(kernel="xla"), "queue 1 item 9"),
-    (dict(kernel="pallas"), "queue 2 item 1"),
     (dict(num_shards=2), "queue 1 item 13"),
     (dict(shard_mode="ring"), "queue 1 item 13"),
     (dict(input_quant="ap16"), "queue 1 item 7"),
@@ -74,6 +72,11 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         MatrixProfileConfig(m=16, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_recurrence_kernels_are_accepted(kernel):
+    assert MatrixProfileConfig(m=16, device="cpu", kernel=kernel).kernel == kernel
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -1,18 +1,21 @@
 """mpx_torch statistics and unit windows against mpx.ops.precompute.
 
-Tolerances: the host statistics run the same float64 numpy code in both
-packages, so they must agree exactly; the staged, padded vectors are the
-same casts, so they agree exactly too.  The window matrix is built on
-each package's device from those staged vectors: within 1e-12 (float64)
-and 1e-6 (float32).
+Tolerances: the host window mean is mpx's native backend's running mean,
+so ``mu`` (and with it ``df`` and ``dg``) agrees bit for bit, and the
+staged, padded ``T``, ``mu``, ``df`` and ``dg`` are the same casts, so they
+agree exactly too.  ``inv`` and ``qt0`` sum in another order than that
+backend's C loop: 1e-14 relative, and 1e-12 of ``m * max(T^2)``, the scale
+``qt0``'s prefix form cancels from; staged in float32 they may round one
+float32 step apart.  The window matrix is built on each package's device
+from the staged vectors: within 1e-12 (float64) and 1e-6 (float32).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mpx import native as mpx_native
 from mpx.ops.precompute import precompute_statistics as mpx_precompute
-from mpx.ops.precompute import precompute_statistics_numpy as mpx_stats_numpy
 from mpx_torch.ops.precompute import (
     build_windows,
     precompute_statistics,
@@ -37,8 +40,16 @@ def _series(kind: str) -> np.ndarray:
 
 def _mpx_arrays(T, m, band, chunk, dtype) -> dict:
     s = mpx_precompute(T, m, band=band, chunk=chunk, dtype=dtype,
-                       backend="numpy", windows=True)
+                       backend="native", windows=True)
     return {f: np.asarray(getattr(s, f)) for f in FIELDS + ("windows",)}
+
+
+def _assert_inv_qt0(ours_inv, ours_qt0, ref_inv, ref_qt0, T, m, rtol=0.0):
+    np.testing.assert_array_equal(np.isfinite(ours_inv), np.isfinite(ref_inv))
+    live = np.isfinite(ref_inv)
+    np.testing.assert_allclose(ours_inv[live], ref_inv[live], rtol=1e-14 + rtol, atol=0)
+    np.testing.assert_allclose(ours_qt0, ref_qt0, rtol=rtol,
+                               atol=1e-12 * m * np.max(T * T))
 
 
 @pytest.mark.parametrize("kind", ["walk", "constant-run", "1024"])
@@ -46,9 +57,24 @@ def _mpx_arrays(T, m, band, chunk, dtype) -> dict:
 def test_host_statistics_exact(kind, m):
     T = _series(kind)
     ours = precompute_statistics_numpy(T, m)
-    ref = mpx_stats_numpy(T, m)
-    for name in ("mu", "df", "dg", "inv", "qt0"):
+    ref = mpx_native.precompute(T, m)
+    for name in ("mu", "df", "dg"):
         np.testing.assert_array_equal(ours[name], ref[name], err_msg=name)
+    _assert_inv_qt0(ours["inv"], ours["qt0"], ref["inv"], ref["qt0"], T, m)
+
+
+@pytest.mark.parametrize("kind", ["walk", "constant-run", "1024"])
+@pytest.mark.parametrize("m", [16, 100])
+def test_running_mean_keeps_recurrence_identity(kind, m):
+    """The recurrence assumes mu[i] - mu[i-1] = 2 df[i] / m; the running
+    mean keeps it to one rounding of mu per step (a difference of prefix
+    sums misses it by hundreds of those on these series)."""
+    T = _series(kind)
+    s = precompute_statistics_numpy(T, m)
+    mu = s["mu"]
+    step = np.diff(mu) - 2 * s["df"][1:] / m
+    bound = np.finfo(np.float64).eps * np.maximum(np.abs(mu[1:]), np.abs(mu[:-1]))
+    assert np.all(np.abs(step) <= bound)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -63,9 +89,13 @@ def test_staged_stats_and_windows(kind, m, band, chunk, dtype):
                                  device="cpu")
     ref = _mpx_arrays(T, m, band, chunk, dtype)
     for name in FIELDS:
-        got = getattr(ours, name).numpy()
-        assert got.dtype == ref[name].dtype, name
-        np.testing.assert_array_equal(got, ref[name], err_msg=name)
+        assert getattr(ours, name).numpy().dtype == ref[name].dtype, name
+    for name in ("T", "mu", "df", "dg"):
+        np.testing.assert_array_equal(getattr(ours, name).numpy(), ref[name], err_msg=name)
+    f32_step = np.finfo(np.float32).eps if dtype == "float32" else 0.0
+    _assert_inv_qt0(ours.inv.numpy().astype(np.float64), ours.qt0.numpy().astype(np.float64),
+                    ref["inv"].astype(np.float64), ref["qt0"].astype(np.float64),
+                    T, m, rtol=f32_step)
     U = ours.windows.numpy()
     assert U.shape == ref["windows"].shape
     np.testing.assert_allclose(U, ref["windows"], rtol=0, atol=WINDOW_TOL[dtype])
