@@ -8,10 +8,15 @@ script exits nonzero without the final line):
 
 0. device: the card's name and power limit, torch and CUDA versions;
 1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc over both) for
-   sm_90a;
+   sm_90a, with ptxas's registers and the count of tensor-core
+   instructions (DMMA, HMMA) in each of K1's kernels, from
+   ``cuobjdump -sass`` of the library;
 2. K1 against its plain PyTorch version on the card, band level, f32 and
    f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
-   jobs, with CUDA-event times of both;
+   jobs, with CUDA-event times of both, of one ``torch.matmul`` of the
+   same panels (TF32 off; the yardstick, never called by the port), K1's
+   bound, and K1's time on the same job at m = 64, 128 and 512 and at
+   W = 32768;
 3. end to end, f64, n=131072, m=128 (data/benchmark/131072.txt.gz) through
    kernel='auto' (K1), against kernel='mxu' on the card and against an
    exact float64 numpy row scan on 64 sampled rows;
@@ -27,11 +32,15 @@ script exits nonzero without the final line):
 8. parity: ``kernel='pallas'`` in f64 and f32 on phase 3's series against
    phase 3's K1 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
-   (peak device memory), against ``kernel='mxu_fused'`` on the same series.
+   (peak device memory), against ``kernel='mxu_fused'`` on the same series;
+10. the f64 showcase through ``auto`` (K1): n=2^20, m=256, band 4096,
+    chunk 32768, a random walk from its own fixed seed, one K1 launch per
+    job and no plain call, against the exact row scan.
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path run: K1 in
-phases 3 and 4, K3 in phases 7 and 8); the line before the last is the
+phases 10 and 4, K3 in phases 7 and 8; the bound and the library call's
+time at the band-level shape); the line before the last is the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
@@ -62,6 +71,17 @@ BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
 K3_BAND_TOL = {"float32": 1e-4, "float64": 1e-12}
 DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
 ZERO_VARIANCE_REL = 1e-10
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet; dense,
+# no sparsity), for the bounds.  K1 runs f64 on the FP64 tensor cores and
+# f32 as three TF32 products; K3 runs on the FP64 / FP32 units, counted in
+# instructions (an FMA is one, at half the FLOP rate).
+MEM_BYTES_PER_S = 3.35e12
+K1_FLOPS = {"float64": 67e12, "float32": 495e12 / 3}
+K3_OPS = {"float64": 34e12 / 2, "float32": 67e12 / 2}
+# Floating-point instructions per pair in K3 (band_recurrence.cu): the QT
+# update (multiply, FMA, add), P = QT * inv_r * inv_c (two multiplies), the
+# NaN test, and the row and column comparisons.
+K3_OPS_PER_PAIR = 8
 
 
 def require(ok, msg: str) -> None:
@@ -177,10 +197,35 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
+    seconds = time.perf_counter() - t0
     regs = [ln.strip() for ln in (_build.BUILD_LOG or "").splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    say("1 build", seconds=time.perf_counter() - t0, library=os.path.relpath(
-        _build.library_path(), REPO), ptxas=regs)
+    mma = tensor_core_counts(_build)
+    for name, kind in (("k1_tiles<double>", "DMMA"), ("k1_tiles<float>", "HMMA")):
+        require(mma[name][kind] > 0, f"{name} has no {kind} instruction: {mma[name]}")
+    say("1 build", seconds=seconds, library=os.path.relpath(
+        _build.library_path(), REPO), ptxas=regs, sass_mma=mma)
+
+
+def tensor_core_counts(_build) -> dict:
+    """DMMA and HMMA instructions in each of K1's tile kernels, counted in
+    ``cuobjdump -sass`` of the built library."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        for key, mangled in (("k1_tiles<double>", "k1_tilesIdE"),
+                             ("k1_tiles<float>", "k1_tilesIfE")):
+            if mangled in name:
+                ops = [op for ln in section.splitlines() if "*/" in ln
+                       for op in ln.split("*/", 1)[1].split()[:2]]  # [predicate] opcode
+                out[key] = {kind: sum(op.startswith(kind + ".") or op == kind
+                                      for op in ops) for kind in ("DMMA", "HMMA")}
+    require(set(out) == {"k1_tiles<double>", "k1_tiles<float>"},
+            f"K1's tile kernels not found in the SASS: {sorted(out)}")
+    return out
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -195,13 +240,13 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def band_setup(dtype: str):
+def band_setup(dtype: str, m: int = 256, W: int = 16384):
     """The band-level series, statistics (with windows), geometry and
     edge jobs at the main path's job shape (S=4096, W=16384, m=256)."""
     from mpx_torch.kernels.common import band_geometry
     from mpx_torch.ops.precompute import precompute_statistics
 
-    n, m, S, W = 65536, 256, 4096, 16384
+    n, S = 65536, 4096
     T = random_walk(n, SEED)
     T[30000:30700] = T[30000]  # a constant run: zero-variance windows
     w = n - m + 1
@@ -255,16 +300,64 @@ def phase_band(torch, dtype: str) -> dict:
         worst = max(worst, compare_band(torch, f"K1 {dtype} {what}", a, b, U64,
                                         r0, k0, tol))
     r0, k0 = 4096, W  # an interior job of the main path's grid
+    c0 = r0 + k0
+    Ur, Uc = stats.windows[r0 : r0 + S], stats.windows[c0 : c0 + W]
+    # The yardstick: one library product of the same panels, in full
+    # precision (TF32 would keep ~3 digits); no mask, no reduction.
+    torch.backends.cuda.matmul.allow_tf32 = False
     plain1 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
     k1a = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
+    lib1 = time_ms(torch, lambda: torch.matmul(Ur, Uc.T))
+    lib2 = time_ms(torch, lambda: torch.matmul(Ur, Uc.T))
     k1b = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
     plain2 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
-    ms, plain_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2
+    ms, plain_ms, library_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2, (lib1 + lib2) / 2
     flops = 2.0 * S * W * m
+    # K1's time per m at the same job (the work is O(m), K3's is not), and
+    # at the showcase runs' chunk, W = 32768.
+    by_m = {}
+    del Ur, Uc
+    for m2 in (64, 128, 512):
+        stats2, geom2, _ = band_setup(dtype, m2)
+        by_m[m2] = time_ms(torch, lambda: sweep_band_mxu_fused(stats2, r0, k0, geom2, dtype))
+        del stats2
+    by_m[m] = ms
+    stats2, geom2, _ = band_setup(dtype, m, 2 * W)
+    ms_w2 = time_ms(torch, lambda: sweep_band_mxu_fused(stats2, r0, 2 * W, geom2, dtype))
+    del stats2
+    bound = k1_bound(S, W, m, stats.windows.element_size(), dtype)
     say(f"2 band {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
         max_abs_err=worst, tol=tol, k1_ms=[k1a, k1b], plain_ms=[plain1, plain2],
-        k1_tflops=flops / ms / 1e9, plain_tflops=flops / plain_ms / 1e9)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        library_ms=[lib1, lib2], allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        **bound, k1_share_of_bound=bound["bound_ms"] / ms,
+        k1_tflops=flops / ms / 1e9, plain_tflops=flops / plain_ms / 1e9,
+        library_tflops=flops / library_ms / 1e9, k1_ms_by_m=dict(sorted(by_m.items())),
+        k1_ms_w32768=ms_w2)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms}
+
+
+def bound_of(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time for the work: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def k1_bound(S: int, W: int, m: int, itemsize: int, dtype: str) -> dict:
+    """K1 on one job: the S + W windows and inverse norms read once, the
+    S + W (value, index) aggregates written once; 2m FLOPs a pair."""
+    nbytes = (S + W) * (m + 1) * itemsize + (S + W) * (itemsize + 4)
+    return bound_of(nbytes, 2.0 * S * W * m, K1_FLOPS[dtype])
+
+
+def k3_bound(S: int, W: int, itemsize: int, dtype: str) -> dict:
+    """K3 on one job: df, dg and inv of S rows and S + W columns and the W
+    seeds read once, the S + (S + W) aggregates written once;
+    K3_OPS_PER_PAIR instructions a pair."""
+    nbytes = (3 * S + 3 * (S + W) + W) * itemsize + (2 * S + W) * (itemsize + 4)
+    return bound_of(nbytes, float(K3_OPS_PER_PAIR) * S * W, K3_OPS[dtype])
 
 
 def reset_counts():
@@ -293,23 +386,54 @@ def require_only(c: dict, kernel: str, what: str, launches=None) -> int:
     return c[kernel]
 
 
+class CardSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled by nvidia-smi
+    every 200 ms while the block runs; the process is stopped on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        vals = []
+        for ln in out.splitlines():
+            try:
+                vals.append([float(x) for x in ln.split(",")][:2])
+            except ValueError:  # "[N/A]" or a line cut by the stop
+                continue
+        vals = np.array([v for v in vals if len(v) == 2]).reshape(-1, 2)
+        self.summary = {"samples": len(vals)} if not len(vals) else {
+            "samples": len(vals), "sm_mhz_median": float(np.median(vals[:, 0])),
+            "power_w_median": float(np.median(vals[:, 1])),
+            "power_w_max": float(vals[:, 1].max())}
+        return False
+
+
 def run_profile(torch, T, cfg):
+    """Returns MP, MPI, wall seconds, phase seconds and the card's clock
+    and power during the run."""
     from mpx_torch import compute_matrix_profile
     from mpx_torch.utils.profile import BenchmarkProfile
 
     prof = BenchmarkProfile()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     MP, MPI = MP.cpu().numpy(), MPI.cpu().numpy()
     w = T.shape[0] - cfg.m + 1
     require(MP.shape == (w,) and MPI.shape == (w,), f"shapes {MP.shape} {MPI.shape}")
     require(np.isfinite(MP).all(), "non-finite distances")
     require(((MPI >= -1) & (MPI < w)).all(), "index out of range")
     phases = {k: v / 1e9 for k, v in prof.category_totals().items()}
-    return MP, MPI, wall, phases
+    return MP, MPI, wall, phases, card.summary
 
 
 def sample_rows(w: int, seed: int) -> np.ndarray:
@@ -324,7 +448,7 @@ def parity_series():
 
 
 def phase_e2e_f64(torch):
-    """Returns K1's launches and its profile of the series."""
+    """Returns K1's profile of the series."""
     from mpx_torch import MatrixProfileConfig
 
     T, m = parity_series()
@@ -332,10 +456,10 @@ def phase_e2e_f64(torch):
     w = T.shape[0] - m + 1
     cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
     reset_counts()
-    MP, MPI, wall, phases = run_profile(torch, T, cfg)
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), "k1", "auto f64 run")
     reset_counts()
-    MPp, MPIp, wall_plain, _ = run_profile(
+    MPp, MPIp, wall_plain, _, _ = run_profile(
         torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu", device="cuda"))
     require_only(counts(), "mxu", "kernel='mxu' f64 run")
     vs_plain = check_profiles_agree(T, m, MP, MPI, MPp, MPIp, tol)
@@ -343,9 +467,9 @@ def phase_e2e_f64(torch):
     pairs = w * (w - 1) / 2
     say("3 e2e f64", n=T.shape[0], m=m, band=cfg.band, chunk=cfg.chunk,
         k1_launches=launches, plain_calls=0, wall_s=wall,
-        pairs_per_s=pairs / wall, phases_s=phases, plain_wall_s=wall_plain,
+        pairs_per_s=pairs / wall, phases_s=phases, card=card, plain_wall_s=wall_plain,
         max_err_vs_plain=vs_plain, max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return launches, (MP, MPI)
+    return MP, MPI
 
 
 def phase_e2e_f32(torch) -> int:
@@ -357,13 +481,13 @@ def phase_e2e_f32(torch) -> int:
     cfg = MatrixProfileConfig(m=m, dtype="float32", band=4096, chunk=32768,
                               device="cuda")
     reset_counts()
-    MP, MPI, wall, phases = run_profile(torch, T, cfg)
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), "k1", "auto f32 run")
     vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 1), tol)
     pairs = w * (w - 1) / 2
     say("4 e2e f32", n=n, m=m, band=cfg.band, chunk=cfg.chunk,
         k1_launches=launches, plain_calls=0, wall_s=wall,
-        pairs_per_s=pairs / wall, phases_s=phases,
+        pairs_per_s=pairs / wall, phases_s=phases, card=card,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
     return launches
 
@@ -418,33 +542,40 @@ def phase_band_k3(torch, dtype: str) -> dict:
     plain2 = time_ms(torch, plain, reps=1)
     ms, k1_ms, plain_ms = (k3a + k3b) / 2, (k1a + k1b) / 2, (plain1 + plain2) / 2
     pairs = float(S * W)
+    bound = k3_bound(S, W, stats.df.element_size(), dtype)
     say(f"6 band K3 {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
         max_abs_err=worst, tol=tol, k3_ms=[k3a, k3b], k1_ms=[k1a, k1b],
-        plain_ms=[plain1, plain2], k3_pairs_per_s=pairs / ms * 1e3,
+        plain_ms=[plain1, plain2], **bound, k3_share_of_bound=bound["bound_ms"] / ms,
+        k3_pairs_per_s=pairs / ms * 1e3,
         k1_pairs_per_s=pairs / k1_ms * 1e3, plain_pairs_per_s=pairs / plain_ms * 1e3)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # No single library call computes the recurrence.
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None}
 
 
-def phase_showcase_k3(torch) -> int:
-    """The reference's showcase job in double precision through K3."""
+def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int) -> int:
+    """The reference's showcase job in double precision (n=2^20, m=256,
+    band 4096, chunk 32768) through ``kernel``: one launch of the counted
+    kernel per job and no plain call, against the exact row scan."""
     from mpx_torch import MatrixProfileConfig
     from mpx_torch.config import make_job_grid
 
     n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
-    T = random_walk(n, SEED + 2)
+    T = random_walk(n, seed)
     w = n - m + 1
-    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="pallas", band=4096,
+    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel=kernel, band=4096,
                               chunk=32768, device="cuda")
     grid = cfg.shrink_to(w)
     jobs = len(make_job_grid(w, grid.band, grid.chunk).r0)
     reset_counts()
-    MP, MPI, wall, phases = run_profile(torch, T, cfg)
-    launches = require_only(counts(), "k3", "kernel='pallas' f64 showcase", jobs)
-    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 2), tol)
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
+    launches = require_only(counts(), counter, f"kernel={kernel!r} f64 showcase", jobs)
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, seed), tol)
     pairs = w * (w - 1) / 2
-    say("7 showcase f64 K3", n=n, m=m, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
-        k3_launches=launches, plain_calls=0, wall_s=wall, pairs_per_s=pairs / wall,
-        phases_s=phases, max_err_vs_exact_64_rows=vs_exact, tol=tol)
+    say(phase, n=n, m=m, kernel=kernel, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
+        **{f"{counter}_launches": launches}, plain_calls=0, wall_s=wall,
+        pairs_per_s=pairs / wall, phases_s=phases, card=card,
+        max_err_vs_exact_64_rows=vs_exact, tol=tol)
     return launches
 
 
@@ -458,7 +589,7 @@ def phase_parity_k3(torch, k1_profile) -> int:
     out = {}
     for dt in ("float64", "float32"):
         reset_counts()
-        MP, MPI, wall, _ = run_profile(
+        MP, MPI, wall, _, _ = run_profile(
             torch, T, MatrixProfileConfig(m=m, dtype=dt, kernel="pallas", device="cuda"))
         launches = require_only(counts(), "k3", f"kernel='pallas' {dt} run")
         err = check_profiles_agree(T, m, MP, MPI, MP1, MPI1, DIST_TOL[dt])
@@ -483,14 +614,14 @@ def phase_auto_large_m(torch):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    MP, MPI, wall, phases = run_profile(
+    MP, MPI, wall, phases, _ = run_profile(
         torch, T, MatrixProfileConfig(m=m, dtype="float64", device="cuda"))
     peak = torch.cuda.max_memory_allocated() - base
     launches = require_only(counts(), "k3", "auto f64 m=8192 run")
     require(peak < windows_bytes / 4,
             f"auto f64 m={m}: peak {peak} B, a window matrix is {windows_bytes} B")
     reset_counts()
-    MP1, MPI1, wall1, _ = run_profile(
+    MP1, MPI1, wall1, _, _ = run_profile(
         torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu_fused",
                                       device="cuda"))
     require_only(counts(), "k1", "kernel='mxu_fused' f64 m=8192 run")
@@ -507,13 +638,16 @@ def main() -> int:
     sys.path.insert(0, REPO)
     phase_build()
     band = {dt: phase_band(torch, dt) for dt in ("float32", "float64")}
-    k1_f64, k1_profile = phase_e2e_f64(torch)
-    launches = {"mxu_fused": {"float64": k1_f64, "float32": phase_e2e_f32(torch)}}
+    k1_profile = phase_e2e_f64(torch)
+    launches = {"mxu_fused": {"float32": phase_e2e_f32(torch)}}
     phase_cli()
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
-    launches["band_recurrence"] = {"float64": phase_showcase_k3(torch),
+    launches["band_recurrence"] = {"float64": phase_showcase(
+        torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2),
                                    "float32": phase_parity_k3(torch, k1_profile)}
     phase_auto_large_m(torch)
+    launches["mxu_fused"]["float64"] = phase_showcase(
+        torch, "10 showcase f64 auto (K1)", "auto", "k1", SEED + 4)
     kernels = [
         {"name": f"{name}[{dt}]", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][dt], **times[dt]}

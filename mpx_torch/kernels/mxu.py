@@ -28,30 +28,38 @@ def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                    dtype) -> BandOut:
     global CALLS
     CALLS += 1
-    S, W, w, excl = geom.S, geom.W, geom.w, geom.excl
+    S, W = geom.S, geom.W
     U = stats.windows
     if U is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
     dt = torch_dtype(dtype)
     if U.dtype != dt:
         raise ValueError(f"stats are {U.dtype}, sweep asked for {dt}")
-    dev = U.device
-    if dev.type == "cuda":
+    if U.device.type == "cuda":
         # Full-precision products: TF32 keeps ~3 decimal digits, far
         # outside the distance tolerance.
         torch.backends.cuda.matmul.allow_tf32 = False
     r0, k0 = int(r0), int(k0)
     c0 = r0 + k0
+    return reduce_tile(U[r0 : r0 + S] @ U[c0 : c0 + W].T, stats, r0, c0, geom)
 
-    P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
+
+def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
+                geom: BandGeometry) -> BandOut:
+    """Mask the (S, W) correlation tile of rows r0.. and columns c0.. (in
+    place) and reduce it to row and column max with the smallest index
+    winning ties."""
+    w, excl = geom.w, geom.excl
+    dt, dev = P.dtype, P.device
+    S, W = P.shape
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)[:, None]
     cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)[None, :]
     fin_r = torch.isfinite(stats.inv[r0 : r0 + S])[:, None]
     fin_c = torch.isfinite(stats.inv[c0 : c0 + W])[None, :]
     valid = (cols - rows >= excl) & (rows <= w - 1) & (cols <= geom.wc - 1) & fin_r & fin_c
     init_v = torch.tensor(AGGREGATE_INIT, dtype=dt, device=dev)
-    Pm = torch.where(valid, P, init_v)
-    del P, valid  # free the raw tile before the reductions allocate
+    Pm = P.masked_fill_(~valid, AGGREGATE_INIT)
+    del valid  # free the mask before the reductions allocate
 
     # max + first-occurrence index via an iota-min over the tie mask.
     big = torch.tensor(2**30, dtype=torch.int32, device=dev)

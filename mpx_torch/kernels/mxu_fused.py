@@ -1,10 +1,15 @@
 """K1: the fused tile sweep (matmul + masked max/argmax in one kernel).
 
-Counterpart of ``mpx/kernels/mxu_fused.py``; the kernel itself is
-``mpx_torch/csrc/mxu_fused.cu`` (CUDA C++ for sm_90a, f32 and f64, FMA
-products without TF32).  The correlation tile never reaches device
-memory: only per-tile (value, index) partials do, and a second kernel
-in the same source reduces them to the job's ``BandOut``.
+Counterpart of ``mpx/kernels/mxu_fused.py`` (the Pallas TPU kernel
+``_kernel``); the kernel itself is ``mpx_torch/csrc/mxu_fused.cu``, CUDA
+C++ for sm_90a on the tensor cores.  float64 runs on the FP64 tensor cores
+(DMMA), bound by their 67 TFLOP/s; float32 runs as split TF32 (three TF32
+products per f32 product, ~2^-22 relative each, where plain TF32 keeps
+three decimal digits), bound by 495 / 3 TFLOP/s.  Each 128 x 64 block
+(two per SM in f64, three in f32) stages the m axis through a 3-slab
+``cp.async`` ring in shared memory.  The correlation tile never reaches
+device memory: only per-tile (value, index) partials do, and a second
+kernel in the same source reduces them to the job's ``BandOut``.
 
 A CPU tensor takes the plain PyTorch version
 (:func:`mpx_torch.kernels.mxu.sweep_band_mxu`); a CUDA tensor launches the

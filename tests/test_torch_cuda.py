@@ -84,6 +84,31 @@ def test_k1_matches_plain_on_card(card, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [4, 37, 100, 256])
+def test_k1_ragged_shapes_match_plain_on_card(card, dtype, m):
+    """m off the MMA depth (and, at m = 37, rows off 16-byte boundaries);
+    S and W off the 128 x 64 block tile; jobs on the exclusion zone, the
+    constant run, rows past w-1 and columns past w-1."""
+    n, band, chunk = 1700 + m, 200, 328
+    w = n - m + 1
+    T = _series(n, 13, constant_run=False)
+    T[n // 3 : n // 3 + 400] = T[n // 3]  # zero-variance windows at every m here
+    stats = precompute_statistics(T, m, band=band, chunk=chunk, dtype=dtype, device=card)
+    U64 = stats.windows.double()
+    geom = band_geometry(band, chunk, m, w)
+    jobs = [(0, 0), (n // 3 - 100, 0), (n // 3 - 100, band), (w - band // 2, 0),
+            (w - chunk - band // 2, chunk)]
+    launches = mxu_fused.LAUNCHES
+    for r0, k0 in jobs:
+        ours = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
+        ref = mxu.sweep_band_mxu(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        _assert_band_close(ours, ref, U64, r0, k0, BAND_TOL[dtype])
+    assert mxu_fused.LAUNCHES == launches + len(jobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_k3_matches_plain_on_card(card, dtype):
     stats = precompute_statistics(_series(N, 7), M, band=S, chunk=W, dtype=dtype,
                                   device=card)
