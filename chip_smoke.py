@@ -10,7 +10,8 @@ script exits nonzero without the final line):
 1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc over both) for
    sm_90a, with ptxas's registers and the count of tensor-core
    instructions (DMMA, HMMA) in each of K1's kernels, from
-   ``cuobjdump -sass`` of the library;
+   ``cuobjdump -sass`` of the library, and the registers, spills and
+   shared memory of K3's three kernels (k3_segsum, k3_tiles, k3_reduce);
 2. K1 against its plain PyTorch version on the card, band level, f32 and
    f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
    jobs, with CUDA-event times of both, of one ``torch.matmul`` of the
@@ -25,10 +26,16 @@ script exits nonzero without the final line):
 5. the command line: ``python -m mpx_torch compute`` on data/binary/16384.tsb;
 6. K3 against its plain PyTorch version (``sweep_band_xla``) on the card,
    band level, f32 and f64, on phase 2's series and edge jobs, with
-   CUDA-event times of K3, the plain version and K1 at the same job shape;
+   CUDA-event times of K3's wrapper (seed, allocations and launches, as
+   the driver calls it; K3's ``ms``), of its kernels alone (the job's
+   three launches), of the plain version and of K1 at the same job shape;
+   K3 at W = 32768 too, its grid, resident blocks per SM and share of the
+   bound; and K3's and K1's wrapper times (with K3's kernels alone) per m
+   (64, 128, 256, 512) and chunk (16384, 32768);
 7. the f64 showcase through K3 (``kernel='pallas'``): n=2^20, m=256, band
    4096, chunk 32768, a random walk from a fixed seed, one K3 launch per
-   job and no plain call, against the exact row scan;
+   job and no plain call, against the exact row scan; its sweep time per
+   job beside phase 6's K3 times (wrapper, kernels alone) at W = 32768;
 8. parity: ``kernel='pallas'`` in f64 and f32 on phase 3's series against
    phase 3's K1 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
@@ -73,11 +80,13 @@ DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
 ZERO_VARIANCE_REL = 1e-10
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet; dense,
 # no sparsity), for the bounds.  K1 runs f64 on the FP64 tensor cores and
-# f32 as three TF32 products; K3 runs on the FP64 / FP32 units, counted in
-# instructions (an FMA is one, at half the FLOP rate).
+# f32 as three TF32 products.  K3's work is counted in instructions of the
+# data's type (an FMA is one, at half the FLOP rate): FP32 for float32
+# statistics, FP64 for float64.  That band_recurrence.cu computes in
+# float64 for both is the kernel's choice, not part of the work.
 MEM_BYTES_PER_S = 3.35e12
 K1_FLOPS = {"float64": 67e12, "float32": 495e12 / 3}
-K3_OPS = {"float64": 34e12 / 2, "float32": 67e12 / 2}
+K3_OPS_PER_S = {"float64": 34e12 / 2, "float32": 67e12 / 2}
 # Floating-point instructions per pair in K3 (band_recurrence.cu): the QT
 # update (multiply, FMA, add), P = QT * inv_r * inv_c (two multiplies), the
 # NaN test, and the row and column comparisons.
@@ -204,7 +213,29 @@ def phase_build():
     for name, kind in (("k1_tiles<double>", "DMMA"), ("k1_tiles<float>", "HMMA")):
         require(mma[name][kind] > 0, f"{name} has no {kind} instruction: {mma[name]}")
     say("1 build", seconds=seconds, library=os.path.relpath(
-        _build.library_path(), REPO), ptxas=regs, sass_mma=mma)
+        _build.library_path(), REPO), ptxas=regs, sass_mma=mma,
+        k3_ptxas=k3_ptxas(_build.BUILD_LOG or ""))
+
+
+def k3_ptxas(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of K3's kernels,
+    from ptxas's report in the build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((f"{k}<{t}>" for k in ("k3_segsum", "k3_tiles", "k3_reduce")
+                         for t, c in (("float", "If"), ("double", "Id"))
+                         if f"{len(k)}{k}{c}" in ln), None)
+        elif name and "spill stores" in ln:
+            w = ln.split()
+            out.setdefault(name, {}).update(spill_store_bytes=int(w[w.index("spill") - 2]),
+                                            spill_load_bytes=int(w[-4]))
+        elif name and "registers" in ln:
+            w = ln.replace(",", " ").split()
+            out.setdefault(name, {})["registers"] = int(w[w.index("registers") - 1])
+            out[name]["smem_bytes"] = int(w[w.index("smem") - 2]) if "smem" in w else 0
+    require(len(out) == 6, f"ptxas report of K3's kernels incomplete: {sorted(out)}")
+    return out
 
 
 def tensor_core_counts(_build) -> dict:
@@ -357,7 +388,7 @@ def k3_bound(S: int, W: int, itemsize: int, dtype: str) -> dict:
     seeds read once, the S + (S + W) aggregates written once;
     K3_OPS_PER_PAIR instructions a pair."""
     nbytes = (3 * S + 3 * (S + W) + W) * itemsize + (2 * S + W) * (itemsize + 4)
-    return bound_of(nbytes, float(K3_OPS_PER_PAIR) * S * W, K3_OPS[dtype])
+    return bound_of(nbytes, float(K3_OPS_PER_PAIR) * S * W, K3_OPS_PER_S[dtype])
 
 
 def reset_counts():
@@ -513,11 +544,32 @@ def phase_cli():
             mpb_bytes=sizes[0], mpib_bytes=sizes[1])
 
 
+def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
+    """CUDA-event time of K3's kernels alone on one job: the job's seed and
+    buffers made once, then its three launches repeated (not counted)."""
+    from mpx_torch.kernels.recurrence import prepare_launch
+
+    launch, _ = prepare_launch(stats, r0, k0, geom, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_ms(torch, lambda: require(launch(stream) == 0, "K3 launch failed"), reps)
+
+
+def k3_wrapper_ms(torch, stats, r0, k0, geom, dtype, reps: int = 50) -> float:
+    """CUDA-event time of one job through K3's wrapper, as the driver
+    calls it (the seed, the allocations and the three launches).  Its host
+    work can set the pace, and the host's clock is noisy: many runs."""
+    from mpx_torch.kernels.recurrence import sweep_band_recurrence
+
+    return time_ms(torch, lambda: sweep_band_recurrence(stats, r0, k0, geom, dtype), reps)
+
+
 def phase_band_k3(torch, dtype: str) -> dict:
     """K3 vs sweep_band_xla on the card on phase 2's series and jobs,
-    timed beside the plain version and K1 at the same job shape."""
+    timed beside the plain version and K1 at the same job shape; K3 and K1
+    per m and chunk."""
+    from mpx_torch.kernels import _build
     from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
-    from mpx_torch.kernels.recurrence import sweep_band_recurrence
+    from mpx_torch.kernels.recurrence import SEGMENT_ROWS, sweep_band_recurrence
     from mpx_torch.kernels.xla import sweep_band_xla
 
     stats, geom, jobs = band_setup(dtype)
@@ -533,30 +585,70 @@ def phase_band_k3(torch, dtype: str) -> dict:
         worst = max(worst, compare_band(torch, f"K3 {dtype} {what}", a, b, U64,
                                         r0, k0, tol))
     r0, k0 = 4096, W  # an interior job of the main path's grid
-    k3 = lambda: sweep_band_recurrence(stats, r0, k0, geom, dtype)  # noqa: E731
-    k1 = lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype)  # noqa: E731
-    plain = lambda: sweep_band_xla(stats, r0, k0, geom, dtype)  # noqa: E731
+    # K3's time is its wrapper's, as the driver calls it and as K1's is
+    # taken (seed, allocations and launches; its host work is part of the
+    # job); its kernels alone are timed beside it.
+    k3 = lambda: k3_wrapper_ms(torch, stats, r0, k0, geom, dtype)  # noqa: E731
+    alone = lambda: k3_kernel_ms(torch, stats, r0, k0, geom, dtype)  # noqa: E731
+    k1 = lambda: time_ms(torch, lambda: sweep_band_mxu_fused(  # noqa: E731
+        stats, r0, k0, geom, dtype))
     # The plain version is a Python loop of ~S x 15 launches: one run each.
-    plain1 = time_ms(torch, plain, reps=1)
-    k3a, k1a, k1b, k3b = (time_ms(torch, f) for f in (k3, k1, k1, k3))
-    plain2 = time_ms(torch, plain, reps=1)
-    ms, k1_ms, plain_ms = (k3a + k3b) / 2, (k1a + k1b) / 2, (plain1 + plain2) / 2
+    plain = lambda: time_ms(torch, lambda: sweep_band_xla(  # noqa: E731
+        stats, r0, k0, geom, dtype), reps=1)
+    plain1 = plain()
+    k3a, alonea, k1a, k1b, aloneb, k3b = (f() for f in (k3, alone, k1, k1, alone, k3))
+    plain2 = plain()
+    ms, alone_ms = (k3a + k3b) / 2, (alonea + aloneb) / 2
+    k1_ms, plain_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2
     pairs = float(S * W)
     bound = k3_bound(S, W, stats.df.element_size(), dtype)
+    del U64
+    # K3 and K1 per m and chunk, wrapper against wrapper (the crossover
+    # `auto` needs; K3's kernels do O(1) work a pair whatever m, its seed
+    # O(m) a diagonal), and K3's kernels alone.
+    by_shape = {}
+    for W2 in (W, 2 * W):
+        for m2 in (64, 128, 256, 512):
+            stats2, geom2, _ = band_setup(dtype, m2, W2)
+            args = (stats2, r0, W2, geom2, dtype)
+            by_shape[f"W={W2} m={m2}"] = {
+                "k3_ms": k3_wrapper_ms(torch, *args),
+                "k1_ms": time_ms(torch, lambda: sweep_band_mxu_fused(*args)),
+                "k3_kernels_ms": k3_kernel_ms(torch, *args)}
+            del stats2
+    lib = _build.load()
+    f64 = int(dtype == "float64")
+    w2 = by_shape[f"W={2 * W} m={m}"]
+    bound_w2 = k3_bound(S, 2 * W, stats.df.element_size(), dtype)["bound_ms"]
+    nbj, G = -(-W // lib.mpx_k3_block_w()), -(-S // SEGMENT_ROWS)
     say(f"6 band K3 {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
-        max_abs_err=worst, tol=tol, k3_ms=[k3a, k3b], k1_ms=[k1a, k1b],
-        plain_ms=[plain1, plain2], **bound, k3_share_of_bound=bound["bound_ms"] / ms,
-        k3_pairs_per_s=pairs / ms * 1e3,
-        k1_pairs_per_s=pairs / k1_ms * 1e3, plain_pairs_per_s=pairs / plain_ms * 1e3)
+        max_abs_err=worst, tol=tol, k3_ms=[k3a, k3b], k3_kernels_ms=[alonea, aloneb],
+        k1_ms=[k1a, k1b], plain_ms=[plain1, plain2], **bound,
+        k3_share_of_bound=bound["bound_ms"] / ms,
+        k3_kernels_share_of_bound=bound["bound_ms"] / alone_ms,
+        k3_pairs_per_s=pairs / ms * 1e3, k1_pairs_per_s=pairs / k1_ms * 1e3,
+        plain_pairs_per_s=pairs / plain_ms * 1e3,
+        grid={"k3_segsum": [nbj, G - 1], "k3_tiles": [nbj, G], "threads": 32,
+              "segment_rows": SEGMENT_ROWS},
+        resident_blocks_per_sm={k: lib.mpx_k3_resident_blocks(f64, i) for i, k in
+                                enumerate(("k3_segsum", "k3_tiles", "k3_reduce"))},
+        k3_ms_w32768=w2["k3_ms"], k3_kernels_ms_w32768=w2["k3_kernels_ms"],
+        k3_share_of_bound_w32768=bound_w2 / w2["k3_ms"],
+        k3_kernels_share_of_bound_w32768=bound_w2 / w2["k3_kernels_ms"],
+        by_chunk_and_m=by_shape)
     # No single library call computes the recurrence.
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
-            "library_ms": None}
+            "library_ms": None, "_w32768": w2}
 
 
-def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int) -> int:
+def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
+                   band_ms_per_job=None) -> int:
     """The reference's showcase job in double precision (n=2^20, m=256,
     band 4096, chunk 32768) through ``kernel``: one launch of the counted
-    kernel per job and no plain call, against the exact row scan."""
+    kernel per job and no plain call, against the exact row scan.  With
+    ``band_ms_per_job`` (phase 6's times of one such job: the wrapper's
+    ``k3_ms`` and the kernels' ``k3_kernels_ms``), the sweep's time per
+    job is printed beside them."""
     from mpx_torch import MatrixProfileConfig
     from mpx_torch.config import make_job_grid
 
@@ -572,9 +664,14 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int) -> i
     launches = require_only(counts(), counter, f"kernel={kernel!r} f64 showcase", jobs)
     vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, seed), tol)
     pairs = w * (w - 1) / 2
+    per_job = {}
+    if band_ms_per_job is not None:
+        sweep = next(v for k, v in phases.items() if k.startswith("2. Compute"))
+        per_job = {"sweep_ms_per_job": sweep / jobs * 1e3,
+                   "band_level_ms_per_job": band_ms_per_job}
     say(phase, n=n, m=m, kernel=kernel, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
         **{f"{counter}_launches": launches}, plain_calls=0, wall_s=wall,
-        pairs_per_s=pairs / wall, phases_s=phases, card=card,
+        pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
     return launches
 
@@ -642,8 +739,9 @@ def main() -> int:
     launches = {"mxu_fused": {"float32": phase_e2e_f32(torch)}}
     phase_cli()
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
+    k3_w32768 = {dt: band_k3[dt].pop("_w32768") for dt in band_k3}
     launches["band_recurrence"] = {"float64": phase_showcase(
-        torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2),
+        torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2, k3_w32768["float64"]),
                                    "float32": phase_parity_k3(torch, k1_profile)}
     phase_auto_large_m(torch)
     launches["mxu_fused"]["float64"] = phase_showcase(

@@ -89,14 +89,16 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p, p, p,  # row df/dg/inv, col df/dg/inv, seed
                                i, i, i, i, i, i,     # r0, k0, S, W, w, excl
+                               p,                    # segment sums
                                p, p, p, p,           # row/col partials
                                p, p, p, p,           # row/col outputs
                                p]                    # stream
                 fn.restype = i
-            for name in ("mpx_k1_block_m", "mpx_k1_block_n", "mpx_k3_block_w"):
+            for name in ("mpx_k1_block_m", "mpx_k1_block_n", "mpx_k3_block_w",
+                         "mpx_k3_segment_rows", "mpx_k3_block_columns"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
-            lib.mpx_k3_block_columns.argtypes = [i]
-            lib.mpx_k3_block_columns.restype = i
+            lib.mpx_k3_resident_blocks.argtypes = [i, i]  # f64, which kernel
+            lib.mpx_k3_resident_blocks.restype = i
             _LIB = lib
         return _LIB

@@ -70,7 +70,7 @@ def band_geometry(
     )
 
 
-def seed_qt(stats, r0: int, c0: int, W: int, m: int) -> torch.Tensor:
+def seed_qt(stats, r0: int, c0: int, W: int, m: int, dtype=None) -> torch.Tensor:
     """Exact QT seed for row r0 against columns [c0, c0+W):
 
     ``QT(r0, c) = sum_j (T[r0+j] - mu[r0]) (T[c+j] - mu[c])``.  This closed
@@ -84,11 +84,13 @@ def seed_qt(stats, r0: int, c0: int, W: int, m: int) -> torch.Tensor:
         QT(r0, c) = SDP(qc, T[seg] - g) - (mu[c] - g) * sum(qc),
 
     so every product is O(local deviation) and float32 keeps ~sqrt(m) ulps
-    of the result."""
+    of the result.  ``dtype`` (default: the statistics') is the type it is
+    computed in."""
     r0, c0 = int(r0), int(c0)
-    qc = stats.T[r0 : r0 + m] - stats.mu[r0]
-    seg = stats.T[c0 : c0 + W + m - 1]
+    dt = stats.T.dtype if dtype is None else dtype
+    qc = stats.T[r0 : r0 + m].to(dt) - stats.mu[r0].to(dt)
+    seg = stats.T[c0 : c0 + W + m - 1].to(dt)
     g = seg.mean()
     sdp = sliding_dot_product(qc, seg - g)
     # sum(qc) is ~0 up to rounding; the correction keeps the identity exact.
-    return sdp - (stats.mu[c0 : c0 + W] - g) * qc.sum()
+    return sdp - (stats.mu[c0 : c0 + W].to(dt) - g) * qc.sum()

@@ -3,11 +3,16 @@
 Counterpart of ``mpx/kernels/pallas_tpu.py:sweep_band_pallas``; the kernel
 itself is ``mpx_torch/csrc/band_recurrence.cu`` (CUDA C++ for sm_90a, f32
 and f64: the H100 has native FP64, so unlike mpx's Pallas kernel this is
-also the strict float64 tier).  One thread carries QT along one diagonal;
-the exact seed comes from :func:`mpx_torch.kernels.common.seed_qt`,
-computed here, outside the kernel.  Only per-block (value, index) partials
-reach device memory, and a second kernel in the same source reduces them
-to the job's ``BandOut`` (rows (S,), columns (S + W,)).
+also the strict float64 tier, and it computes in float64 for float32
+statistics too, rounding only its outputs).  The band's rows are cut into
+segments of ``SEGMENT_ROWS`` rows, swept in parallel; each segment starts
+its diagonals from the job's one exact seed
+(:func:`mpx_torch.kernels.common.seed_qt`, computed here, outside the
+kernel) plus the earlier segments' sums of the same update terms, which a
+first kernel writes.  Only per-block (value, index) partials reach device
+memory, and a last kernel reduces them to the job's ``BandOut`` (rows
+(S,), columns (S + W,)).  Scratch is allocated here; the kernels allocate
+nothing.
 
 A CPU tensor takes the plain PyTorch version
 (:func:`mpx_torch.kernels.xla.sweep_band_xla`); a CUDA tensor launches the
@@ -23,8 +28,11 @@ from mpx_torch.kernels.common import BandGeometry, BandOut, seed_qt
 from mpx_torch.kernels.xla import sweep_band_xla
 from mpx_torch.types import Aggregates, Stats
 
-# Launches of the CUDA kernel pair (a plain count; reset by whoever reads it).
+# Launches of the CUDA kernels of one job (a plain count; reset by whoever
+# reads it).
 LAUNCHES = 0
+# Rows per segment, the kernel's R (checked against the built library).
+SEGMENT_ROWS = 256
 
 
 def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
@@ -32,9 +40,22 @@ def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     global LAUNCHES
     if stats.df.device.type == "cpu":
         return sweep_band_xla(stats, r0, k0, geom, dtype)
+    launch, out = prepare_launch(stats, r0, k0, geom, dtype)
+    with torch.cuda.device(stats.df.device):
+        err = launch(torch.cuda.current_stream(stats.df.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    return out
+
+
+def prepare_launch(stats: Stats, r0: int, k0: int, geom: BandGeometry, dtype):
+    """Check the job, compute its seed and allocate the outputs and scratch
+    on the card.  Returns (launch, out): ``launch(stream)`` launches the
+    job's kernels on the CUDA stream handle ``stream`` and returns a
+    cudaError_t, without counting; ``out`` is the ``BandOut`` they fill."""
     if stats.df.device.type != "cuda":
         raise ValueError(f"the recurrence kernel runs on CUDA tensors, got {stats.df.device}")
-
     dt = torch_dtype(dtype)
     S, W, m, w, excl = geom.S, geom.W, geom.m, geom.w, geom.excl
     r0, k0 = int(r0), int(k0)
@@ -59,30 +80,31 @@ def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     from mpx_torch.kernels import _build
 
     lib = _build.load()
-    nbj, ncol = -(-W // lib.mpx_k3_block_w()), lib.mpx_k3_block_columns(S)
+    if lib.mpx_k3_segment_rows() != SEGMENT_ROWS:
+        raise RuntimeError(f"K3 was built with {lib.mpx_k3_segment_rows()} rows per "
+                           f"segment, the wrapper expects {SEGMENT_ROWS}")
+    nbj, ncol = -(-W // lib.mpx_k3_block_w()), lib.mpx_k3_block_columns()
+    G = -(-S // SEGMENT_ROWS)
     dev = stats.df.device
-    seed = seed_qt(stats, r0, c0, W, m).contiguous()
+    # The kernel computes in float64 for both dtypes (csrc header).
+    seed = seed_qt(stats, r0, c0, W, m, torch.float64).contiguous()
+    seg = torch.empty((max(G - 1, 1), W), dtype=torch.float64, device=dev)
     part_rv = torch.empty((nbj, S), dtype=dt, device=dev)
     part_ri = torch.empty((nbj, S), dtype=torch.int32, device=dev)
-    part_cv = torch.empty((nbj, ncol), dtype=dt, device=dev)
-    part_ci = torch.empty((nbj, ncol), dtype=torch.int32, device=dev)
-    row_v = torch.empty(S, dtype=dt, device=dev)
-    row_i = torch.empty(S, dtype=torch.int32, device=dev)
-    col_v = torch.empty(S + W, dtype=dt, device=dev)
-    col_i = torch.empty(S + W, dtype=torch.int32, device=dev)
-
+    part_cv = torch.empty((G * nbj, ncol), dtype=dt, device=dev)
+    part_ci = torch.empty((G * nbj, ncol), dtype=torch.int32, device=dev)
+    out = BandOut(row=Aggregates(torch.empty(S, dtype=dt, device=dev),
+                                 torch.empty(S, dtype=torch.int32, device=dev)),
+                  col=Aggregates(torch.empty(S + W, dtype=dt, device=dev),
+                                 torch.empty(S + W, dtype=torch.int32, device=dev)))
     rows = [v[r0 : r0 + S] for v in vecs[:3]]
     cols = [v[c0 : c0 + S + W] for v in vecs[:3]]
     fn = lib.mpx_k3_sweep_f64 if dt == torch.float64 else lib.mpx_k3_sweep_f32
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(x.data_ptr() for x in rows + cols), seed.data_ptr(),
-                 r0, k0, S, W, w, excl,
-                 part_rv.data_ptr(), part_ri.data_ptr(),
-                 part_cv.data_ptr(), part_ci.data_ptr(),
-                 row_v.data_ptr(), row_i.data_ptr(),
-                 col_v.data_ptr(), col_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
-    return BandOut(row=Aggregates(row_v, row_i), col=Aggregates(col_v, col_i))
+    args = (*rows, *cols, seed, r0, k0, S, W, w, excl, seg, part_rv, part_ri,
+            part_cv, part_ci, out.row.value, out.row.index, out.col.value, out.col.index)
+
+    def launch(stream):
+        return fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                  stream)
+
+    return launch, out

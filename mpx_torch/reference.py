@@ -128,6 +128,62 @@ def compute_matrix_profile_reference(T: np.ndarray, m: int):
     return MP, MPI
 
 
+def band_recurrence_exact(T, mu, df, dg, inv, r0: int, k0: int, S: int, W: int,
+                          m: int, w: int, excl: int, block: int = 1024):
+    """One band job of the SCAMP recurrence on given statistics, summed in
+    extended precision (numpy longdouble with a 64-bit significand).
+
+    The statistics (float64 arrays, or float32 values widened) are taken
+    as exact.  With c0 = r0 + k0, diagonal j of band row i is column
+    c0 + i + j and
+
+        QT(0, j) = sum_k (T[r0+k] - mu[r0]) (T[c0+j+k] - mu[c0+j]),
+        QT(i, j) = QT(i-1, j) + df[r0+i] dg[c0+i+j] + df[c0+i+j] dg[r0+i],
+        P(i, j)  = QT(i, j) inv[r0+i] inv[c0+i+j],
+
+    masked as the band sweeps mask it (exclusion zone k0 + j < excl, rows
+    and columns past w - 1, non-finite inverse norms) to AGGREGATE_INIT.
+    Every float32 or float64 sweep of the band is a rounding of this
+    function, so it measures their error.  Returns (row_v, row_i, col_v,
+    col_i, P): the row (S,) and column (S + W,) maxima with the smallest
+    index (INDEX_INIT where nothing is valid) and P (S, W), values rounded
+    to float64; ``block`` diagonals at a time bound the memory."""
+    L = np.longdouble
+    if np.finfo(L).nmant < 63:
+        raise RuntimeError("band_recurrence_exact needs an 80-bit or wider longdouble")
+    c0 = r0 + k0
+    cut = lambda a, lo, n: np.asarray(a, dtype=L)[lo : lo + n]  # noqa: E731
+    df_r, dg_r, inv_r = (cut(a, r0, S) for a in (df, dg, inv))
+    df_c, dg_c, inv_c = (cut(a, c0, S + W) for a in (df, dg, inv))
+    qc = cut(T, r0, m) - L(mu[r0])
+    Tc, muc = cut(T, c0, W + m - 1), cut(mu, c0, W)
+    row_ok = ((r0 + np.arange(S)) <= w - 1) & np.isfinite(inv_r)
+    col_ok = ((c0 + np.arange(S + W)) <= w - 1) & np.isfinite(inv_c)
+    window = np.lib.stride_tricks.sliding_window_view
+    P = np.empty((S, W))
+    for j0 in range(0, W, block):  # diagonals [j0, j0 + block)
+        Wb = min(block, W - j0)
+        diag = lambda a: window(a[j0 : j0 + S + Wb - 1], Wb)[:S]  # noqa: E731
+        U = df_r[:, None] * diag(dg_c) + diag(df_c) * dg_r[:, None]
+        U[0] = ((window(Tc[j0 : j0 + Wb + m - 1], m) - muc[j0 : j0 + Wb, None]) * qc).sum(1)
+        with np.errstate(invalid="ignore", over="ignore"):
+            Pb = (np.cumsum(U, axis=0) * inv_r[:, None] * diag(inv_c)).astype(np.float64)
+        ok = (k0 + j0 + np.arange(Wb) >= excl)[None, :] & row_ok[:, None] & diag(col_ok)
+        P[:, j0 : j0 + Wb] = np.where(ok & (Pb == Pb), Pb, AGGREGATE_INIT)
+
+    def best(V, axis, base):
+        v = V.max(axis=axis)  # argmax: the first, so the smallest index
+        return v, np.where(v > AGGREGATE_INIT, base + V.argmax(axis=axis),
+                           INDEX_INIT).astype(np.int32)
+
+    rows = np.arange(S)[:, None]
+    C = np.full((S, S + W), AGGREGATE_INIT)  # column-aligned: C[i, i + j] = P[i, j]
+    C[rows, rows + np.arange(W)] = P
+    row_v, row_i = best(P, 1, c0 + np.arange(S))
+    col_v, col_i = best(C, 0, r0)
+    return row_v, row_i, col_v, col_i, P
+
+
 def znormalized_distance_matrix(T: np.ndarray, m: int):
     """Second, fully independent oracle: direct z-normalized Euclidean
     distances between all subsequence pairs, O(n^2 m).  Used to validate

@@ -7,10 +7,12 @@ imports neither JAX nor mpx, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1's band values 1e-5 (float32) / 1e-12 (float64), the two
-sides summing m products in different orders; K3's 1e-4 / 1e-12, the
-recurrence carrying its rounding down the band's rows in another order
-(1e-4 is the bound mpx holds its Pallas kernel to against its XLA sweep);
-distances 2e-3 / 1e-8, the repo's profile tolerances.  Indices may differ
+sides summing m products in different orders.  K3 and its plain version
+carry the recurrence's rounding down the band's rows, each in its own
+order, and near-constant windows amplify it: each is held to the exact
+recurrence of the same statistics (``K3_EXACT_TOL``, ``PLAIN_EXACT_TOL``),
+and K3 in float64 to the plain version at 1e-12 away from them.
+Distances 2e-3 / 1e-8, the repo's profile tolerances.  Indices may differ
 only between ties.
 """
 
@@ -22,10 +24,16 @@ from mpx_torch import MatrixProfileConfig, compute_matrix_profile
 from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.ops.precompute import precompute_statistics
-from mpx_torch.reference import compute_matrix_profile_reference
+from mpx_torch.reference import band_recurrence_exact, compute_matrix_profile_reference
 
 BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
 K3_BAND_TOL = {"float32": 1e-4, "float64": 1e-12}
+# K3 and its plain version against the exact recurrence of the same
+# statistics, beside near-constant windows: about three times the largest
+# reading (PERF.md, PR 4).  K3 computes in float64 for float32 statistics
+# too, so its float32 error is one rounding of its outputs.
+K3_EXACT_TOL = {"float32": 1e-6, "float64": 1e-11}
+PLAIN_EXACT_TOL = {"float32": 4e-3, "float64": 1e-11}
 DIST_TOL = {"float32": 2e-3, "float64": 1e-8}
 N, M, S, W = 2048, 64, 256, 512
 W_PROFILE = N - M + 1
@@ -107,21 +115,82 @@ def test_k1_ragged_shapes_match_plain_on_card(card, dtype, m):
     assert mxu_fused.LAUNCHES == launches + len(jobs)
 
 
+def exact_band(stats, r0, k0, geom):
+    """The band's exact recurrence on the same statistics
+    (:func:`mpx_torch.reference.band_recurrence_exact`)."""
+    f = lambda x: x.double().cpu().numpy()  # noqa: E731
+    return band_recurrence_exact(f(stats.T), f(stats.mu), f(stats.df), f(stats.dg),
+                                 f(stats.inv), int(r0), int(k0), geom.S, geom.W, geom.m,
+                                 geom.w, geom.excl)
+
+
+def assert_near_exact(out, exact, r0, k0, tol) -> float:
+    """Band outputs within tol of the exact band's values (rounded to the
+    outputs' type); an index other than the exact one picks a pair whose
+    exact correlation ties the exact maximum within tol.  Returns the
+    largest difference."""
+    row_v, row_i, col_v, col_i, P = exact
+    worst = 0.0
+    for side, ev, ei in (("row", row_v, row_i), ("col", col_v, col_i)):
+        v = getattr(out, side).value.cpu().numpy()
+        idx = getattr(out, side).index.cpu().numpy()
+        assert v.shape == ev.shape and idx.dtype == np.int32, (r0, k0, side)
+        err = float(np.abs(v.astype(np.float64) - ev.astype(v.dtype)).max())
+        assert err <= tol, (r0, k0, side, err)
+        worst = max(worst, err)
+        for k in np.nonzero(idx != ei)[0]:
+            assert idx[k] >= 0 and ei[k] >= 0, (r0, k0, side, k, "masked vs unmasked")
+            # Pair (band row i, diagonal j) of the index the output chose.
+            i = k if side == "row" else idx[k] - r0
+            j = idx[k] - (r0 + k0) - k if side == "row" else k - i
+            assert abs(P[i, j] - ev[k]) <= tol, (r0, k0, side, k, "not a tie")
+    return worst
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_k3_matches_plain_on_card(card, dtype):
-    stats = precompute_statistics(_series(N, 7), M, band=S, chunk=W, dtype=dtype,
-                                  device=card)
-    U64 = stats.windows.double()
-    geom = band_geometry(S, W, M, W_PROFILE)
+@pytest.mark.parametrize("m", [4, 37, 256])
+@pytest.mark.parametrize("band,chunk", [(4096, 16384), (4096, 700), (1000, 16384),
+                                        (1000, 700), (S, W)])
+def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
+    """Bands of one to sixteen row segments (1000 rows: a ragged last
+    one), chunks on and off the kernel's 128-diagonal blocks, on a series
+    with a constant run (zero-variance windows, and near-constant ones
+    beside them whose large inverse norms amplify the recurrence's
+    rounding); jobs on the first band, the exclusion zone over the
+    constant run, rows past w-1 and columns past w-1.  K3 and the plain
+    version (in the statistics' dtype) are each held to the exact
+    recurrence of the same statistics; on the jobs away from the constant
+    run K3 in float64 is also held to the plain version at 1e-12 (in
+    float32 the plain version's own rounding passes 1e-4 even there at
+    m = 4: PERF.md).  Prints the largest differences, the readings
+    PERF.md derives the bounds from."""
+    n = 4 * band + chunk + m
+    w = n - m + 1
+    T = _series(n, 7, constant_run=False)
+    T[n // 3 : n // 3 + 400] = T[n // 3]  # zero-variance windows at every m here
+    stats = precompute_statistics(T, m, band=band, chunk=chunk, dtype=dtype, device=card,
+                                  windows=dtype == "float64")
+    geom = band_geometry(band, chunk, m, w)
+    jobs = [(0, 0), (n // 3 - band // 2, 0), (w - band // 2, 0),
+            (w - chunk - band // 2, chunk)]
     launches = recurrence.LAUNCHES
-    for r0, k0 in EDGE_JOBS:
+    k3_err = plain_err = 0.0
+    for r0, k0 in jobs:
         ours = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dtype)
         ref = xla.sweep_band_xla(stats, r0, k0, geom, dtype)
         torch.cuda.synchronize()
-        assert ours.col.value.shape == (S + W,)
-        _assert_band_close(ours, ref, U64, r0, k0, K3_BAND_TOL[dtype])
-    assert recurrence.LAUNCHES == launches + len(EDGE_JOBS)
+        assert ours.col.value.shape == (band + chunk,)
+        exact = exact_band(stats, r0, k0, geom)
+        k3_err = max(k3_err, assert_near_exact(ours, exact, r0, k0, K3_EXACT_TOL[dtype]))
+        plain_err = max(plain_err, assert_near_exact(ref, exact, r0, k0,
+                                                     PLAIN_EXACT_TOL[dtype]))
+        if dtype == "float64" and r0 >= n // 3 + 400:  # no near-constant window
+            _assert_band_close(ours, ref, stats.windows.double(), r0, k0,
+                               K3_BAND_TOL[dtype])
+    assert recurrence.LAUNCHES == launches + len(jobs)
+    print(f"\nK3 readings {dtype} m={m} band={band} chunk={chunk}: "
+          f"K3 vs exact {k3_err:.3e}, plain vs exact {plain_err:.3e}")
 
 
 @pytest.mark.cuda
