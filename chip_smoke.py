@@ -36,18 +36,33 @@ script exits nonzero without the final line):
    4096, chunk 32768, a random walk from a fixed seed, one K3 launch per
    job and no plain call, against the exact row scan; its sweep time per
    job beside phase 6's K3 times (wrapper, kernels alone) at W = 32768;
-8. parity: ``kernel='pallas'`` in f64 and f32 on phase 3's series against
-   phase 3's K1 profile;
+8. parity: ``kernel='pallas'`` and ``kernel='hybrid'`` in f64 and f32 on
+   phase 3's series against phase 3's K1 f64 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
    (peak device memory), against ``kernel='mxu_fused'`` on the same series;
 10. the f64 showcase through ``auto`` (K1): n=2^20, m=256, band 4096,
     chunk 32768, a random walk from its own fixed seed, one K1 launch per
-    job and no plain call, against the exact row scan.
+    job and no plain call, against the exact row scan;
+11. the hybrid's margin probe on phase 7's series, S=4096, W=32768, three
+    edge jobs, m = 64, 256, 512: the worst difference between K1's f32 and
+    f64 row/column maxima of the same job (pass A) and between the f32 and
+    f64 products over the masked tile (pass B), each held to a quarter of
+    ``default_margin(m)``;
+12. the f64 showcase through ``kernel='hybrid'`` on phase 7's series: one
+    K1 f32 launch per job (pass A) and no plain call, against the exact row
+    scan and phase 7's K3 profile; its phase split, flags per job,
+    escalated rows, peak device memory, clock and power; then 400 of pass
+    B's sparse jobs alone under ``torch.profiler`` (device time, launches
+    and the device's busy share per job);
+13. a tie-heavy series on the card (80 exact repeats of a motif,
+    n=65520, m=64) through ``kernel='hybrid'``: pass C and the float64 row
+    scans run, against the exact row scan.
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path run: K1 in
 phases 10 and 4, K3 in phases 7 and 8; the bound and the library call's
-time at the band-level shape); the line before the last is the
+time at the band-level shape; the hybrid adds no kernel, and its K1
+launches are in phase 12's line); the line before the last is the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
@@ -445,13 +460,14 @@ class CardSampler:
         return False
 
 
-def run_profile(torch, T, cfg):
+def run_profile(torch, T, cfg, prof=None):
     """Returns MP, MPI, wall seconds, phase seconds and the card's clock
-    and power during the run."""
+    and power during the run; ``prof`` (a BenchmarkProfile) keeps what the
+    run counted."""
     from mpx_torch import compute_matrix_profile
     from mpx_torch.utils.profile import BenchmarkProfile
 
-    prof = BenchmarkProfile()
+    prof = BenchmarkProfile() if prof is None else prof
     torch.cuda.synchronize()
     with CardSampler() as card:
         t0 = time.perf_counter()
@@ -673,27 +689,213 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
         **{f"{counter}_launches": launches}, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return launches
+    return launches, (MP, MPI), wall
 
 
-def phase_parity_k3(torch, k1_profile) -> int:
-    """kernel='pallas' in f64 and f32 against phase 3's K1 f64 profile of
-    the same series.  Returns K3's launches in the f32 run."""
+def phase_parity(torch, k1_profile) -> int:
+    """kernel='pallas' and kernel='hybrid' in f64 and f32 against phase 3's
+    K1 f64 profile of the same series.  Returns K3's launches in the f32
+    run."""
     from mpx_torch import MatrixProfileConfig
+    from mpx_torch.config import make_job_grid
 
     T, m = parity_series()
     MP1, MPI1 = k1_profile
+    w = T.shape[0] - m + 1
     out = {}
-    for dt in ("float64", "float32"):
-        reset_counts()
-        MP, MPI, wall, _, _ = run_profile(
-            torch, T, MatrixProfileConfig(m=m, dtype=dt, kernel="pallas", device="cuda"))
-        launches = require_only(counts(), "k3", f"kernel='pallas' {dt} run")
-        err = check_profiles_agree(T, m, MP, MPI, MP1, MPI1, DIST_TOL[dt])
-        out[dt] = dict(k3_launches=launches, wall_s=wall, max_err_vs_k1_f64=err,
-                       index_differs=int((MPI != MPI1).sum()), tol=DIST_TOL[dt])
-    say("8 parity K3 vs K1", n=T.shape[0], m=m, **out)
-    return out["float32"]["k3_launches"]
+    for kernel, counter in (("pallas", "k3"), ("hybrid", "k1")):
+        for dt in ("float64", "float32"):
+            cfg = MatrixProfileConfig(m=m, dtype=dt, kernel=kernel, device="cuda")
+            # The hybrid's pass A is one K1 f32 launch per job.
+            jobs = len(make_job_grid(w, cfg.band, cfg.chunk).r0) if kernel == "hybrid" else None
+            reset_counts()
+            MP, MPI, wall, _, _ = run_profile(torch, T, cfg)
+            launches = require_only(counts(), counter, f"kernel={kernel!r} {dt} run", jobs)
+            require(MP.dtype == np.dtype(dt), f"kernel={kernel!r} {dt}: MP is {MP.dtype}")
+            err = check_profiles_agree(T, m, MP, MPI, MP1, MPI1, DIST_TOL[dt])
+            out[f"{kernel} {dt}"] = {f"{counter}_launches": launches, "wall_s": wall,
+                                     "max_err_vs_k1_f64": err,
+                                     "index_differs": int((MPI != MPI1).sum()),
+                                     "tol": DIST_TOL[dt]}
+    say("8 parity K3 and hybrid vs K1", n=T.shape[0], m=m, **out)
+    return out["pallas float32"]["k3_launches"]
+
+
+def phase_margin_probe(torch):
+    """The hybrid's float32 passes against float64 on the card: on phase
+    7's series, S=4096, W=32768, three edge jobs, m = 64, 256, 512, the
+    worst |K1 f32 - K1 f64| of the row and column maxima of the same job
+    (pass A; K1 f64 is held to 1e-12 of exact in phase 2) and the worst
+    |f32 product - f64 product| over the masked tile (pass B's product),
+    each on the hybrid's own operands and held to default_margin(m) / 4."""
+    from mpx_torch.hybrid import default_margin, hybrid_statistics
+    from mpx_torch.kernels.common import band_geometry
+    from mpx_torch.kernels.mxu import pair_mask
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+    from mpx_torch.ops.precompute import build_windows
+
+    n, S, W = 1 << 20, 4096, 32768
+    T = random_walk(n, SEED + 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for m in (64, 256, 512):
+        w = n - m + 1
+        stats, exact = hybrid_statistics(T, m, band=S, chunk=W, device="cuda")
+        exact = exact._replace(windows=build_windows(exact, m))
+        geom = band_geometry(S, W, m, w)
+        jobs = {"first band": (0, 0), "interior": (w // 2 // S * S, W),
+                "rows past w-1": ((w - 1) // S * S, 0)}
+        pass_a = pass_b = 0.0
+        for r0, k0 in jobs.values():
+            a = sweep_band_mxu_fused(stats, r0, k0, geom, "float32")
+            b = sweep_band_mxu_fused(exact, r0, k0, geom, "float64")
+            for side in ("row", "col"):
+                va, vb = getattr(a, side).value.double(), getattr(b, side).value
+                live = vb >= -2  # a correlation, not the aggregate init
+                require(bool((live == (va >= -2)).all()), f"m={m}: masks differ")
+                if bool(live.any()):
+                    pass_a = max(pass_a, float((va - vb)[live].abs().max()))
+            c0 = r0 + k0
+            P = (stats.windows[r0 : r0 + S] @ stats.windows[c0 : c0 + W].T).double()
+            P -= exact.windows[r0 : r0 + S] @ exact.windows[c0 : c0 + W].T
+            valid = pair_mask(exact, torch.arange(r0, r0 + S, dtype=torch.int32, device="cuda"),
+                              torch.arange(c0, c0 + W, dtype=torch.int32, device="cuda"), geom)
+            if bool(valid.any()):
+                pass_b = max(pass_b, float(P.abs_()[valid].max()))
+            del P, valid
+        margin = default_margin(m)
+        require(pass_a <= margin / 4 and pass_b <= margin / 4,
+                f"m={m}: pass A {pass_a}, pass B {pass_b} beyond margin / 4 = {margin / 4}")
+        out[f"m={m}"] = {"pass_a_k1_max_err": pass_a, "pass_b_product_err": pass_b,
+                         "margin": margin, "margin_over_4": margin / 4}
+        del stats, exact
+    say("11 margin probe", n=n, S=S, W=W, jobs=list(jobs), **out)
+
+
+def hybrid_split(phases: dict) -> dict:
+    """The hybrid's phase seconds, grouped as phase 12 reports them."""
+    def total(*prefixes):
+        return sum(v for k, v in phases.items() if k.startswith(prefixes))
+    return {"statistics": total("1. "), "pass_a": total("2. Compute [pass A]"),
+            "pass_b_sparse": total("2. Compute [pass B sparse]"),
+            "pass_b_dense": total("2. Compute [pass B dense]"),
+            "pass_c": total("2. Compute [pass C]"), "rescore": total("3. "),
+            "post": total("4. ")}
+
+
+def run_hybrid(torch, T, m, **cfg_kwargs):
+    """One f64 run through kernel='hybrid' with its K1 launches checked
+    (one per job, no plain call).  Returns MP, MPI, wall, phases, card,
+    the run's counts and its peak device memory."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", device="cuda",
+                              **cfg_kwargs)
+    w = T.shape[0] - m + 1
+    grid = cfg.shrink_to(w)
+    jobs = len(make_job_grid(w, grid.band, grid.chunk).r0)
+    prof = BenchmarkProfile()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg, prof)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = require_only(counts(), "k1", f"kernel='hybrid' n={T.shape[0]} (pass A)", jobs)
+    return MP, MPI, wall, phases, card, dict(prof.counts, k1_launches=launches), peak
+
+
+def profile_pass_b(torch, T, m: int, S: int, W: int, jobs=range(1000, 1400)) -> dict:
+    """Pass B's sparse jobs alone, at the run's shape: pass A again for its
+    captures, then a window of jobs timed by the host clock and traced by
+    torch.profiler (device kernel time, kernel launches, the device's busy
+    share of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpx_torch import hybrid
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.kernels.common import band_geometry
+    from mpx_torch.kernels.mxu import sweep_band_suspects_sparse
+
+    w = T.shape[0] - m + 1
+    stats, _ = hybrid.hybrid_statistics(T, m, band=S, chunk=W, device="cuda")
+    grid = make_job_grid(w, S, W)
+    thr, (r0s, k0s, jrow, jcol) = hybrid.run_max_jobs(
+        stats, grid.r0, grid.k0, hybrid.default_margin(m), S=S, W=W, m=m, w=w,
+        pw=stats.mu.shape[0])
+    counts = hybrid._flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W)
+    geom = band_geometry(S, W, m, w)
+
+    def window():
+        for j in jobs:
+            sweep_band_suspects_sparse(stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
+                                       *(int(x) for x in counts[j]))
+        torch.cuda.synchronize()
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    top = sorted(((e.key, e.self_device_time_total / len(jobs)) for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda x: -x[1])[:5]
+    return {"jobs": f"{jobs.start}..{jobs.stop - 1}",
+            "flags_per_job_mean": float(counts[list(jobs)].max(axis=1).mean()),
+            "ms_per_job": wall / len(jobs) * 1e3,
+            "profiled_device_us_per_job": busy / len(jobs),
+            "profiled_launches_per_job": launches / len(jobs),
+            "profiled_device_busy_share": busy / span,
+            "top_ops_device_us_per_job": dict(top)}
+
+
+def phase_showcase_hybrid(torch, k3_profile, k3_wall_s, k1_wall_s):
+    """The f64 showcase through kernel='hybrid' on phase 7's series, held
+    to the exact row scan and to phase 7's K3 profile; then pass B's sparse
+    jobs profiled alone (:func:`profile_pass_b`)."""
+    n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
+    T = random_walk(n, SEED + 2)
+    w = n - m + 1
+    MP, MPI, wall, phases, card, cnt, peak = run_hybrid(torch, T, m, band=4096,
+                                                        chunk=32768)
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 2), tol)
+    vs_k3 = check_profiles_agree(T, m, MP, MPI, *k3_profile, tol)
+    pairs = w * (w - 1) / 2
+    split = hybrid_split(phases)
+    say("12 showcase f64 hybrid", n=n, m=m, band=4096, chunk=32768, plain_calls=0,
+        wall_s=wall, pairs_per_s=pairs / wall, split_s=split,
+        pass_b_sparse_ms_per_job=split["pass_b_sparse"] / cnt["jobs"] * 1e3,
+        counts=cnt, peak_device_bytes=peak, card=card, phases_s=phases,
+        max_err_vs_exact_64_rows=vs_exact, max_err_vs_k3=vs_k3,
+        index_differs_vs_k3=int((MPI != k3_profile[1]).sum()), tol=tol,
+        same_job_shape_wall_s={"hybrid": wall, "k3 (phase 7)": k3_wall_s,
+                               "k1 (phase 10)": k1_wall_s})
+    say("12 pass B sparse profiled", **profile_pass_b(torch, T, m, 4096, 32768))
+
+
+def phase_tie_heavy(torch):
+    """80 exact repeats of a random-walk motif under 1e-3 noise (n=65520,
+    m=64): every window has 79 near-equal neighbors, past the 8 capture
+    slots and pass C's 64, so pass C and the float64 row scans run on the
+    card; held to the exact row scan."""
+    repeats, L, m, tol = 80, 819, 64, DIST_TOL["float64"]
+    rng = np.random.default_rng(SEED + 6)
+    motif = np.cumsum(rng.standard_normal(L))
+    T = np.tile(motif, repeats) + rng.standard_normal(L * repeats) * 1e-3
+    w = T.shape[0] - m + 1
+    MP, MPI, wall, phases, card, cnt, peak = run_hybrid(torch, T, m)
+    require(cnt["pass_c_rows"] > 0 and cnt["row_scan_rows"] > 0,
+            f"tie-heavy series: pass C / row scans did not run: {cnt}")
+    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 6), tol)
+    say("13 tie-heavy hybrid", n=T.shape[0], m=m, repeats=repeats, wall_s=wall,
+        split_s=hybrid_split(phases), counts=cnt, peak_device_bytes=peak,
+        max_err_vs_exact_64_rows=vs_exact, tol=tol)
 
 
 def phase_auto_large_m(torch):
@@ -740,12 +942,17 @@ def main() -> int:
     phase_cli()
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
     k3_w32768 = {dt: band_k3[dt].pop("_w32768") for dt in band_k3}
-    launches["band_recurrence"] = {"float64": phase_showcase(
-        torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2, k3_w32768["float64"]),
-                                   "float32": phase_parity_k3(torch, k1_profile)}
+    k3_launches, k3_profile, k3_wall = phase_showcase(
+        torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2, k3_w32768["float64"])
+    launches["band_recurrence"] = {"float64": k3_launches,
+                                   "float32": phase_parity(torch, k1_profile)}
     phase_auto_large_m(torch)
-    launches["mxu_fused"]["float64"] = phase_showcase(
+    launches["mxu_fused"]["float64"], _, k1_wall = phase_showcase(
         torch, "10 showcase f64 auto (K1)", "auto", "k1", SEED + 4)
+    phase_margin_probe(torch)
+    phase_showcase_hybrid(torch, k3_profile, k3_wall, k1_wall)
+    del k3_profile
+    phase_tie_heavy(torch)
     kernels = [
         {"name": f"{name}[{dt}]", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][dt], **times[dt]}

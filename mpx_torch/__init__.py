@@ -5,7 +5,9 @@ A port of the JAX package ``mpx`` (which stays the reference); module names
 match mpx's.  This package imports ``torch`` and never ``jax`` or ``mpx``.
 Ported so far: the single-series self-join (``matrix_profile``,
 ``compute_matrix_profile``) through the fused tile-sweep kernel K1
-(``kernels/mxu_fused.py``, ``csrc/mxu_fused.cu``), and the ``compute``
+(``kernels/mxu_fused.py``, ``csrc/mxu_fused.cu``), the SCAMP recurrence K3
+(``kernels/recurrence.py``, ``csrc/band_recurrence.cu``) and the hybrid
+float64 tier (``hybrid.py``, ``kernel='hybrid'``), and the ``compute``
 command line (``python -m mpx_torch compute``).
 """
 

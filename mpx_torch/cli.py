@@ -19,7 +19,8 @@ def _add_compute(sub):
     p.add_argument("-o", "--output", help="output base path (writes .mpb/.mpib)")
     p.add_argument("-m", type=int, default=32, help="subsequence length")
     p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
-    p.add_argument("--kernel", default="auto", choices=("auto", "mxu", "mxu_fused", "xla", "pallas"))
+    p.add_argument("--kernel", default="auto",
+                   choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
     p.add_argument("--band", type=int, default=4096, help="rows per job (band height)")
     p.add_argument("--chunk", type=int, default=16384, help="diagonals per job")
     p.add_argument("--left-right", action="store_true",

@@ -3,7 +3,7 @@
 * ``m``          — subsequence length
 * ``dtype``      — compute dtype: float32 or float64
 * ``kernel``     — 'auto' | 'mxu' | 'mxu_fused' | 'xla' | 'pallas' (see
-  mpx_torch.kernels)
+  mpx_torch.kernels) | 'hybrid' (mpx_torch.hybrid)
 * ``band``       — rows per job
 * ``chunk``      — diagonals per job
 * ``tile_rows`` / ``tile_cols`` — kept for API parity with mpx: they only
@@ -27,10 +27,7 @@ import torch
 from mpx_torch.dtypes import canonical_dtype
 from mpx_torch.types import JobGrid
 
-_KERNELS = ("auto", "mxu", "mxu_fused", "xla", "pallas")
-_UNPORTED_KERNELS = {
-    "hybrid": "ROADMAP.md queue 1 item 8 (the hybrid tier)",
-}
+_KERNELS = ("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid")
 
 
 def _unported(what: str, item: str):
@@ -58,8 +55,6 @@ class MatrixProfileConfig:
             _unported("the fixed-point input tier (input_quant, ap* dtypes)",
                       "ROADMAP.md queue 1 item 7 (io/apfixed.py)")
         canonical_dtype(self.dtype)  # raises on unsupported
-        if self.kernel in _UNPORTED_KERNELS:
-            _unported(f"kernel={self.kernel!r}", _UNPORTED_KERNELS[self.kernel])
         if self.kernel not in _KERNELS:
             raise ValueError(f"kernel must be one of {_KERNELS}, got {self.kernel!r}")
         if self.shard_mode not in ("jobs", "ring"):

@@ -70,6 +70,9 @@ def compute_matrix_profile(
     ``stats`` takes already staged statistics for the same series, band
     and chunk (with ``windows`` when the kernel reads them); ``profile`` a
     :class:`mpx_torch.utils.profile.BenchmarkProfile` for per-phase times.
+
+    ``kernel='hybrid'`` runs :func:`mpx_torch.hybrid.compute_matrix_profile_f64_hybrid`:
+    exact float64 distances, cast down for a float32 request (as mpx).
     """
     if config is None:
         config = MatrixProfileConfig(m=m if m is not None else 32)
@@ -78,6 +81,8 @@ def compute_matrix_profile(
     m = config.m
 
     T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
+    if config.kernel == "hybrid":
+        return _hybrid(T, config, stats=stats, profile=profile, left_right=left_right)
     n = T.shape[0]
     config.validate_series(n, T)
     w = n - m + 1
@@ -106,6 +111,20 @@ def compute_matrix_profile(
         if left_right:
             return postcompute_left_right(rows, cols, m, w)
         return postcompute(rows, cols, m, w)
+
+
+def _hybrid(T, config: MatrixProfileConfig, *, stats, profile, left_right: bool):
+    if stats is not None:
+        raise ValueError("kernel='hybrid' computes its own statistics (float64 on "
+                         "the host, float32 operands on the device); drop stats=")
+    if left_right:
+        raise NotImplementedError(
+            "left/right profiles through kernel='hybrid' are not ported to mpx_torch "
+            "yet: ROADMAP.md queue 1 item 8 (the left/right hybrid)")
+    from mpx_torch.hybrid import compute_matrix_profile_f64_hybrid
+
+    MP, MPI = compute_matrix_profile_f64_hybrid(T, config, profile=profile)
+    return MP.to(torch_dtype(config.dtype)), MPI
 
 
 def matrix_profile(T, m: int, **kwargs):

@@ -1,0 +1,514 @@
+"""Hybrid double-precision tier: float32 sweeps + exact float64 rescoring.
+
+Counterpart of ``mpx/hybrid.py`` (``kernel='hybrid'``), the self-join.  All
+O(n^2) work runs in float32; only the few suspects of each subsequence are
+scored in float64:
+
+1. **Pass A** — K1's float32 sweep (split TF32 on the card,
+   :func:`mpx_torch.kernels.mxu_fused.sweep_band_max_fused`) gives every
+   job's per-row and per-column maxima.  They are kept (the captures) and
+   folded into each subsequence's maximum ``gmax32`` and its threshold
+   ``thr = gmax32 - 2 * margin``.
+2. **Pass B** — per job, only the rows and columns whose pass-A job maximum
+   reaches ``thr`` are re-examined: every valid pair at or above ``thr`` is
+   counted and the SUSPECT_K smallest and largest neighbor indices are
+   kept (associative merges; the job grid covers each pair once).  The
+   flag counts of all jobs are fetched once; a job whose count exceeds
+   :func:`_sparse_budget` is swept densely instead.
+3. **Resolve** — the captured suspects are rescored exactly in float64 on
+   the run's device.  A subsequence whose count overflows the 2K slots
+   rescores its whole captured index interval when that is <= 64 wide
+   (plateau runs); otherwise **pass C** recomputes its full row in float32
+   with a streaming top-64 and a count at or above ``thr``, and the top-64
+   are rescored.  A count above 64 gets an exact float64 row scan.
+
+Correctness needs only that each float32 pass be within ``margin`` of the
+float64 truth for every pair: the true argmax c* then has
+``P32(c*) >= P64(c*) - margin >= gmax32 - 2 margin = thr``, so it is always a
+suspect, and a pair below ``thr`` has ``P64 < gmax32 - margin <= best64``,
+so it can never win.  Passes A and B may therefore use different float32
+arithmetic (split TF32 in K1, FP32 products in passes B and C on the card).
+The rescored values are exact float64, so the profile does not depend on
+them.
+
+Passes B and C are torch ops (``torch.matmul`` of float32 panels, TF32
+off), as mpx lowers them through XLA; the exact stages use mpx's formula
+(centered-window dot x inv x inv) in float64 tensors on the run's device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
+from mpx_torch.kernels.common import band_geometry
+from mpx_torch.kernels.mxu import (
+    SUSPECT_K,
+    SUSPECT_MAX_INIT,
+    SUSPECT_MIN_INIT,
+    SuspectWindow,
+    sweep_band_suspects,
+    sweep_band_suspects_sparse,
+)
+from mpx_torch.kernels.mxu_fused import sweep_band_max_fused
+from mpx_torch.ops.precompute import (
+    build_windows,
+    precompute_statistics,
+    precompute_statistics_numpy,
+)
+from mpx_torch.types import Stats
+from mpx_torch.utils.profile import phase
+
+# The arithmetic of the float32 passes.  mpx runs them at its HIGH
+# precision (three bf16 passes); the port's are at least as exact: pass A
+# is K1's split TF32 (three TF32 products, ~2^-22 relative each), passes B
+# and C are full FP32 products.  Phase 11 of chip_smoke.py measures both
+# against float64 on the card.
+HYBRID_PRECISION = "split-TF32 (pass A, K1), FP32 (passes B and C)"
+# mpx's measured bound on its HIGH products' truncation, kept in the
+# margin so the port's margin is mpx's (see default_margin).
+_HIGH_TRUNC_BOUND = 2e-5
+
+# Capture-overflow escalation: plateau-run width and pass C's top-K.
+RUNCAP = 64
+PASS_C_K = 64
+PASS_C_COLS = 16384
+# Rows of one pass-C / row-scan block, and windows of one column block of
+# the row scan (bounded device memory at any width).
+_ROW_BLOCK = 2048
+_SCAN_COLS = 65536
+# Bytes of the window operands of one rescoring block.
+_RESCORE_BYTES = 256 << 20
+
+
+def default_margin(m: int) -> float:
+    """Per-pair error budget of the float32 passes: mpx's value at its
+    HIGH precision, ``max(1e-4, 4e-7 m) + 4 * 2e-5`` (its worst reading,
+    2.4e-5 at m = 256 over 5.5e11 pairs, with a 4x safety factor, linear in
+    m, plus 4x its bf16-pass truncation bound).  The port's passes must
+    stay within a quarter of it: ``chip_smoke.py`` phase 11 reads them on
+    the card."""
+    return max(1e-4, 4e-7 * m) + 4 * _HIGH_TRUNC_BOUND
+
+
+def _combine_suspects(a: SuspectWindow, b: SuspectWindow) -> SuspectWindow:
+    """Elementwise merge of two suspect summaries over the same axis:
+    counts add; the K smallest (largest) of the union come from a sort of
+    the two K-vectors side by side."""
+    K = SUSPECT_K
+    return SuspectWindow(
+        cnt=a.cnt + b.cnt,
+        mn=torch.cat([a.mn, b.mn], dim=1).sort(dim=1).values[:, :K],
+        mx=torch.cat([a.mx, b.mx], dim=1).sort(dim=1, descending=True).values[:, :K],
+    )
+
+
+def _init_suspects(L: int, device) -> SuspectWindow:
+    return SuspectWindow(
+        cnt=torch.zeros(L, dtype=torch.int32, device=device),
+        mn=torch.full((L, SUSPECT_K), SUSPECT_MIN_INIT, dtype=torch.int32, device=device),
+        mx=torch.full((L, SUSPECT_K), SUSPECT_MAX_INIT, dtype=torch.int32, device=device),
+    )
+
+
+def _merge_suspects_at(g: SuspectWindow, win: SuspectWindow, offset: int) -> None:
+    """Merge a job's summary ``win`` into the global summary ``g`` in
+    place, at ``offset``."""
+    cur = SuspectWindow(*(a[offset : offset + win.cnt.shape[0]] for a in g))
+    for a, b in zip(cur, _combine_suspects(cur, win)):
+        a.copy_(b)
+
+
+def _merge_many(g: SuspectWindow, pos: torch.Tensor, win: SuspectWindow) -> None:
+    """Merge many summaries into ``g`` in place, entry i at position
+    ``pos[i]`` (positions may repeat): counts add; each position keeps the
+    K smallest ``mn`` and K largest ``mx`` of its entries and its own.  One
+    sort of (position, value) keys does it for all positions at once."""
+    K, L = SUSPECT_K, g.cnt.shape[0]
+    p = pos.long()
+    g.cnt.index_add_(0, p, win.cnt)
+    at = torch.cat([torch.arange(L, device=p.device), p]).repeat_interleave(K) << 32
+    for dst, src, desc in ((g.mn, win.mn, False), (g.mx, win.mx, True)):
+        # Values lie in [-1, 2^30]: an offset (ascending) or a reflection
+        # (descending) maps them into 32 bits below the position.
+        v = torch.cat([dst, src]).reshape(-1).long()
+        key = (at | ((2**30 - v) if desc else (v + 1))).sort().values
+        p_s = key >> 32
+        v_s = key & (2**32 - 1)
+        v_s = (2**30 - v_s) if desc else (v_s - 1)
+        rank = torch.arange(key.shape[0], device=p.device) - torch.searchsorted(p_s, p_s)
+        slot = torch.where(rank < K, p_s * K + rank, L * K)  # the rest to a dropped slot
+        flat = dst.new_empty(L * K + 1)
+        flat.scatter_(0, slot, v_s.to(dst.dtype))
+        dst.copy_(flat[: L * K].view(L, K))
+
+
+def _fold_suspects(rows_g: SuspectWindow, cols_g: SuspectWindow, *, w: int) -> SuspectWindow:
+    """One summary per subsequence: its row side (later neighbors) and its
+    column side (earlier ones)."""
+    return _combine_suspects(SuspectWindow(*(a[:w] for a in rows_g)),
+                             SuspectWindow(*(a[:w] for a in cols_g)))
+
+
+def _sparse_budget(S: int, W: int) -> int:
+    """Flag budget of a sparse pass-B job (mpx's): a job with more flagged
+    rows or columns is swept densely."""
+    return min(S, W, max(256, (S + W) // 32))
+
+
+# ---------------------------------------------------------------- pass A
+
+
+def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int) -> torch.Tensor:
+    """Fold pass A's maxima into the suspect thresholds, (pw,) float32:
+    ``gmax32 - 2 margin`` (in float32, as mpx), +inf for windows with no
+    valid pair (they would flag in every job) and in the pad tail."""
+    dev = rmax.device
+    two_eps = torch.tensor(2.0, dtype=torch.float32) * torch.tensor(margin, dtype=torch.float32)
+    gmax = torch.maximum(rmax[:w], cmax[:w])
+    thr = torch.full((pw,), torch.inf, dtype=torch.float32, device=dev)
+    thr[:w] = torch.where(gmax > AGGREGATE_INIT, gmax - two_eps.to(dev), torch.inf)
+    return thr
+
+
+def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int,
+                 pw: int):
+    """Pass A: one K1 float32 launch per job (the plain sweep for CPU
+    tensors), max-merged into (w + S,) row and (w + W,) column maxima and
+    folded into the thresholds.  Returns (thresholds, captures), the
+    captures ``(r0s, k0s, jrow (J, S), jcol (J, W))`` being each job's
+    per-row and per-column maxima, pass B's skip oracle."""
+    geom = band_geometry(S, W, m, w)
+    dev = stats.windows.device
+    r0s, k0s = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
+    rmax = torch.full((w + S,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+    cmax = torch.full((w + W,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+    jrow = torch.empty((len(r0s), S), dtype=torch.float32, device=dev)
+    jcol = torch.empty((len(r0s), W), dtype=torch.float32, device=dev)
+    for j, (r0, k0) in enumerate(zip(r0s.tolist(), k0s.tolist())):
+        rv, cv = sweep_band_max_fused(stats, r0, k0, geom)
+        seg_r, seg_c = rmax[r0 : r0 + S], cmax[r0 + k0 : r0 + k0 + W]
+        torch.maximum(seg_r, rv, out=seg_r)
+        torch.maximum(seg_c, cv, out=seg_c)
+        jrow[j].copy_(rv)
+        jcol[j].copy_(cv)
+    return _build_thr(rmax, cmax, margin, w=w, pw=pw), (r0s, k0s, jrow, jcol)
+
+
+# ---------------------------------------------------------------- pass B
+
+
+def _dense_jobs(stats, thr, r0s, k0s, geom, rows_g: SuspectWindow,
+                cols_g: SuspectWindow) -> None:
+    """Sweep the jobs' whole tiles, merging each job's summaries into the
+    global row-axis and column-axis ones."""
+    for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
+        out = sweep_band_suspects(stats, r0, k0, geom, thr)
+        _merge_suspects_at(rows_g, out.row, r0)
+        _merge_suspects_at(cols_g, out.col, r0 + k0)
+
+
+def run_suspect_jobs(stats, thr, r0s, k0s, *, S: int, W: int, m: int, w: int) -> SuspectWindow:
+    """Dense pass B over the given jobs, folded into one summary per
+    subsequence: the reference of the sparse pass B."""
+    dev = stats.windows.device
+    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
+    _dense_jobs(stats, thr, r0s, k0s, band_geometry(S, W, m, w), rows_g, cols_g)
+    return _fold_suspects(rows_g, cols_g, w=w)
+
+
+def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, block: int = 256) -> np.ndarray:
+    """(J, 2) flagged rows and columns of every job, from pass A's
+    captures, with the comparisons the sparse jobs make; computed on the
+    device in blocks of jobs and fetched once."""
+    dev = thr.device
+    r0 = torch.as_tensor(r0s, dtype=torch.int64, device=dev)
+    c0 = r0 + torch.as_tensor(k0s, dtype=torch.int64, device=dev)
+    tr, tc = thr.unfold(0, S, 1), thr.unfold(0, W, 1)
+    out = []
+    for o in range(0, r0.shape[0], block):
+        sl = slice(o, o + block)
+        nr = (jrow[sl] >= tr.index_select(0, r0[sl])).sum(dim=1, dtype=torch.int32)
+        nc = (jcol[sl] >= tc.index_select(0, c0[sl])).sum(dim=1, dtype=torch.int32)
+        out.append(torch.stack([nr, nc], dim=1))
+    return torch.cat(out).cpu().numpy()
+
+
+def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
+                            profile=None) -> SuspectWindow:
+    """Sparse pass B: each job re-examines only the rows and columns its
+    pass-A captures flag, at its exact flag counts (fetched once for all
+    jobs); a job over the budget takes the dense sweep.  Same result as
+    :func:`run_suspect_jobs` over all jobs."""
+    r0s, k0s, jrow, jcol = cap
+    geom = band_geometry(S, W, m, w)
+    dev = stats.windows.device
+    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
+    with phase(profile, "2. Compute [pass B sparse]", device=dev):
+        counts = _flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W)
+        dense = counts.max(axis=1) > _sparse_budget(S, W)
+        found = ([], [])  # (positions, summaries) of the row and column sides
+        for j in np.nonzero(~dense & (counts.max(axis=1) > 0))[0].tolist():
+            for side, got in zip(found, sweep_band_suspects_sparse(
+                    stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
+                    *(int(x) for x in counts[j]))):
+                if got is not None:
+                    side.append(got)
+        # One merge for all sparse jobs: their summaries land in one sort.
+        for g, side in zip((rows_g, cols_g), found):
+            if side:
+                pos, wins = zip(*side)
+                _merge_many(g, torch.cat(pos), SuspectWindow(*map(torch.cat, zip(*wins))))
+    with phase(profile, "2. Compute [pass B dense]", device=dev):
+        _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g)
+    if profile is not None:
+        flags = counts.max(axis=1)
+        profile.counts.update({
+            "jobs": int(len(flags)), "flags_per_job_mean": float(flags.mean()),
+            "flags_per_job_p99": float(np.percentile(flags, 99)),
+            "flags_per_job_max": int(flags.max()), "dense_jobs": int(dense.sum()),
+            "jobs_without_flags": int((flags == 0).sum())})
+    return _fold_suspects(rows_g, cols_g, w=w)
+
+
+# ---------------------------------------------------------------- pass C
+
+
+def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int):
+    """Pass C: for each flagged subsequence, recompute its full float32
+    correlation row (both sides of the join, ``|c - r| >= excl``) in
+    PASS_C_COLS columns at a time, keep the top PASS_C_K by a streaming
+    merge, and count the pairs at or above ``thr``: a count <= PASS_C_K
+    proves the top-K holds every suspect.  Returns (values (F, K), indices
+    (F, K), -1 where empty; counts (F,))."""
+    K, CW = PASS_C_K, PASS_C_COLS
+    U = stats.windows
+    if U.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = U.device
+    fin = torch.isfinite(stats.inv)
+    outs = []
+    for o in range(0, flag_idx.shape[0], _ROW_BLOCK):
+        fi = flag_idx[o : o + _ROW_BLOCK].to(dev, torch.int32)
+        F = fi.shape[0]
+        Uf, fin_f, thr_f = U.index_select(0, fi), fin.index_select(0, fi), thr.index_select(0, fi)
+        bv = torch.full((F, K), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+        bi = torch.full((F, K), INDEX_INIT, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(F, dtype=torch.int32, device=dev)
+        for c0 in range(0, w, CW):
+            c1 = min(c0 + CW, w)
+            cols = torch.arange(c0, c1, dtype=torch.int32, device=dev)
+            valid = (((cols[None, :] - fi[:, None]).abs() >= excl)
+                     & fin_f[:, None] & fin[c0:c1][None, :])
+            P = (Uf @ U[c0:c1].T).masked_fill_(~valid, AGGREGATE_INIT)
+            cnt += (P >= thr_f[:, None]).sum(dim=1, dtype=torch.int32)
+            v, loc = P.topk(min(K, c1 - c0), dim=1)
+            av = torch.cat([bv, v], dim=1)
+            ai = torch.cat([bi, loc.to(torch.int32) + c0], dim=1)
+            bv, sel = av.topk(K, dim=1)
+            bi = ai.gather(1, sel)
+        outs.append((bv, torch.where(bv > AGGREGATE_INIT, bi, INDEX_INIT), cnt))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+# ---------------------------------------------------------------- exact stages
+
+
+def _rescore_pairs(T64, mu, inv, m: int, rows, cols) -> torch.Tensor:
+    """Exact float64 Pearson correlation of the pairs (rows[i], cols[i]),
+    mpx's formula (centered-window dot x inv x inv); AGGREGATE_INIT where
+    cols[i] < 0 or either window has zero variance.  Float64 tensors on
+    the run's device; only the valid pairs are gathered."""
+    dev = T64.device
+    rows = torch.as_tensor(rows, device=dev).long()
+    cols = torch.as_tensor(cols, device=dev).long()
+    P = torch.full(rows.shape, AGGREGATE_INIT, dtype=torch.float64, device=dev)
+    fin = torch.isfinite(inv)
+    cc = cols.clamp_min(0)
+    ok = (cols >= 0) & fin[cc] & fin[rows]
+    idx = torch.nonzero(ok).flatten()
+    win = T64.unfold(0, m, 1)
+    blk = max(1, _RESCORE_BYTES // (16 * m))
+    for o in range(0, idx.shape[0], blk):
+        sel = idx[o : o + blk]
+        a, b = rows[sel], cc[sel]
+        wa = win[a] - mu[a][:, None]
+        wb = win[b] - mu[b][:, None]
+        P[sel] = (wa * wb).sum(dim=1) * inv[a] * inv[b]
+    return P
+
+
+def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows):
+    """Exact float64 best neighbor of each given row over ALL its valid
+    pairs (``|c - r| >= excl``, finite inverse norms): the smallest index
+    among ties.  Returns (bestP float64, bestI int32)."""
+    dev = T64.device
+    rows = torch.as_tensor(rows, device=dev).long()
+    win = T64.unfold(0, m, 1)[:w]
+    fin = torch.isfinite(inv)
+    bestP = torch.full(rows.shape, AGGREGATE_INIT, dtype=torch.float64, device=dev)
+    bestI = torch.full(rows.shape, INDEX_INIT, dtype=torch.int64, device=dev)
+    for o in range(0, rows.shape[0], _ROW_BLOCK):
+        rr = rows[o : o + _ROW_BLOCK]
+        Q = win[rr] - mu[rr][:, None]
+        bp, bi = bestP[o : o + _ROW_BLOCK], bestI[o : o + _ROW_BLOCK]
+        for c0 in range(0, w, _SCAN_COLS):
+            c1 = min(c0 + _SCAN_COLS, w)
+            qt = Q @ (win[c0:c1] - mu[c0:c1][:, None]).T
+            P = qt * inv[c0:c1][None, :] * inv[rr][:, None]
+            cols = torch.arange(c0, c1, device=dev)
+            bad = (((cols[None, :] - rr[:, None]).abs() < excl)
+                   | ~fin[c0:c1][None, :] | ~fin[rr][:, None])
+            v, i = P.masked_fill_(bad, AGGREGATE_INIT).max(dim=1)
+            upd = v > bp  # strictly: an earlier block keeps a tie
+            bp.copy_(torch.where(upd, v, bp))
+            bi.copy_(torch.where(upd, i + c0, bi))
+    bestI = torch.where(bestP > AGGREGATE_INIT, bestI, INDEX_INIT).to(torch.int32)
+    return bestP, bestI
+
+
+def _best_of(P, cand):
+    """Per row, the best exact score and the smallest candidate index that
+    reaches it (-1 where none is valid)."""
+    big = 2**30
+    best = P.amax(dim=1)
+    tie = (P >= best[:, None]) & (cand >= 0)
+    idx = torch.where(tie, cand, big).amin(dim=1)
+    idx = torch.where((best > AGGREGATE_INIT) & (idx < big), idx, INDEX_INIT)
+    return best, idx.to(torch.int32)
+
+
+def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl: int,
+                  profile):
+    """Rescore the captured candidates exactly, run pass C for
+    capture-overflow rows whose captured interval is wide, and hand rows
+    with more than PASS_C_K near-maximal pairs to the exact row scan.
+    ``sus`` is the folded summary on the device, ``stats``/``thr`` pass
+    C's float32 operands, ``exact`` the float64 (T, mu, inv)."""
+    dev = sus.cnt.device
+    def rescore(rows, cols):
+        return _rescore_pairs(*exact, m, rows, cols)
+    cnt = sus.cnt[:w]
+    # All 2K capture slots, ascending: the K smallest, then the K largest.
+    cand = torch.cat([sus.mn[:w], sus.mx[:w].flip(1)], dim=1)
+    nslots = cand.shape[1]
+    over = cnt > nslots
+    mn1, mx1 = sus.mn[:w, 0], sus.mx[:w, 0]
+    spread = mx1.long() - mn1.long() + 1
+    narrow = over & (mn1 != SUSPECT_MIN_INIT) & (spread <= RUNCAP)
+    nrows = torch.nonzero(narrow).flatten()
+    flagged = torch.nonzero(over & ~narrow).flatten()
+
+    passc = None
+    if flagged.numel():
+        with phase(profile, "2. Compute [pass C]", device=dev):
+            passc = scan_flagged_rows(stats, thr, flagged, w=w, excl=excl)
+
+    with phase(profile, "3. Rescore [f64 slots]", device=dev):
+        # Sentinels and repeated slots (a count <= 2K repeats indices in
+        # both halves) -> -1: rescore gives them AGGREGATE_INIT.
+        cand = torch.where(cand == SUSPECT_MIN_INIT, -1, cand)
+        for j in range(1, nslots):
+            dup = (cand[:, :j] == cand[:, j : j + 1]).any(dim=1)
+            cand[:, j] = torch.where(dup, -1, cand[:, j])
+        rows_idx = torch.arange(w, device=dev).repeat_interleave(nslots)
+        P = rescore(rows_idx, cand.reshape(-1)).reshape(w, nslots)
+        bestP, bestI = _best_of(P, cand)
+
+    if nrows.numel():
+        # Every suspect lies in the captured interval [mn1, mx1]; when it is
+        # narrow (correlation plateaus), rescore the whole interval.
+        with phase(profile, "3. Rescore [f64 plateau runs]", device=dev):
+            runs = mn1[nrows][:, None] + torch.arange(RUNCAP, device=dev, dtype=torch.int32)
+            runs = torch.where(runs <= mx1[nrows][:, None], runs, -1)
+            runs = torch.where((runs - nrows[:, None]).abs() >= excl, runs, -1)
+            rP = rescore(nrows.repeat_interleave(RUNCAP), runs.reshape(-1)).reshape(-1, RUNCAP)
+            bestP[nrows], bestI[nrows] = _best_of(rP, runs)
+
+    scanned = flagged[:0]
+    if flagged.numel():
+        with phase(profile, "3. Rescore [f64 pass C top-64]", device=dev):
+            bv, bi, ccnt = passc
+            eP = rescore(flagged.repeat_interleave(PASS_C_K), bi.reshape(-1))
+            eP = eP.reshape(-1, PASS_C_K).masked_fill_(
+                (bi < 0) | (bv <= torch.tensor(AGGREGATE_INIT, dtype=torch.float32)),
+                AGGREGATE_INIT)
+            bestP[flagged], bestI[flagged] = _best_of(eP, bi)
+            # More than K pairs reach thr: the top-K may miss the winner.
+            scanned = flagged[ccnt > PASS_C_K]
+        if scanned.numel():
+            with phase(profile, "3. Rescore [f64 row scans]", device=dev):
+                bestP[scanned], bestI[scanned] = _row_scan(*exact, m, w, excl, scanned)
+    if profile is not None:
+        profile.counts.update({"plateau_rows": int(nrows.numel()),
+                               "pass_c_rows": int(flagged.numel()),
+                               "row_scan_rows": int(scanned.numel())})
+    return bestP, bestI
+
+
+def hybrid_statistics(T64, m: int, *, band: int, chunk: int, device, host_stats=None):
+    """The hybrid's operands on ``device``, from one set of host float64
+    statistics: the float64 statistics (the exact stages' ``T``, ``mu``,
+    ``inv``) and float32 statistics whose window matrix is the float32
+    rounding of the exact float64 unit windows.
+
+    mpx builds its float32 windows from float32 ``T`` and ``mu``; there
+    the rounding of ``T`` (relative to |T|) is amplified by ``inv`` (one
+    over the window's spread), so a window whose spread is small beside
+    its level (a plateau with fine detail on it) can pass the margin and
+    lose its true neighbor.  Rounding the exact unit windows keeps every
+    element within one float32 rounding of itself whatever the series'
+    level and scale.  Returns (float32 Stats, float64 Stats without
+    windows)."""
+    exact = precompute_statistics(T64, m, band=band, chunk=chunk, dtype="float64",
+                                  device=device, windows=False, host_stats=host_stats)
+    stats = Stats(*(x.float() for x in exact[:6]),
+                  windows=build_windows(exact, m, torch.float32))
+    return stats, exact
+
+
+def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
+                                      margin: Optional[float] = None, profile=None):
+    """Exact double-precision self-join profile through the hybrid tier.
+
+    Returns (MP float64 distances, MPI int32) tensors on ``config.device``;
+    untouched entries are sqrt(2m(1+1e12)) / -1, as on the other tiers.
+    ``profile`` (:class:`mpx_torch.utils.profile.BenchmarkProfile`) takes
+    the per-phase times and, in ``profile.counts``, the flags per job and
+    the escalated rows."""
+    m = config.m
+    T64 = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
+    T64 = np.asarray(T64, dtype=np.float64)
+    n = T64.shape[0]
+    config.validate_series(n, T64)
+    w = n - m + 1
+    config = config.shrink_to(w)
+    S, W = config.band, config.chunk
+    excl = m // 4
+    if margin is None:
+        margin = default_margin(m)
+    dev = torch.device(config.device)
+
+    with phase(profile, "1. Pre-Computation [host f64]"):
+        s64 = precompute_statistics_numpy(T64, m)
+    with phase(profile, "1. Pre-Computation [device]", device=dev):
+        stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
+
+    grid = make_job_grid(w, S, W)
+    pw = stats.mu.shape[0]
+    with phase(profile, "2. Compute [pass A]", device=dev):
+        thr, cap = run_max_jobs(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
+                                pw=pw)
+    sus = run_suspect_jobs_sparse(stats, thr, cap, S=S, W=W, m=m, w=w, profile=profile)
+    del cap  # the captured job maxima
+
+    bestP, bestI = _resolve_side(sus, w, m, stats=stats, thr=thr,
+                                 exact=(exact.T, exact.mu[:w], exact.inv[:w]),
+                                 excl=excl, profile=profile)
+    with phase(profile, "4. Post-Computation", device=dev):
+        MP = torch.sqrt(torch.clamp(2.0 * m * (1.0 - bestP), min=0.0))
+    return MP, bestI

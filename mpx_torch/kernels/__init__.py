@@ -15,6 +15,8 @@ Four implementations of the same band-sweep contract
 
 ``auto`` follows mpx's policy for large m: float64 with ``m > MXU_MAX_M``
 takes the recurrence (K3 on the card, the plain version on the CPU).
+``hybrid`` (:mod:`mpx_torch.hybrid`) is not a band sweep: the driver hands
+it the whole self-join, and it is reached by name only.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ def resolve_kernel(kernel: str, device, dtype=None, m: int = 0) -> str:
 
 
 def needs_windows(kernel: str) -> bool:
-    """Whether the sweep reads the (padded_w, m) unit-window matrix."""
-    return kernel in ("mxu", "mxu_fused")
+    """Whether the sweep reads the (padded_w, m) unit-window matrix (the
+    hybrid's float32 passes do, in float32)."""
+    return kernel in ("mxu", "mxu_fused", "hybrid")
 
 
 def get_sweep_fn(kernel: str):

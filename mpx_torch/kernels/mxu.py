@@ -10,9 +10,18 @@ This is the semantic reference of the fused CUDA kernel
 (:mod:`mpx_torch.kernels.mxu_fused`), the path every CPU tensor takes,
 and a deliberate user choice (``kernel='mxu'``) on the card.  It
 materializes the whole tile in device memory.
+
+The hybrid tier's float32 passes live here too (counterparts of mpx's
+``sweep_band_max``, ``sweep_band_suspects`` and
+``sweep_band_suspects_sparse``): the value-only max sweep (pass A's plain
+version) and the suspect captures of pass B, as torch ops.  mpx lowers
+them through XLA, not Pallas; their products are ``torch.matmul`` of
+float32 panels with TF32 off.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,8 +29,39 @@ from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut
 from mpx_torch.types import Aggregates, Stats
 
-# Calls of sweep_band_mxu (a plain count; reset by whoever reads it).
+# Calls of sweep_band_mxu and sweep_band_max, the plain versions of K1's
+# sweep (a plain count; reset by whoever reads it).
 CALLS = 0
+
+# Sentinels for suspect-index capture (min-merged / max-merged).
+SUSPECT_MIN_INIT = 2**30
+SUSPECT_MAX_INIT = -1
+# Suspect capture width per side: the K smallest and K largest suspect
+# indices are kept per subsequence, so any count <= 2K is captured whole.
+SUSPECT_K = 4
+# Gathered pass-B panels are padded to a multiple of this many rows (and
+# at least this many): the CPU's BLAS then gives each gathered row the
+# bits it has in the full tile's product (it does not for a handful of
+# rows), which keeps the sparse and the dense capture identical there.
+PANEL_ROWS = 32
+
+
+class SuspectWindow(NamedTuple):
+    """Per-subsequence suspect summary: how many valid pairs reach the
+    threshold, and the SUSPECT_K smallest (``mn``, ascending,
+    SUSPECT_MIN_INIT pad) and largest (``mx``, descending, SUSPECT_MAX_INIT
+    pad) neighbor indices among them.  Every field merges associatively
+    (sum / k-smallest / k-largest), so the captured set is exact whenever
+    the total count is <= 2 * SUSPECT_K."""
+
+    cnt: torch.Tensor  # (L,) int32
+    mn: torch.Tensor   # (L, SUSPECT_K) int32
+    mx: torch.Tensor   # (L, SUSPECT_K) int32
+
+
+class SuspectOut(NamedTuple):
+    row: SuspectWindow  # subsequences of the job's rows, suspects among its columns
+    col: SuspectWindow  # subsequences of the job's columns, suspects among its rows
 
 
 def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
@@ -49,14 +89,11 @@ def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
     """Mask the (S, W) correlation tile of rows r0.. and columns c0.. (in
     place) and reduce it to row and column max with the smallest index
     winning ties."""
-    w, excl = geom.w, geom.excl
     dt, dev = P.dtype, P.device
     S, W = P.shape
-    rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)[:, None]
-    cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)[None, :]
-    fin_r = torch.isfinite(stats.inv[r0 : r0 + S])[:, None]
-    fin_c = torch.isfinite(stats.inv[c0 : c0 + W])[None, :]
-    valid = (cols - rows >= excl) & (rows <= w - 1) & (cols <= geom.wc - 1) & fin_r & fin_c
+    rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
+    cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
+    valid = pair_mask(stats, rows, cols, geom)
     init_v = torch.tensor(AGGREGATE_INIT, dtype=dt, device=dev)
     Pm = P.masked_fill_(~valid, AGGREGATE_INIT)
     del valid  # free the mask before the reductions allocate
@@ -65,9 +102,166 @@ def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
     big = torch.tensor(2**30, dtype=torch.int32, device=dev)
     none = torch.tensor(INDEX_INIT, dtype=torch.int32, device=dev)
     row_v = Pm.amax(dim=1)
-    ri = torch.where(Pm == row_v[:, None], cols, big).amin(dim=1)
+    ri = torch.where(Pm == row_v[:, None], cols[None, :], big).amin(dim=1)
     row_i = torch.where(row_v > init_v, ri, none)
     col_v = Pm.amax(dim=0)
-    ci = torch.where(Pm == col_v[None, :], rows, big).amin(dim=0)
+    ci = torch.where(Pm == col_v[None, :], rows[:, None], big).amin(dim=0)
     col_i = torch.where(col_v > init_v, ci, none)
     return BandOut(row=Aggregates(row_v, row_i), col=Aggregates(col_v, col_i))
+
+
+def pair_mask(stats: Stats, rows: torch.Tensor, cols: torch.Tensor,
+              geom: BandGeometry) -> torch.Tensor:
+    """(len(rows), len(cols)) mask of the valid pairs of the upper triangle:
+    ``c - r >= excl``, both in bounds, both windows of finite inverse norm.
+    ``rows``/``cols`` are global int32 window indices."""
+    fin = torch.isfinite(stats.inv)
+    fin_r = fin.index_select(0, rows)[:, None]
+    fin_c = fin.index_select(0, cols)[None, :]
+    r, c = rows[:, None], cols[None, :]
+    return (c - r >= geom.excl) & (r <= geom.w - 1) & (c <= geom.wc - 1) & fin_r & fin_c
+
+
+def _full_precision(U: torch.Tensor) -> None:
+    if U.device.type == "cuda":
+        # TF32 keeps ~3 decimal digits: far outside the distance tolerance,
+        # and outside the hybrid's margin, where it would pick a wrong
+        # neighbor without an error.
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry):
+    """Value-only band sweep in the windows' dtype, the plain version of
+    pass A: per-row and per-column max correlation of the masked tile, no
+    index.  Returns ((S,) row maxima, (W,) column maxima), AGGREGATE_INIT
+    where a row or column has no valid pair."""
+    global CALLS
+    CALLS += 1
+    U = stats.windows
+    if U is None:
+        raise ValueError("stats.windows is required (see ops.precompute)")
+    _full_precision(U)
+    r0, c0 = int(r0), int(r0) + int(k0)
+    P = U[r0 : r0 + geom.S] @ U[c0 : c0 + geom.W].T
+    dev = P.device
+    rows = torch.arange(r0, r0 + geom.S, dtype=torch.int32, device=dev)
+    cols = torch.arange(c0, c0 + geom.W, dtype=torch.int32, device=dev)
+    Pm = P.masked_fill_(~pair_mask(stats, rows, cols, geom), AGGREGATE_INIT)
+    return Pm.amax(dim=1), Pm.amax(dim=0)
+
+
+def suspect_reduce(hit: torch.Tensor, idx: torch.Tensor, dim: int) -> SuspectWindow:
+    """Summarize a hit mask along ``dim``: the count, and the SUSPECT_K
+    smallest and largest of ``idx`` where it hits.  ``idx`` is the
+    ascending (int32) window index of each position along ``dim``, so the
+    K smallest hits are the first K and the K largest the last K: one
+    running count ranks every hit, and a binary search per slot finds the
+    position of the k-th.  Returns one summary per entry of the other
+    axis."""
+    K = SUSPECT_K
+    rank = (hit if dim == 1 else hit.T).cumsum(1, dtype=torch.int32).contiguous()
+    R, C = rank.shape
+    cnt = rank[:, -1]
+    k = torch.arange(K, dtype=torch.int32, device=hit.device)
+    first = torch.searchsorted(rank, (k + 1).repeat(R, 1))
+    last = torch.searchsorted(rank, (cnt[:, None] - k).clamp_min(1))
+    found = k[None, :] < cnt[:, None]
+    mn = torch.where(found, idx[first.clamp_max(C - 1)], SUSPECT_MIN_INIT)
+    mx = torch.where(found, idx[last.clamp_max(C - 1)], SUSPECT_MAX_INIT)
+    return SuspectWindow(cnt.contiguous(), mn, mx)
+
+
+def sweep_band_suspects(stats: Stats, r0: int, k0: int, geom: BandGeometry,
+                        thr: torch.Tensor) -> SuspectOut:
+    """Dense pass-B job: recompute the float32 tile and summarize, per
+    subsequence, every valid pair whose correlation reaches ``thr`` (its
+    global float32 maximum less twice the hybrid's margin).  The job grid
+    covers each valid pair once, so counts add across jobs."""
+    S, W = geom.S, geom.W
+    U = stats.windows
+    _full_precision(U)
+    r0, c0 = int(r0), int(r0) + int(k0)
+    P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
+    dev = P.device
+    rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
+    cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
+    valid = pair_mask(stats, rows, cols, geom)
+    row = suspect_reduce(valid & (P >= thr[r0 : r0 + S, None]), cols, 1)
+    col = suspect_reduce(valid & (P >= thr[None, c0 : c0 + W]), rows, 0)
+    return SuspectOut(row=row, col=col)
+
+
+def panel_rows(count: int) -> int:
+    """Rows of a gathered panel that holds ``count`` flagged windows."""
+    return max(PANEL_ROWS, -(-count // PANEL_ROWS) * PANEL_ROWS)
+
+
+def compact_flags(flags: torch.Tensor, F: int) -> torch.Tensor:
+    """Local indices of the set ``flags``, ascending, in F slots padded
+    with ``len(flags)``: a running count ranks the set flags and a binary
+    search finds the k-th, so the host never waits for the device."""
+    rank = torch.cumsum(flags, 0, dtype=torch.int32)
+    k = torch.arange(1, F + 1, dtype=torch.int32, device=flags.device)
+    return torch.searchsorted(rank, k)
+
+
+def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tensor,
+                               jcol: torch.Tensor, geom: BandGeometry,
+                               thr: torch.Tensor, nr: int, nc: int):
+    """Sparse pass-B job: re-examine only the rows and columns whose pass-A
+    job maxima (``jrow`` (S,), ``jcol`` (W,)) reach the threshold.  A row
+    below it provably holds no suspect in this job, so the (S x W) tile
+    shrinks to a product of the flagged rows with the job's columns and
+    one of the job's rows with the flagged columns.  ``nr``/``nc`` are the
+    flag counts (known on the host).
+
+    Returns (row side, column side), each (global window indices of the
+    flagged rows / columns, their SuspectWindow), ``nr`` / ``nc`` long, or
+    None when nothing is flagged there.
+
+    A flagged window is a valid row or column (its threshold is finite), so
+    only its partners are masked, and only by the tests this job's place
+    can fail (the host knows which): the exclusion zone on the first
+    chunk, the bounds past w - 1, zero-variance partners always."""
+    S, W, w, excl = geom.S, geom.W, geom.w, geom.excl
+    U = stats.windows
+    _full_precision(U)
+    r0, c0 = int(r0), int(r0) + int(k0)
+    dev = U.device
+    rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
+    cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
+    zone = c0 - (r0 + S - 1) < excl  # some pair of the job lies in the zone
+    out = []
+    if nr:
+        # Flagged rows x all W columns.  Pad slots (local index S) read the
+        # window after the band and never hit: their threshold is +inf.
+        rf = (r0 + compact_flags(jrow >= thr[r0 : r0 + S], panel_rows(nr))).to(torch.int32)
+        t = thr.index_select(0, rf)
+        t[nr:] = torch.inf
+        hit = (U.index_select(0, rf) @ U[c0 : c0 + W].T) >= t[:, None]
+        ok = torch.isfinite(stats.inv[c0 : c0 + W])
+        if c0 + W > w:
+            ok &= cols <= w - 1
+        hit &= ok[None, :]
+        if zone:
+            hit &= cols[None, :] - rf[:, None] >= excl
+        win = suspect_reduce(hit, cols, 1)
+        out.append((rf[:nr], SuspectWindow(*(a[:nr] for a in win))))
+    else:
+        out.append(None)
+    if nc:
+        cf = (c0 + compact_flags(jcol >= thr[c0 : c0 + W], panel_rows(nc))).to(torch.int32)
+        t = thr.index_select(0, cf)
+        t[nc:] = torch.inf
+        hit = (U[r0 : r0 + S] @ U.index_select(0, cf).T) >= t[None, :]
+        ok = torch.isfinite(stats.inv[r0 : r0 + S])
+        if r0 + S > w:
+            ok &= rows <= w - 1
+        hit &= ok[:, None]
+        if zone:
+            hit &= cf[None, :] - rows[:, None] >= excl
+        win = suspect_reduce(hit, rows, 0)
+        out.append((cf[:nc], SuspectWindow(*(a[:nc] for a in win))))
+    else:
+        out.append(None)
+    return tuple(out)

@@ -22,7 +22,7 @@ import torch
 
 from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut
-from mpx_torch.kernels.mxu import sweep_band_mxu
+from mpx_torch.kernels.mxu import sweep_band_max, sweep_band_mxu
 from mpx_torch.types import Aggregates, Stats
 
 # Launches of the CUDA kernel pair (a plain count; reset by whoever reads it).
@@ -87,3 +87,14 @@ def sweep_band_mxu_fused(stats: Stats, r0: int, k0: int, geom: BandGeometry,
         raise RuntimeError(f"mxu_fused launch failed: cudaError_t {err}")
     LAUNCHES += 1
     return BandOut(row=Aggregates(row_v, row_i), col=Aggregates(col_v, col_i))
+
+
+def sweep_band_max_fused(stats: Stats, r0: int, k0: int, geom: BandGeometry):
+    """Pass A of the hybrid tier (counterpart of mpx's value-only
+    ``sweep_band_max``): K1's float32 launch as it is, keeping the row and
+    column maxima and dropping the indices.  A CPU tensor takes the plain
+    :func:`mpx_torch.kernels.mxu.sweep_band_max`."""
+    if stats.windows is not None and stats.windows.device.type == "cpu":
+        return sweep_band_max(stats, r0, k0, geom)
+    out = sweep_band_mxu_fused(stats, r0, k0, geom, "float32")
+    return out.row.value, out.col.value

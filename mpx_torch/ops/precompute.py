@@ -105,15 +105,24 @@ def sliding_dot_product(q: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return torch.cat([U[o : o + blk] @ q for o in range(0, U.shape[0], blk)])
 
 
-def build_windows(stats: Stats, m: int) -> torch.Tensor:
-    """Unit-normalized window matrix (padded_w, m) on the stats' device,
-    in their dtype: ``(T[i:i+m] - mu[i]) * inv[i]``, with zero rows for
-    zero-variance (inv = inf) and padded (inv = 0) windows."""
+def build_windows(stats: Stats, m: int, dtype=None) -> torch.Tensor:
+    """Unit-normalized window matrix (padded_w, m) on the stats' device:
+    ``(T[i:i+m] - mu[i]) * inv[i]``, with zero rows for zero-variance
+    (inv = inf) and padded (inv = 0) windows.  Computed in the stats' dtype
+    and stored in ``dtype`` (default: the same); a narrower ``dtype`` is
+    filled in blocks, so only the stored matrix is allocated whole."""
     pw = stats.mu.shape[0]
     invc = torch.where(torch.isfinite(stats.inv), stats.inv,
                        torch.zeros((), dtype=stats.inv.dtype, device=stats.inv.device))
-    U = stats.T.unfold(0, m, 1)[:pw] - stats.mu[:, None]
-    return U.mul_(invc[:, None])  # in place: one (pw, m) allocation
+    if dtype is None or dtype == stats.T.dtype:
+        U = stats.T.unfold(0, m, 1)[:pw] - stats.mu[:, None]
+        return U.mul_(invc[:, None])  # in place: one (pw, m) allocation
+    U = torch.empty((pw, m), dtype=dtype, device=stats.T.device)
+    blk = max(1, _BLOCK_BYTES // (m * stats.T.element_size()))
+    for o in range(0, pw, blk):
+        e = min(o + blk, pw)
+        U[o:e] = (stats.T.unfold(0, m, 1)[o:e] - stats.mu[o:e, None]) * invc[o:e, None]
+    return U
 
 
 def stats_from_numpy(arrays: dict, dtype, device, windows: bool = True) -> Stats:
@@ -137,16 +146,19 @@ def stats_from_numpy(arrays: dict, dtype, device, windows: bool = True) -> Stats
 
 
 def precompute_statistics(T, m: int, *, band: int, chunk: int,
-                          dtype="float32", device="cpu", windows: bool = True) -> Stats:
+                          dtype="float32", device="cpu", windows: bool = True,
+                          host_stats: dict | None = None) -> Stats:
     """Device-resident, padded statistics in the compute dtype, with the
     unit-window matrix when ``windows`` (the (padded_w, m) matrix only the
     windows-matmul kernels read).  Accumulation is float64 on the host
-    (:func:`precompute_statistics_numpy`); the pad region is zero so
-    out-of-range lanes behave like the reference's ``InputDataPack(0)``."""
+    (:func:`precompute_statistics_numpy`, or ``host_stats``, its result
+    for the same series when the caller already has it); the pad region
+    is zero so out-of-range lanes behave like the reference's
+    ``InputDataPack(0)``."""
     T64 = np.asarray(T, dtype=np.float64)
     w = T64.shape[0] - m + 1
     pw = _padded_width(w, band, chunk)
-    s = precompute_statistics_numpy(T64, m)
+    s = precompute_statistics_numpy(T64, m) if host_stats is None else host_stats
     npdt = np.float64 if torch_dtype(dtype) == torch.float64 else np.float32
 
     def padn(x, width):

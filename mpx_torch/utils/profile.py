@@ -20,6 +20,9 @@ class BenchmarkProfile:
     def __init__(self):
         # category -> OrderedDict(name -> ns)
         self._categories: "OrderedDict[str, OrderedDict[str, int]]" = OrderedDict()
+        # What a run counted (e.g. the hybrid's flags per job and escalated
+        # rows), by name; filled by the code that runs, shown by report().
+        self.counts: "OrderedDict[str, float]" = OrderedDict()
 
     def push(self, category: str, ns: int, name: str | None = None):
         entries = self._categories.setdefault(category, OrderedDict())
@@ -52,6 +55,7 @@ class BenchmarkProfile:
                         f"({100.0 * ns / denom:.2f}%)"
                     )
         lines.append(f"  Total: {Timer.pretty(self.total())}")
+        lines += [f"  {name}: {value}" for name, value in self.counts.items()]
         text = "\n".join(lines)
         if file is not None:
             print(text, file=file)

@@ -1,5 +1,6 @@
 """mpx_torch on an NVIDIA GPU: K1 and K3 against their plain versions,
-and the self-join end to end against the numpy golden oracle.
+the self-join end to end against the numpy golden oracle, and the hybrid
+tier on the card against the same code on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor mpx, so it also runs where JAX is not installed:
@@ -232,3 +233,51 @@ def test_pallas_profile_on_card_matches_golden(card, dtype):
     for i in np.nonzero(MPI != MPI_exp)[0]:
         gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPI_exp[i])
         assert abs(gap) <= DIST_TOL[dtype], f"MPI[{i}] not an equidistant tie"
+
+
+def _tie_heavy(n: int, repeats: int, seed: int) -> np.ndarray:
+    """``repeats`` exact copies of one motif under 1e-3 noise: every window
+    inside it has repeats - 1 near-equal neighbors (more than the 8
+    capture slots and the 64 of pass C)."""
+    rng = np.random.default_rng(seed)
+    L = n // repeats
+    motif = np.cumsum(rng.standard_normal(L))
+    T = rng.standard_normal(L * repeats) * 1e-3
+    for r in range(repeats):
+        T[r * L : (r + 1) * L] += motif
+    return T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("series", ["random_walk", "tie_heavy"])
+def test_hybrid_on_card_matches_cpu(card, series):
+    """The hybrid's passes B and C and its float64 rescoring on the card,
+    held to the same code on the CPU: distances within 1e-8, indices equal
+    or equidistant.  Pass A is K1, one launch a job, no plain sweep."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n, m, band, chunk = 16384, 64, 1024, 4096
+    T = _series(n, 5, constant_run=False) if series == "random_walk" else _tie_heavy(n, 80, 5)
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        prof = BenchmarkProfile()
+        cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=band,
+                                  chunk=chunk, device=dev)
+        calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+        MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
+        assert MP.device.type == dev and MP.dtype == torch.float64
+        out[dev] = (MP.cpu().numpy(), MPI.cpu().numpy())
+        counts[dev] = dict(prof.counts, k1=mxu_fused.LAUNCHES - launches,
+                           plain=mxu.CALLS - calls)
+    jobs = len(make_job_grid(n - m + 1, band, chunk).r0)
+    assert counts["cuda"]["k1"] == jobs and counts["cuda"]["plain"] == 0
+    if series == "tie_heavy":
+        assert counts["cuda"]["pass_c_rows"] > 0 and counts["cuda"]["row_scan_rows"] > 0
+    (MP, MPI), (MPc, MPIc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(MP, MPc, rtol=0, atol=DIST_TOL["float64"])
+    for i in np.nonzero(MPI != MPIc)[0]:
+        gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPIc[i])
+        assert abs(gap) <= DIST_TOL["float64"], f"MPI[{i}] not an equidistant tie"
+    print(f"\nhybrid {series}: card {counts['cuda']}, cpu {counts['cpu']}, "
+          f"max |card - cpu| {np.abs(MP - MPc).max():.3e}")

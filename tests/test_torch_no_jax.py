@@ -62,7 +62,6 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kernel="hybrid"), "queue 1 item 8"),
     (dict(num_shards=2), "queue 1 item 13"),
     (dict(shard_mode="ring"), "queue 1 item 13"),
     (dict(input_quant="ap16"), "queue 1 item 7"),
