@@ -56,13 +56,29 @@ script exits nonzero without the final line):
     and the device's busy share per job);
 13. a tie-heavy series on the card (80 exact repeats of a motif,
     n=65520, m=64) through ``kernel='hybrid'``: pass C and the float64 row
-    scans run, against the exact row scan.
+    scans run, against the exact row scan;
+14. the f64 left/right profiles through ``kernel='hybrid'`` on phase 7's
+    series (n=2^20, m=256, band 4096, chunk 32768): one K1 f32 launch per
+    job and no plain call, each side against an exact sided float64 row
+    scan, and the nearer of the two sides against phase 12's profile; its
+    phase split, flags, escalated rows per side, capture bytes, peak
+    device memory, clock and power beside phase 12's;
+15. the hybrid's width gate on phase 3's series: with ``SPARSE_MAX_W``
+    lowered below w the self-join and the left/right hybrid take the dense
+    pass B with no captures, and give the sparse runs' profiles; the peak
+    device memory of both routes;
+16. the new surfaces: ``python -m mpx_torch bench`` (the f64 showcase
+    shape through K3, validated on 64 rows) as a subprocess, ``compute
+    --left-right --kernel hybrid`` and ``compute --dtype ap32`` on
+    data/binary/16384.tsb, and ``tsbin -e``/``-d`` round trips;
+17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
+    leaves it so through every phase.
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path run: K1 in
 phases 10 and 4, K3 in phases 7 and 8; the bound and the library call's
 time at the band-level shape; the hybrid adds no kernel, and its K1
-launches are in phase 12's line); the line before the last is the
+launches are in phase 12's and 14's lines); the line before the last is the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
@@ -158,10 +174,15 @@ def row_scan64(T: np.ndarray, m: int, rows: np.ndarray) -> np.ndarray:
     return D
 
 
-def check_rows(T, m, MP, MPI, rows, tol) -> float:
-    """MP/MPI on the sampled rows against the exact scan; an index may
-    differ from the scan's argmin only when equidistant within tol."""
-    D = row_scan64(T, m, rows)
+def check_rows(T, m, MP, MPI, rows, tol, side: int = 0, D=None) -> float:
+    """MP/MPI on the sampled rows against the exact scan (``D``, when the
+    caller has it); an index may differ from the scan's argmin only when
+    equidistant within tol.  ``side`` +1 (-1) keeps only the later (earlier)
+    neighbors: the right (left) profile."""
+    D = row_scan64(T, m, rows) if D is None else D.copy()
+    cols = np.arange(D.shape[1])
+    if side:
+        D[side * (cols[None, :] - rows[:, None]) < 0] = np.inf
     worst = 0.0
     for k, r in enumerate(rows):
         best = D[k].min()
@@ -350,11 +371,16 @@ def phase_band(torch, dtype: str) -> dict:
     Ur, Uc = stats.windows[r0 : r0 + S], stats.windows[c0 : c0 + W]
     # The yardstick: one library product of the same panels, in full
     # precision (TF32 would keep ~3 digits); no mask, no reduction.
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from mpx_torch.dtypes import full_precision_matmul
+
+    def library():
+        with full_precision_matmul():
+            return torch.matmul(Ur, Uc.T)
+
     plain1 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
     k1a = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
-    lib1 = time_ms(torch, lambda: torch.matmul(Ur, Uc.T))
-    lib2 = time_ms(torch, lambda: torch.matmul(Ur, Uc.T))
+    lib1 = time_ms(torch, library)
+    lib2 = time_ms(torch, library)
     k1b = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom, dtype))
     plain2 = time_ms(torch, lambda: sweep_band_mxu(stats, r0, k0, geom, dtype))
     ms, plain_ms, library_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2, (lib1 + lib2) / 2
@@ -456,14 +482,16 @@ class CardSampler:
         self.summary = {"samples": len(vals)} if not len(vals) else {
             "samples": len(vals), "sm_mhz_median": float(np.median(vals[:, 0])),
             "power_w_median": float(np.median(vals[:, 1])),
+            "sm_mhz_max": float(vals[:, 0].max()),
             "power_w_max": float(vals[:, 1].max())}
         return False
 
 
-def run_profile(torch, T, cfg, prof=None):
-    """Returns MP, MPI, wall seconds, phase seconds and the card's clock
-    and power during the run; ``prof`` (a BenchmarkProfile) keeps what the
-    run counted."""
+def run_profile(torch, T, cfg, prof=None, left_right: bool = False):
+    """Returns MP, MPI (with ``left_right``: MP_left, MPI_left, MP_right,
+    MPI_right), wall seconds, phase seconds and the card's clock and power
+    during the run; ``prof`` (a BenchmarkProfile) keeps what the run
+    counted."""
     from mpx_torch import compute_matrix_profile
     from mpx_torch.utils.profile import BenchmarkProfile
 
@@ -471,16 +499,17 @@ def run_profile(torch, T, cfg, prof=None):
     torch.cuda.synchronize()
     with CardSampler() as card:
         t0 = time.perf_counter()
-        MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
+        out = compute_matrix_profile(T, config=cfg, profile=prof, left_right=left_right)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    MP, MPI = MP.cpu().numpy(), MPI.cpu().numpy()
+    out = [o.cpu().numpy() for o in out]
     w = T.shape[0] - cfg.m + 1
-    require(MP.shape == (w,) and MPI.shape == (w,), f"shapes {MP.shape} {MPI.shape}")
-    require(np.isfinite(MP).all(), "non-finite distances")
-    require(((MPI >= -1) & (MPI < w)).all(), "index out of range")
+    for MP, MPI in zip(out[::2], out[1::2]):
+        require(MP.shape == (w,) and MPI.shape == (w,), f"shapes {MP.shape} {MPI.shape}")
+        require(np.isfinite(MP).all(), "non-finite distances")
+        require(((MPI >= -1) & (MPI < w)).all(), "index out of range")
     phases = {k: v / 1e9 for k, v in prof.category_totals().items()}
-    return MP, MPI, wall, phases, card.summary
+    return (*out, wall, phases, card.summary)
 
 
 def sample_rows(w: int, seed: int) -> np.ndarray:
@@ -728,6 +757,7 @@ def phase_margin_probe(torch):
     (pass A; K1 f64 is held to 1e-12 of exact in phase 2) and the worst
     |f32 product - f64 product| over the masked tile (pass B's product),
     each on the hybrid's own operands and held to default_margin(m) / 4."""
+    from mpx_torch.dtypes import full_precision_matmul
     from mpx_torch.hybrid import default_margin, hybrid_statistics
     from mpx_torch.kernels.common import band_geometry
     from mpx_torch.kernels.mxu import pair_mask
@@ -736,7 +766,6 @@ def phase_margin_probe(torch):
 
     n, S, W = 1 << 20, 4096, 32768
     T = random_walk(n, SEED + 2)
-    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for m in (64, 256, 512):
         w = n - m + 1
@@ -756,7 +785,8 @@ def phase_margin_probe(torch):
                 if bool(live.any()):
                     pass_a = max(pass_a, float((va - vb)[live].abs().max()))
             c0 = r0 + k0
-            P = (stats.windows[r0 : r0 + S] @ stats.windows[c0 : c0 + W].T).double()
+            with full_precision_matmul():
+                P = (stats.windows[r0 : r0 + S] @ stats.windows[c0 : c0 + W].T).double()
             P -= exact.windows[r0 : r0 + S] @ exact.windows[c0 : c0 + W].T
             valid = pair_mask(exact, torch.arange(r0, r0 + S, dtype=torch.int32, device="cuda"),
                               torch.arange(c0, c0 + W, dtype=torch.int32, device="cuda"), geom)
@@ -773,20 +803,24 @@ def phase_margin_probe(torch):
 
 
 def hybrid_split(phases: dict) -> dict:
-    """The hybrid's phase seconds, grouped as phase 12 reports them."""
-    def total(*prefixes):
-        return sum(v for k, v in phases.items() if k.startswith(prefixes))
+    """The hybrid's phase seconds, grouped as phases 12 and 14 report them
+    (the left/right run's rescore per side)."""
+    def total(*prefixes, side=""):
+        return sum(v for k, v in phases.items()
+                   if k.startswith(prefixes) and (not side or k.endswith(f"{side}]")))
     return {"statistics": total("1. "), "pass_a": total("2. Compute [pass A]"),
             "pass_b_sparse": total("2. Compute [pass B sparse]"),
             "pass_b_dense": total("2. Compute [pass B dense]"),
-            "pass_c": total("2. Compute [pass C]"), "rescore": total("3. "),
-            "post": total("4. ")}
+            "pass_c": total("2. Compute [pass C"), "rescore": total("3. "),
+            "rescore_left": total("3. ", side=", left"),
+            "rescore_right": total("3. ", side=", right"), "post": total("4. ")}
 
 
-def run_hybrid(torch, T, m, **cfg_kwargs):
+def run_hybrid(torch, T, m, left_right: bool = False, **cfg_kwargs):
     """One f64 run through kernel='hybrid' with its K1 launches checked
-    (one per job, no plain call).  Returns MP, MPI, wall, phases, card,
-    the run's counts and its peak device memory."""
+    (one per job, no plain call).  Returns MP, MPI (the four left/right
+    arrays with ``left_right``), wall, phases, card, the run's counts and
+    its peak device memory."""
     from mpx_torch import MatrixProfileConfig
     from mpx_torch.config import make_job_grid
     from mpx_torch.utils.profile import BenchmarkProfile
@@ -801,10 +835,10 @@ def run_hybrid(torch, T, m, **cfg_kwargs):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    MP, MPI, wall, phases, card = run_profile(torch, T, cfg, prof)
+    *out, wall, phases, card = run_profile(torch, T, cfg, prof, left_right)
     peak = torch.cuda.max_memory_allocated() - base
     launches = require_only(counts(), "k1", f"kernel='hybrid' n={T.shape[0]} (pass A)", jobs)
-    return MP, MPI, wall, phases, card, dict(prof.counts, k1_launches=launches), peak
+    return (*out, wall, phases, card, dict(prof.counts, k1_launches=launches), peak)
 
 
 def profile_pass_b(torch, T, m: int, S: int, W: int, jobs=range(1000, 1400)) -> dict:
@@ -877,6 +911,8 @@ def phase_showcase_hybrid(torch, k3_profile, k3_wall_s, k1_wall_s):
         same_job_shape_wall_s={"hybrid": wall, "k3 (phase 7)": k3_wall_s,
                                "k1 (phase 10)": k1_wall_s})
     say("12 pass B sparse profiled", **profile_pass_b(torch, T, m, 4096, 32768))
+    return {"profile": (MP, MPI), "wall_s": wall, "pairs_per_s": pairs / wall,
+            "split_s": split, "counts": cnt, "peak_device_bytes": peak, "card": card}
 
 
 def phase_tie_heavy(torch):
@@ -896,6 +932,159 @@ def phase_tie_heavy(torch):
     say("13 tie-heavy hybrid", n=T.shape[0], m=m, repeats=repeats, wall_s=wall,
         split_s=hybrid_split(phases), counts=cnt, peak_device_bytes=peak,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
+
+
+def phase_left_right_hybrid(torch, p12: dict):
+    """The f64 left/right profiles through kernel='hybrid' on phase 7's
+    series at the showcase shape: one K1 f32 launch per job and no plain
+    call; each side within 1e-8 of the exact sided row scan on 64 sampled
+    rows (indices only between equidistant neighbors); the nearer side
+    within 1e-10 of phase 12's profile; phase 12's numbers beside."""
+    n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
+    T = random_walk(n, SEED + 2)
+    w = n - m + 1
+    MPl, MPIl, MPr, MPIr, wall, phases, card, cnt, peak = run_hybrid(
+        torch, T, m, left_right=True, band=4096, chunk=32768)
+    require(cnt["k1_launches"] == 4224, f"left/right hybrid: {cnt['k1_launches']} K1 launches")
+    rows = sample_rows(w, SEED + 2)
+    D = row_scan64(T, m, rows)
+    vs_exact = {side: check_rows(T, m, MP, MPI, rows, tol, sign, D)
+                for side, sign, MP, MPI in (("left", -1, MPl, MPIl), ("right", 1, MPr, MPIr))}
+    MP12, MPI12 = p12["profile"]
+    nearer = np.minimum(MPl, MPr)
+    vs_p12 = float(np.abs(nearer - MP12).max())
+    require(vs_p12 <= 1e-10, f"min(left, right) vs phase 12's profile: {vs_p12}")
+    pairs = w * (w - 1) / 2
+    split = hybrid_split(phases)
+    say("14 left/right f64 hybrid", n=n, m=m, band=4096, chunk=32768,
+        k1_launches=cnt["k1_launches"], plain_calls=0, wall_s=wall,
+        pairs_per_s=pairs / wall, split_s=split, counts=cnt, peak_device_bytes=peak,
+        card=card, phases_s=phases, max_err_vs_exact_sided_64_rows=vs_exact, tol=tol,
+        max_err_min_left_right_vs_phase_12=vs_p12,
+        index_differs_vs_phase_12=int((np.where(MPr < MPl, MPIr, MPIl) != MPI12).sum()),
+        phase_12={k: v for k, v in p12.items() if k != "profile"})
+
+
+def phase_width_gate(torch):
+    """SPARSE_MAX_W lowered below w on phase 3's series: the self-join and
+    the left/right hybrid take the dense pass B, pass A keeps no captures,
+    and the profiles equal the sparse runs' within 1e-12; peak device
+    memory of both routes."""
+    from mpx_torch import hybrid
+
+    T, m = parity_series()
+    w = T.shape[0] - m + 1
+    tol = 1e-12
+    out = {}
+    gate, run_max_jobs = hybrid.SPARSE_MAX_W, hybrid.run_max_jobs
+    try:
+        for left_right in (False, True):
+            runs = {}
+            for route, width in (("sparse", gate), ("dense", w)):
+                hybrid.SPARSE_MAX_W = width
+                captured = []
+                hybrid.run_max_jobs = lambda *a, **k: captured.append(
+                    k["capture"]) or run_max_jobs(*a, **k)
+                *prof, wall, _, _, cnt, peak = run_hybrid(torch, T, m, left_right=left_right)
+                require(cnt["pass_b"] == route and captured == [route == "sparse"]
+                        and (cnt["capture_bytes"] == 0) == (route == "dense"),
+                        f"width gate {route}: {cnt}, capture={captured}")
+                runs[route] = (prof, wall, cnt, peak)
+            (a, *_), (b, *_) = runs["sparse"], runs["dense"]
+            err = max(check_profiles_agree(T, m, a[i], a[i + 1], b[i], b[i + 1], tol)
+                      for i in range(0, len(a), 2))
+            out["left/right" if left_right else "self-join"] = {
+                route: {"wall_s": wall, "pass_b": cnt["pass_b"],
+                        "capture_bytes": cnt["capture_bytes"],
+                        "dense_jobs": cnt["dense_jobs"], "peak_device_bytes": peak}
+                for route, (_, wall, cnt, peak) in runs.items()} | {"max_err": err}
+    finally:
+        hybrid.SPARSE_MAX_W, hybrid.run_max_jobs = gate, run_max_jobs
+    say("15 width gate", n=T.shape[0], m=m, w=w, lowered_to=w, tol=tol, **out)
+
+
+def run_cli(*args, subprocess_: bool = False, timeout: int = 600) -> str:
+    """``python -m mpx_torch ARGS`` as a subprocess, or its ``main`` in this
+    process; returns what it printed and fails on a nonzero exit."""
+    if subprocess_:
+        proc = subprocess.run([sys.executable, "-m", "mpx_torch", *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=timeout)
+        require(proc.returncode == 0, f"{args[0]} failed:\n{proc.stdout}{proc.stderr}")
+        return proc.stdout
+    import contextlib
+    import io
+
+    from mpx_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(args))
+    require(rc == 0, f"{args[0]} returned {rc}:\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def phase_surfaces(torch):
+    """The bench subcommand (a subprocess at the f64 showcase shape through
+    K3, its validation on 64 rows), compute --left-right --kernel hybrid
+    and compute --dtype ap32 on data/binary/16384.tsb, tsbin round trips."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile
+    from mpx_torch.io.apfixed import quantize
+    from mpx_torch.io.tsb import read_ascii, read_binary, read_series
+
+    t0 = time.perf_counter()
+    cmd = ["bench", "-n", "1048576", "-m", "256", "--dtype", "float64", "--kernel",
+           "pallas", "--chunk", "32768", "--validate", "64"]
+    lines = run_cli(*cmd, subprocess_=True).strip().splitlines()
+    last, detail = json.loads(lines[-1]), json.loads(lines[-2])
+    require(set(last) == {"metric", "value", "unit", "vs_baseline"} and last["value"] > 0,
+            f"bench's last line: {lines[-1]}")
+    require(detail["validation"]["rows"] == 64, f"bench's validation: {detail}")
+    bench = {"command": "python -m mpx_torch " + " ".join(cmd), "seconds":
+             time.perf_counter() - t0, "device_line": lines[0], "last_line": last,
+             "wall_s": detail["wall_s"], "compute_s": detail["compute_s"],
+             "validation": detail["validation"]}
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T, m = read_series(src), 256
+    w = T.shape[0] - m + 1
+    compute = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        run_cli("compute", "-i", src, "-m", str(m), "--dtype", "float64", "--kernel",
+                "hybrid", "--left-right", "-o", out)
+        lr = [read_binary(out + s + e, k) for s in (".left", ".right")
+              for e, k in ((".mpb", "double"), (".mpib", "int"))]
+        require(all(a.shape == (w,) for a in lr) and np.isfinite(lr[0]).all()
+                and np.isfinite(lr[2]).all(), "compute --left-right wrote bad files")
+        MP, _ = compute_matrix_profile(T, config=MatrixProfileConfig(
+            m=m, dtype="float64", kernel="hybrid", device="cuda"))
+        err = float(np.abs(np.minimum(lr[0], lr[2]) - MP.cpu().numpy()).max())
+        require(err <= 1e-10, f"compute --left-right: min(left, right) vs the hybrid {err}")
+        compute["left_right_hybrid"] = {"seconds": time.perf_counter() - t0,
+                                        "max_err_min_vs_self_join": err}
+        t0 = time.perf_counter()
+        run_cli("compute", "-i", src, "-m", str(m), "--dtype", "ap32", "-o", out)
+        MPq = read_binary(out + ".mpb", "double")
+        MPk, _ = compute_matrix_profile(quantize(T, "ap32"), config=MatrixProfileConfig(
+            m=m, dtype="float64", device="cuda"))
+        err = float(np.abs(MPq - MPk.cpu().numpy()).max())
+        require(MPq.shape == (w,) and err <= DIST_TOL["float64"],
+                f"compute --dtype ap32 vs the quantized series through K1: {err}")
+        compute["ap32"] = {"seconds": time.perf_counter() - t0, "max_err_vs_quantized": err}
+
+        txt = os.path.join(REPO, "data", "test", "16384.txt")
+        ref = read_ascii(txt)
+        tsbin = {}
+        for kind in ("double", "ap32"):
+            enc, dec = os.path.join(tmp, f"t.{kind}"), os.path.join(tmp, f"t.{kind}.txt")
+            run_cli("tsbin", "-e", txt, "-o", enc, "-t", kind)
+            run_cli("tsbin", "-d", enc, "-o", dec, "-t", kind)
+            back = read_ascii(dec)
+            want = ref if kind == "double" else quantize(ref, kind)
+            require(np.array_equal(back, want), f"tsbin {kind} round trip differs")
+            tsbin[kind] = {"values": int(back.shape[0]), "encoded_bytes": os.path.getsize(enc)}
+    say("16 surfaces", bench=bench, compute=compute, tsbin=tsbin)
 
 
 def phase_auto_large_m(torch):
@@ -935,24 +1124,54 @@ def main() -> int:
 
     smi = phase_device(torch)
     sys.path.insert(0, REPO)
+    # Phase 17: the caller's TF32 setting survives every phase (the port
+    # clears it only around its own float32 products).
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_after = []
+
+    def tf32_kept(after: str):
+        require(torch.backends.cuda.matmul.allow_tf32 is True,
+                f"allow_tf32 was changed by phase {after}")
+        tf32_after.append(after)
+
     phase_build()
     band = {dt: phase_band(torch, dt) for dt in ("float32", "float64")}
+    tf32_kept("2")
     k1_profile = phase_e2e_f64(torch)
+    tf32_kept("3")
     launches = {"mxu_fused": {"float32": phase_e2e_f32(torch)}}
+    tf32_kept("4")
     phase_cli()
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
+    tf32_kept("6")
     k3_w32768 = {dt: band_k3[dt].pop("_w32768") for dt in band_k3}
     k3_launches, k3_profile, k3_wall = phase_showcase(
         torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2, k3_w32768["float64"])
+    tf32_kept("7")
     launches["band_recurrence"] = {"float64": k3_launches,
                                    "float32": phase_parity(torch, k1_profile)}
+    tf32_kept("8")
     phase_auto_large_m(torch)
+    tf32_kept("9")
     launches["mxu_fused"]["float64"], _, k1_wall = phase_showcase(
         torch, "10 showcase f64 auto (K1)", "auto", "k1", SEED + 4)
+    tf32_kept("10")
     phase_margin_probe(torch)
-    phase_showcase_hybrid(torch, k3_profile, k3_wall, k1_wall)
+    tf32_kept("11")
+    p12 = phase_showcase_hybrid(torch, k3_profile, k3_wall, k1_wall)
+    tf32_kept("12")
     del k3_profile
     phase_tie_heavy(torch)
+    tf32_kept("13")
+    phase_left_right_hybrid(torch, p12)
+    tf32_kept("14")
+    del p12
+    phase_width_gate(torch)
+    tf32_kept("15")
+    phase_surfaces(torch)
+    tf32_kept("16")
+    say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        unchanged_after_phases=tf32_after)
     kernels = [
         {"name": f"{name}[{dt}]", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][dt], **times[dt]}

@@ -4,15 +4,19 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of the JAX package ``mpx`` (which stays the reference); module names
 match mpx's.  This package imports ``torch`` and never ``jax`` or ``mpx``.
 Ported so far: the single-series self-join (``matrix_profile``,
-``compute_matrix_profile``) through the fused tile-sweep kernel K1
-(``kernels/mxu_fused.py``, ``csrc/mxu_fused.cu``), the SCAMP recurrence K3
-(``kernels/recurrence.py``, ``csrc/band_recurrence.cu``) and the hybrid
-float64 tier (``hybrid.py``, ``kernel='hybrid'``), and the ``compute``
-command line (``python -m mpx_torch compute``).
+``compute_matrix_profile``, ``left_right=True`` for the left/right
+profiles) through the fused tile-sweep kernel K1 (``kernels/mxu_fused.py``,
+``csrc/mxu_fused.cu``), the SCAMP recurrence K3 (``kernels/recurrence.py``,
+``csrc/band_recurrence.cu``) and the hybrid float64 tier (``hybrid.py``,
+``kernel='hybrid'``); the fixed-point input tier (``io/apfixed.py``,
+``dtype='ap16'`` .. ``'ap64'``); ``io/`` and ``bench.py``; and the
+``compute``, ``tsbin``, ``golden``, ``datasets`` and ``bench`` command
+lines (``python -m mpx_torch ...``).
 """
 
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
+from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
 from mpx_torch.types import Aggregates, JobGrid, Stats
 
 __version__ = "0.1.0"
@@ -25,4 +29,7 @@ __all__ = [
     "Aggregates",
     "JobGrid",
     "Stats",
+    "AGGREGATE_INIT",
+    "INDEX_INIT",
+    "__version__",
 ]

@@ -1,10 +1,21 @@
 """Command-line interface, counterpart of ``mpx/cli.py``.
 
-Only the ``compute`` subcommand is ported::
+* ``compute``  — a self-join matrix profile (``--left-right`` for the
+  left/right profiles, ``--dtype ap16|ap24|ap32|ap64`` for the
+  fixed-point input tier);
+* ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
+  MPXQ fixed-point containers);
+* ``golden``   — golden MP/MPI through the numpy oracle
+  (:mod:`mpx_torch.reference`);
+* ``datasets`` — list the datasets under ``data/``;
+* ``bench``    — the benchmark's single run (:mod:`mpx_torch.bench`).
+
+::
 
     python -m mpx_torch compute -i data/binary/16384.tsb -m 256 -o out
 
-writes ``out.mpb`` / ``out.mpib`` byte-compatible with mpx's.
+writes ``out.mpb`` / ``out.mpib``; every subcommand writes the same bytes
+as mpx's.
 """
 
 from __future__ import annotations
@@ -12,13 +23,20 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+
+from mpx_torch.utils.logging import Logger
+
+_DTYPES = ("float32", "float64", "ap16", "ap24", "ap32", "ap64")
+
 
 def _add_compute(sub):
     p = sub.add_parser("compute", help="compute a self-join matrix profile")
     p.add_argument("-i", "--input", required=True, help=".tsb/.txt[.gz] time series")
     p.add_argument("-o", "--output", help="output base path (writes .mpb/.mpib)")
     p.add_argument("-m", type=int, default=32, help="subsequence length")
-    p.add_argument("--dtype", default="float32", choices=("float32", "float64"))
+    p.add_argument("--dtype", default="float32", choices=_DTYPES,
+                   help="compute dtype; ap* = fixed-point input tier")
     p.add_argument("--kernel", default="auto",
                    choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
     p.add_argument("--band", type=int, default=4096, help="rows per job (band height)")
@@ -36,9 +54,9 @@ def _cmd_compute(args) -> int:
     from mpx_torch.io.tsb import read_series, write_results
     from mpx_torch.utils.profile import BenchmarkProfile
 
+    Logger.verbose = args.verbose
     T = read_series(args.input)
-    if args.verbose:
-        print(f"read {T.shape[0]} values from {args.input}")
+    Logger.verbose_log(f"read {T.shape[0]} values from {args.input}")
     cfg = MatrixProfileConfig(
         m=args.m, dtype=args.dtype, kernel=args.kernel, band=args.band,
         chunk=args.chunk, device=args.device,
@@ -54,7 +72,7 @@ def _cmd_compute(args) -> int:
     if args.output:
         for suffix, MP, MPI in named:
             mpb, mpib = write_results(args.output + suffix, MP, MPI)
-            print(f"wrote {mpb}, {mpib}")
+            Logger.info(f"wrote {mpb}, {mpib}")
     else:
         for row in zip(*(o[:10] for o in out)):
             print(*row)
@@ -65,18 +83,119 @@ def _cmd_compute(args) -> int:
     return 0
 
 
+def _add_tsbin(sub):
+    p = sub.add_parser("tsbin", help="encode/decode binary time series files")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("-d", "--decode", action="store_true")
+    g.add_argument("-e", "--encode", action="store_true")
+    p.add_argument("input", nargs=1)
+    p.add_argument("-o", "--output")
+    p.add_argument("-t", "--type", default="double",
+                   choices=("double", "int", "ap16", "ap24", "ap32", "ap64"),
+                   help="element type; ap* = fixed-point quantized container (MPXQ)")
+    p.add_argument("-n", type=int, help="expected element count")
+    p.add_argument("-l", "--limit", type=int)
+    p.add_argument("--offset", type=int)
+    p.add_argument("--oneline", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def _cmd_tsbin(args) -> int:
+    from mpx_torch.io.apfixed import read_quantized, write_quantized
+    from mpx_torch.io.tsb import read_ascii, read_binary, write_ascii, write_binary
+
+    Logger.verbose = args.verbose
+    path = args.input[0]
+    for flag, value in (("-n", args.n), ("-l/--limit", args.limit),
+                        ("--offset", args.offset)):
+        if value is not None and value < 0:
+            raise SystemExit(f"{flag} must have a non-negative value")
+
+    def window(data):
+        off = args.offset or 0
+        return data[off : off + args.limit if args.limit is not None else len(data)]
+
+    ap = args.type.startswith("ap")
+    if args.encode:
+        if not args.output:
+            raise SystemExit("-o/--output has to be specified in -e/--encode mode")
+        data = read_ascii(path)
+        if args.n is not None and len(data) != args.n:
+            raise SystemExit(f"expected {args.n} values, decoded {len(data)}")
+        data = window(data)
+        if ap:
+            write_quantized(args.output, data, args.type)
+        else:
+            if args.type == "int":
+                data = np.asarray(data, dtype=np.int64)
+            write_binary(args.output, data, args.type)
+        Logger.info(f"encoded {len(data)} '{args.type}' values -> {args.output}")
+    else:
+        if ap:
+            data = window(read_quantized(path, args.n))
+        else:
+            data = window(read_binary(path, args.type, args.n))
+        if args.output:
+            write_ascii(args.output, data, oneline=args.oneline)
+            Logger.info(f"decoded {len(data)} values -> {args.output}")
+        else:
+            print(*data.tolist(), sep=(", " if args.oneline else "\n"))
+    return 0
+
+
+def _add_golden(sub):
+    p = sub.add_parser("golden", help="golden MP/MPI via the numpy oracle")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True, help="output base path")
+    p.add_argument("-m", type=int, required=True)
+    return p
+
+
+def _cmd_golden(args) -> int:
+    from mpx_torch.io.tsb import read_series, write_results
+    from mpx_torch.reference import compute_matrix_profile_reference
+
+    MP, MPI = compute_matrix_profile_reference(read_series(args.input), args.m)
+    mpb, mpib = write_results(args.output, MP, MPI)
+    Logger.info(f"wrote {mpb}, {mpib}")
+    return 0
+
+
+def _cmd_datasets(args) -> int:
+    from mpx_torch.io.datasets import list_datasets
+
+    for cat, names in list_datasets().items():
+        print(f"{cat}:")
+        for name in names:
+            print(f"  {name}")
+    return 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # The benchmark parses its own flags (argparse's REMAINDER would not
+    # pass leading ones through).
+    if argv and argv[0] == "bench":
+        from mpx_torch import bench
+
+        return bench.main(argv[1:])
     parser = argparse.ArgumentParser(
         prog="mpx_torch", description="matrix-profile framework (PyTorch/CUDA port)"
     )
     sub = parser.add_subparsers(dest="command")
     _add_compute(sub)
-    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    _add_tsbin(sub)
+    _add_golden(sub)
+    sub.add_parser("datasets", help="list the datasets under data/")
+    sub.add_parser("bench", help="run the benchmark (python -m mpx_torch bench -h)")
+    args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return 2
     try:
-        return _cmd_compute(args)
+        return {"compute": _cmd_compute, "tsbin": _cmd_tsbin, "golden": _cmd_golden,
+                "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

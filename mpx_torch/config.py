@@ -1,7 +1,11 @@
 """Runtime configuration, counterpart of ``mpx/config.py``.
 
 * ``m``          — subsequence length
-* ``dtype``      — compute dtype: float32 or float64
+* ``dtype``      — compute dtype: float32 or float64; or a fixed-point
+  format ``ap16``/``ap24`` (float32 compute) or ``ap32``/``ap64`` (float64),
+  which sets ``input_quant``
+* ``input_quant`` — quantize the input to this ap_fixed format before
+  computing (mpx_torch.io.apfixed)
 * ``kernel``     — 'auto' | 'mxu' | 'mxu_fused' | 'xla' | 'pallas' (see
   mpx_torch.kernels) | 'hybrid' (mpx_torch.hybrid)
 * ``band``       — rows per job
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from mpx_torch.dtypes import canonical_dtype
+from mpx_torch.io.apfixed import FORMATS, get_format
 from mpx_torch.types import JobGrid
 
 _KERNELS = ("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid")
@@ -50,10 +55,19 @@ class MatrixProfileConfig:
     device: str = "cuda"
 
     def __post_init__(self):
+        # An ap_fixed dtype selects the quantized-input tier with the
+        # narrowest exact compute dtype (ap16/ap24 mantissas fit float32,
+        # ap32/ap64 need float64), as mpx.
         key = self.dtype.lower() if isinstance(self.dtype, str) else None
-        if key in ("ap16", "ap24", "ap32", "ap64") or self.input_quant is not None:
-            _unported("the fixed-point input tier (input_quant, ap* dtypes)",
-                      "ROADMAP.md queue 1 item 7 (io/apfixed.py)")
+        if key in FORMATS:
+            if self.input_quant not in (None, key):
+                raise ValueError(f"dtype={self.dtype!r} conflicts with "
+                                 f"input_quant={self.input_quant!r}")
+            object.__setattr__(self, "input_quant", key)
+            object.__setattr__(self, "dtype",
+                               "float32" if key in ("ap16", "ap24") else "float64")
+        elif self.input_quant is not None:
+            get_format(self.input_quant)  # raises on unknown
         canonical_dtype(self.dtype)  # raises on unsupported
         if self.kernel not in _KERNELS:
             raise ValueError(f"kernel must be one of {_KERNELS}, got {self.kernel!r}")

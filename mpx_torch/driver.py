@@ -18,6 +18,7 @@ import torch
 
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
+from mpx_torch.io.apfixed import quantize
 from mpx_torch.kernels import band_geometry, get_sweep_fn, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import (
     init_aggregates,
@@ -71,8 +72,14 @@ def compute_matrix_profile(
     and chunk (with ``windows`` when the kernel reads them); ``profile`` a
     :class:`mpx_torch.utils.profile.BenchmarkProfile` for per-phase times.
 
-    ``kernel='hybrid'`` runs :func:`mpx_torch.hybrid.compute_matrix_profile_f64_hybrid`:
-    exact float64 distances, cast down for a float32 request (as mpx).
+    ``kernel='hybrid'`` runs :func:`mpx_torch.hybrid.compute_matrix_profile_f64_hybrid`
+    (:func:`~mpx_torch.hybrid.compute_left_right_f64_hybrid` with
+    ``left_right``): exact float64 distances, cast down for a float32
+    request (as mpx).
+
+    With ``config.input_quant`` (an ``ap*`` dtype) the series is first
+    quantized to that fixed-point grid (:func:`mpx_torch.io.apfixed.quantize`),
+    then computed through the tier ``config.kernel`` selects.
     """
     if config is None:
         config = MatrixProfileConfig(m=m if m is not None else 32)
@@ -81,10 +88,14 @@ def compute_matrix_profile(
     m = config.m
 
     T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
-    if config.kernel == "hybrid":
-        return _hybrid(T, config, stats=stats, profile=profile, left_right=left_right)
     n = T.shape[0]
     config.validate_series(n, T)
+    if config.input_quant is not None:
+        # The reference's double -> ap_fixed cast (range check, then round
+        # toward zero), then the exact pipeline on the quantized values.
+        T = quantize(T, config.input_quant)
+    if config.kernel == "hybrid":
+        return _hybrid(T, config, stats=stats, profile=profile, left_right=left_right)
     w = n - m + 1
     config = config.shrink_to(w)
     S, W = config.band, config.chunk
@@ -117,14 +128,15 @@ def _hybrid(T, config: MatrixProfileConfig, *, stats, profile, left_right: bool)
     if stats is not None:
         raise ValueError("kernel='hybrid' computes its own statistics (float64 on "
                          "the host, float32 operands on the device); drop stats=")
-    if left_right:
-        raise NotImplementedError(
-            "left/right profiles through kernel='hybrid' are not ported to mpx_torch "
-            "yet: ROADMAP.md queue 1 item 8 (the left/right hybrid)")
-    from mpx_torch.hybrid import compute_matrix_profile_f64_hybrid
+    from mpx_torch import hybrid
 
-    MP, MPI = compute_matrix_profile_f64_hybrid(T, config, profile=profile)
-    return MP.to(torch_dtype(config.dtype)), MPI
+    run = (hybrid.compute_left_right_f64_hybrid if left_right
+           else hybrid.compute_matrix_profile_f64_hybrid)
+    out = run(T, config, profile=profile)
+    # (MP, MPI) or (MP_left, MPI_left, MP_right, MPI_right): the exact
+    # distances in the requested dtype.
+    dt = torch_dtype(config.dtype)
+    return tuple(o.to(dt) if o.is_floating_point() else o for o in out)
 
 
 def matrix_profile(T, m: int, **kwargs):

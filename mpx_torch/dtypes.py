@@ -6,9 +6,14 @@ value, neighbor index) pairs initialized to ``value = -1e12`` /
 max-merge and untouched entries survive to the output as sentinels.
 
 PyTorch has native float64 on every device, so there is no x64 scope.
+Float32 products on the card run in full FP32 inside
+:func:`full_precision_matmul`, which leaves the caller's TF32 setting as
+it found it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -54,3 +59,19 @@ def distance_epsilon(dtype) -> float:
     """Default absolute tolerance on output distances: 1e-8 for float64
     (the reference harness epsilon), 2e-3 for float32."""
     return 1e-8 if canonical_dtype(dtype) == np.dtype(np.float64) else 2e-3
+
+
+@contextlib.contextmanager
+def full_precision_matmul():
+    """Float32 matmuls in full FP32 for the block: TF32 keeps ~3 decimal
+    digits, far outside the distance tolerance and the hybrid's margin.
+    Saves ``torch.backends.cuda.matmul.allow_tf32``, clears it, and
+    restores it on exit (cuBLAS reads the flag when a product is
+    enqueued, so the products inside keep full precision).  The
+    hand-written kernels do not read the flag."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

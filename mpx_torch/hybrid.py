@@ -1,38 +1,45 @@
 """Hybrid double-precision tier: float32 sweeps + exact float64 rescoring.
 
-Counterpart of ``mpx/hybrid.py`` (``kernel='hybrid'``), the self-join.  All
-O(n^2) work runs in float32; only the few suspects of each subsequence are
-scored in float64:
+Counterpart of ``mpx/hybrid.py`` (``kernel='hybrid'``): the self-join
+(:func:`compute_matrix_profile_f64_hybrid`) and the left/right profiles
+(:func:`compute_left_right_f64_hybrid`).  All O(n^2) work runs in float32;
+only the few suspects of each subsequence are scored in float64:
 
 1. **Pass A** — K1's float32 sweep (split TF32 on the card,
    :func:`mpx_torch.kernels.mxu_fused.sweep_band_max_fused`) gives every
-   job's per-row and per-column maxima.  They are kept (the captures) and
+   job's per-row and per-column maxima.  Below ``SPARSE_MAX_W`` windows,
+   and when they fit the device, they are kept (the captures).  They are
    folded into each subsequence's maximum ``gmax32`` and its threshold
-   ``thr = gmax32 - 2 * margin``.
-2. **Pass B** — per job, only the rows and columns whose pass-A job maximum
-   reaches ``thr`` are re-examined: every valid pair at or above ``thr`` is
-   counted and the SUSPECT_K smallest and largest neighbor indices are
-   kept (associative merges; the job grid covers each pair once).  The
-   flag counts of all jobs are fetched once; a job whose count exceeds
-   :func:`_sparse_budget` is swept densely instead.
+   ``thr = gmax32 - 2 * margin``; the left/right profiles keep one
+   threshold per side (rows: later neighbors, columns: earlier ones).
+2. **Pass B** — with captures (sparse), each job re-examines only the rows
+   and columns whose pass-A job maximum reaches ``thr``: every valid pair
+   at or above ``thr`` is counted and the SUSPECT_K smallest and largest
+   neighbor indices are kept (associative merges; the job grid covers
+   each pair once).  The flag counts of all jobs are fetched once; a job
+   whose count exceeds :func:`_sparse_budget` is swept densely instead.
+   Without captures every job is swept densely.
 3. **Resolve** — the captured suspects are rescored exactly in float64 on
    the run's device.  A subsequence whose count overflows the 2K slots
    rescores its whole captured index interval when that is <= 64 wide
    (plateau runs); otherwise **pass C** recomputes its full row in float32
    with a streaming top-64 and a count at or above ``thr``, and the top-64
-   are rescored.  A count above 64 gets an exact float64 row scan.
+   are rescored.  A count above 64 gets an exact float64 row scan.  The
+   left/right profiles resolve each side on its own, every stage kept to
+   that side's neighbors.
 
 Correctness needs only that each float32 pass be within ``margin`` of the
 float64 truth for every pair: the true argmax c* then has
 ``P32(c*) >= P64(c*) - margin >= gmax32 - 2 margin = thr``, so it is always a
 suspect, and a pair below ``thr`` has ``P64 < gmax32 - margin <= best64``,
-so it can never win.  Passes A and B may therefore use different float32
-arithmetic (split TF32 in K1, FP32 products in passes B and C on the card).
-The rescored values are exact float64, so the profile does not depend on
-them.
+so it can never win (per side, with that side's maximum, for the
+left/right profiles).  Passes A and B may therefore use different float32
+arithmetic (split TF32 in K1, FP32 products in passes B and C on the
+card).  The rescored values are exact float64, so the profile does not
+depend on them.
 
-Passes B and C are torch ops (``torch.matmul`` of float32 panels, TF32
-off), as mpx lowers them through XLA; the exact stages use mpx's formula
+Passes B and C are torch ops (``torch.matmul`` of float32 panels in full
+FP32), as mpx lowers them through XLA; the exact stages use mpx's formula
 (centered-window dot x inv x inv) in float64 tensors on the run's device.
 """
 
@@ -44,7 +51,7 @@ import numpy as np
 import torch
 
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
-from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
+from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.kernels.mxu import (
     SUSPECT_K,
@@ -61,6 +68,7 @@ from mpx_torch.ops.precompute import (
     precompute_statistics_numpy,
 )
 from mpx_torch.types import Stats
+from mpx_torch.utils.logging import Logger
 from mpx_torch.utils.profile import phase
 
 # The arithmetic of the float32 passes.  mpx runs them at its HIGH
@@ -83,6 +91,13 @@ _ROW_BLOCK = 2048
 _SCAN_COLS = 65536
 # Bytes of the window operands of one rescoring block.
 _RESCORE_BYTES = 256 << 20
+# Widths from which pass A keeps no captures and pass B sweeps every job
+# densely: mpx's gate (``_sparse_ok``), whose captures cost (S + W) x 4
+# bytes a job (38.8 GB at w = 2^23, band 4096, chunk 32768).
+SPARSE_MAX_W = 2**23
+# Device memory left free beside the captures: pass B's dense tile and its
+# masks (~2 GB at S = 4096, W = 32768) and the row scans' blocks (~1.5 GB).
+_CAPTURE_HEADROOM = 4 << 30
 
 
 def default_margin(m: int) -> float:
@@ -93,6 +108,35 @@ def default_margin(m: int) -> float:
     stay within a quarter of it: ``chip_smoke.py`` phase 11 reads them on
     the card."""
     return max(1e-4, 4e-7 * m) + 4 * _HIGH_TRUNC_BOUND
+
+
+def capture_bytes(jobs: int, S: int, W: int) -> int:
+    """Bytes of pass A's captures: every job's (S,) row and (W,) column
+    maxima in float32."""
+    return jobs * (S + W) * 4
+
+
+def _sparse_ok(w: int, nbytes: int, device) -> bool:
+    """Whether pass A keeps its captures (``nbytes`` of them) for the
+    sparse pass B: widths below SPARSE_MAX_W, as mpx, and on a card only
+    when they fit its free memory less _CAPTURE_HEADROOM."""
+    if w >= SPARSE_MAX_W:
+        return False
+    if torch.device(device).type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return nbytes <= free - _CAPTURE_HEADROOM
+    return True
+
+
+def _side_zone(delta: torch.Tensor, excl: int, side: int) -> torch.Tensor:
+    """Pairs (r, r + delta) outside the exclusion zone on the given side:
+    +1 later neighbors (``delta >= excl``), -1 earlier ones
+    (``-delta >= excl``), 0 both."""
+    if side > 0:
+        return delta >= excl
+    if side < 0:
+        return -delta >= excl
+    return delta.abs() >= excl
 
 
 def _combine_suspects(a: SuspectWindow, b: SuspectWindow) -> SuspectWindow:
@@ -147,11 +191,13 @@ def _merge_many(g: SuspectWindow, pos: torch.Tensor, win: SuspectWindow) -> None
         dst.copy_(flat[: L * K].view(L, K))
 
 
-def _fold_suspects(rows_g: SuspectWindow, cols_g: SuspectWindow, *, w: int) -> SuspectWindow:
-    """One summary per subsequence: its row side (later neighbors) and its
-    column side (earlier ones)."""
-    return _combine_suspects(SuspectWindow(*(a[:w] for a in rows_g)),
-                             SuspectWindow(*(a[:w] for a in cols_g)))
+def _finish_suspects(rows_g: SuspectWindow, cols_g: SuspectWindow, *, w: int,
+                     combine: bool):
+    """The global row-axis and column-axis summaries cut to the profile:
+    folded into one per subsequence (``combine``, the self-join), or apart
+    as (row side: later neighbors, column side: earlier ones)."""
+    rows, cols = (SuspectWindow(*(a[:w] for a in g)) for g in (rows_g, cols_g))
+    return _combine_suspects(rows, cols) if combine else (rows, cols)
 
 
 def _sparse_budget(S: int, W: int) -> int:
@@ -163,72 +209,92 @@ def _sparse_budget(S: int, W: int) -> int:
 # ---------------------------------------------------------------- pass A
 
 
-def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int) -> torch.Tensor:
+def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int, combine: bool = True):
     """Fold pass A's maxima into the suspect thresholds, (pw,) float32:
     ``gmax32 - 2 margin`` (in float32, as mpx), +inf for windows with no
-    valid pair (they would flag in every job) and in the pad tail."""
+    valid pair (they would flag in every job) and in the pad tail.  With
+    ``combine`` one threshold from both maxima; without, (rows from the
+    row maxima only, columns from the column maxima only)."""
     dev = rmax.device
-    two_eps = torch.tensor(2.0, dtype=torch.float32) * torch.tensor(margin, dtype=torch.float32)
-    gmax = torch.maximum(rmax[:w], cmax[:w])
-    thr = torch.full((pw,), torch.inf, dtype=torch.float32, device=dev)
-    thr[:w] = torch.where(gmax > AGGREGATE_INIT, gmax - two_eps.to(dev), torch.inf)
-    return thr
+    two_eps = (torch.tensor(2.0, dtype=torch.float32)
+               * torch.tensor(margin, dtype=torch.float32)).to(dev)
+
+    def fold(gmax):
+        thr = torch.full((pw,), torch.inf, dtype=torch.float32, device=dev)
+        thr[:w] = torch.where(gmax > AGGREGATE_INIT, gmax - two_eps, torch.inf)
+        return thr
+
+    if combine:
+        return fold(torch.maximum(rmax[:w], cmax[:w]))
+    return fold(rmax[:w]), fold(cmax[:w])
 
 
 def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int,
-                 pw: int):
+                 pw: int, combine: bool = True, capture: bool = True):
     """Pass A: one K1 float32 launch per job (the plain sweep for CPU
     tensors), max-merged into (w + S,) row and (w + W,) column maxima and
-    folded into the thresholds.  Returns (thresholds, captures), the
-    captures ``(r0s, k0s, jrow (J, S), jcol (J, W))`` being each job's
-    per-row and per-column maxima, pass B's skip oracle."""
+    folded into the thresholds (see :func:`_build_thr`; a pair
+    ``(rows, columns)`` without ``combine``).  Returns (thresholds,
+    captures): with ``capture`` the captures ``(r0s, k0s, jrow (J, S),
+    jcol (J, W))`` are each job's per-row and per-column maxima, pass B's
+    skip oracle; without, None and nothing is kept."""
     geom = band_geometry(S, W, m, w)
     dev = stats.windows.device
     r0s, k0s = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
     rmax = torch.full((w + S,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
     cmax = torch.full((w + W,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
-    jrow = torch.empty((len(r0s), S), dtype=torch.float32, device=dev)
-    jcol = torch.empty((len(r0s), W), dtype=torch.float32, device=dev)
+    if capture:
+        jrow = torch.empty((len(r0s), S), dtype=torch.float32, device=dev)
+        jcol = torch.empty((len(r0s), W), dtype=torch.float32, device=dev)
     for j, (r0, k0) in enumerate(zip(r0s.tolist(), k0s.tolist())):
         rv, cv = sweep_band_max_fused(stats, r0, k0, geom)
         seg_r, seg_c = rmax[r0 : r0 + S], cmax[r0 + k0 : r0 + k0 + W]
         torch.maximum(seg_r, rv, out=seg_r)
         torch.maximum(seg_c, cv, out=seg_c)
-        jrow[j].copy_(rv)
-        jcol[j].copy_(cv)
-    return _build_thr(rmax, cmax, margin, w=w, pw=pw), (r0s, k0s, jrow, jcol)
+        if capture:
+            jrow[j].copy_(rv)
+            jcol[j].copy_(cv)
+    thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine)
+    return thr, ((r0s, k0s, jrow, jcol) if capture else None)
 
 
 # ---------------------------------------------------------------- pass B
 
 
 def _dense_jobs(stats, thr, r0s, k0s, geom, rows_g: SuspectWindow,
-                cols_g: SuspectWindow) -> None:
+                cols_g: SuspectWindow, thr_col=None) -> None:
     """Sweep the jobs' whole tiles, merging each job's summaries into the
     global row-axis and column-axis ones."""
     for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
-        out = sweep_band_suspects(stats, r0, k0, geom, thr)
+        out = sweep_band_suspects(stats, r0, k0, geom, thr, thr_col)
         _merge_suspects_at(rows_g, out.row, r0)
         _merge_suspects_at(cols_g, out.col, r0 + k0)
 
 
-def run_suspect_jobs(stats, thr, r0s, k0s, *, S: int, W: int, m: int, w: int) -> SuspectWindow:
-    """Dense pass B over the given jobs, folded into one summary per
-    subsequence: the reference of the sparse pass B."""
+def run_suspect_jobs(stats, thr, r0s, k0s, *, S: int, W: int, m: int, w: int,
+                     thr_col=None, combine: bool = True):
+    """Dense pass B over the given jobs (the reference of the sparse pass
+    B, and the route without captures).  ``thr_col`` is the column side's
+    threshold (default ``thr``); returns one summary per subsequence, or
+    the row and column sides apart without ``combine``
+    (:func:`_finish_suspects`)."""
     dev = stats.windows.device
     rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
-    _dense_jobs(stats, thr, r0s, k0s, band_geometry(S, W, m, w), rows_g, cols_g)
-    return _fold_suspects(rows_g, cols_g, w=w)
+    _dense_jobs(stats, thr, r0s, k0s, band_geometry(S, W, m, w), rows_g, cols_g, thr_col)
+    return _finish_suspects(rows_g, cols_g, w=w, combine=combine)
 
 
-def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, block: int = 256) -> np.ndarray:
+def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, thr_col=None,
+                 block: int = 256) -> np.ndarray:
     """(J, 2) flagged rows and columns of every job, from pass A's
-    captures, with the comparisons the sparse jobs make; computed on the
-    device in blocks of jobs and fetched once."""
+    captures, with the comparisons the sparse jobs make (the columns
+    against ``thr_col``, default ``thr``); computed on the device in blocks
+    of jobs and fetched once."""
     dev = thr.device
     r0 = torch.as_tensor(r0s, dtype=torch.int64, device=dev)
     c0 = r0 + torch.as_tensor(k0s, dtype=torch.int64, device=dev)
-    tr, tc = thr.unfold(0, S, 1), thr.unfold(0, W, 1)
+    tr = thr.unfold(0, S, 1)
+    tc = (thr if thr_col is None else thr_col).unfold(0, W, 1)
     out = []
     for o in range(0, r0.shape[0], block):
         sl = slice(o, o + block)
@@ -239,7 +305,7 @@ def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, block: int = 256)
 
 
 def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
-                            profile=None) -> SuspectWindow:
+                            thr_col=None, combine: bool = True, profile=None):
     """Sparse pass B: each job re-examines only the rows and columns its
     pass-A captures flag, at its exact flag counts (fetched once for all
     jobs); a job over the budget takes the dense sweep.  Same result as
@@ -249,13 +315,13 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
     dev = stats.windows.device
     rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
     with phase(profile, "2. Compute [pass B sparse]", device=dev):
-        counts = _flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W)
+        counts = _flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W, thr_col=thr_col)
         dense = counts.max(axis=1) > _sparse_budget(S, W)
         found = ([], [])  # (positions, summaries) of the row and column sides
         for j in np.nonzero(~dense & (counts.max(axis=1) > 0))[0].tolist():
             for side, got in zip(found, sweep_band_suspects_sparse(
                     stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
-                    *(int(x) for x in counts[j]))):
+                    *(int(x) for x in counts[j]), thr_col=thr_col)):
                 if got is not None:
                     side.append(got)
         # One merge for all sparse jobs: their summaries land in one sort.
@@ -263,8 +329,11 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
             if side:
                 pos, wins = zip(*side)
                 _merge_many(g, torch.cat(pos), SuspectWindow(*map(torch.cat, zip(*wins))))
+    if dense.any():
+        Logger.verbose_log(f"hybrid sparse pass B: {int(dense.sum())} job(s) over the "
+                           "flag budget to the dense sweep")
     with phase(profile, "2. Compute [pass B dense]", device=dev):
-        _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g)
+        _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g, thr_col)
     if profile is not None:
         flags = counts.max(axis=1)
         profile.counts.update({
@@ -272,23 +341,22 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
             "flags_per_job_p99": float(np.percentile(flags, 99)),
             "flags_per_job_max": int(flags.max()), "dense_jobs": int(dense.sum()),
             "jobs_without_flags": int((flags == 0).sum())})
-    return _fold_suspects(rows_g, cols_g, w=w)
+    return _finish_suspects(rows_g, cols_g, w=w, combine=combine)
 
 
 # ---------------------------------------------------------------- pass C
 
 
-def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int):
+def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0):
     """Pass C: for each flagged subsequence, recompute its full float32
-    correlation row (both sides of the join, ``|c - r| >= excl``) in
-    PASS_C_COLS columns at a time, keep the top PASS_C_K by a streaming
-    merge, and count the pairs at or above ``thr``: a count <= PASS_C_K
-    proves the top-K holds every suspect.  Returns (values (F, K), indices
-    (F, K), -1 where empty; counts (F,))."""
+    correlation row in PASS_C_COLS columns at a time, keep the top
+    PASS_C_K by a streaming merge, and count the pairs at or above ``thr``:
+    a count <= PASS_C_K proves the top-K holds every suspect.  ``side``
+    keeps the neighbors of one side (:func:`_side_zone`: +1 later, -1
+    earlier, 0 both).  Returns (values (F, K), indices (F, K), -1 where
+    empty; counts (F,))."""
     K, CW = PASS_C_K, PASS_C_COLS
     U = stats.windows
-    if U.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
     dev = U.device
     fin = torch.isfinite(stats.inv)
     outs = []
@@ -302,9 +370,11 @@ def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int):
         for c0 in range(0, w, CW):
             c1 = min(c0 + CW, w)
             cols = torch.arange(c0, c1, dtype=torch.int32, device=dev)
-            valid = (((cols[None, :] - fi[:, None]).abs() >= excl)
+            valid = (_side_zone(cols[None, :] - fi[:, None], excl, side)
                      & fin_f[:, None] & fin[c0:c1][None, :])
-            P = (Uf @ U[c0:c1].T).masked_fill_(~valid, AGGREGATE_INIT)
+            with full_precision_matmul():
+                P = Uf @ U[c0:c1].T
+            P.masked_fill_(~valid, AGGREGATE_INIT)
             cnt += (P >= thr_f[:, None]).sum(dim=1, dtype=torch.int32)
             v, loc = P.topk(min(K, c1 - c0), dim=1)
             av = torch.cat([bv, v], dim=1)
@@ -342,10 +412,12 @@ def _rescore_pairs(T64, mu, inv, m: int, rows, cols) -> torch.Tensor:
     return P
 
 
-def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows):
+def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows, side: int = 0):
     """Exact float64 best neighbor of each given row over ALL its valid
-    pairs (``|c - r| >= excl``, finite inverse norms): the smallest index
-    among ties.  Returns (bestP float64, bestI int32)."""
+    pairs (outside the exclusion zone on the given side, see
+    :func:`_side_zone`; finite inverse norms): the smallest index among
+    ties.  ``side=+1``/``-1`` is mpx's ``_row_scan_sided``.  Returns
+    (bestP float64, bestI int32)."""
     dev = T64.device
     rows = torch.as_tensor(rows, device=dev).long()
     win = T64.unfold(0, m, 1)[:w]
@@ -361,7 +433,7 @@ def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows):
             qt = Q @ (win[c0:c1] - mu[c0:c1][:, None]).T
             P = qt * inv[c0:c1][None, :] * inv[rr][:, None]
             cols = torch.arange(c0, c1, device=dev)
-            bad = (((cols[None, :] - rr[:, None]).abs() < excl)
+            bad = (~_side_zone(cols[None, :] - rr[:, None], excl, side)
                    | ~fin[c0:c1][None, :] | ~fin[rr][:, None])
             v, i = P.masked_fill_(bad, AGGREGATE_INIT).max(dim=1)
             upd = v > bp  # strictly: an earlier block keeps a tie
@@ -382,16 +454,25 @@ def _best_of(P, cand):
     return best, idx.to(torch.int32)
 
 
+_SIDE_NAMES = {0: "", 1: "right", -1: "left"}
+
+
 def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl: int,
-                  profile):
+                  profile, side: int = 0):
     """Rescore the captured candidates exactly, run pass C for
     capture-overflow rows whose captured interval is wide, and hand rows
     with more than PASS_C_K near-maximal pairs to the exact row scan.
-    ``sus`` is the folded summary on the device, ``stats``/``thr`` pass
-    C's float32 operands, ``exact`` the float64 (T, mu, inv)."""
+    ``sus`` is the summary on the device, ``stats``/``thr`` pass C's
+    float32 operands, ``exact`` the float64 (T, mu, inv); ``side`` keeps
+    every stage to one side's neighbors (+1 the right profile, -1 the
+    left, 0 the self-join).  Phases and counts of a side carry its name."""
     dev = sus.cnt.device
+    name = _SIDE_NAMES[side]
+    tag, key = (f", {name}", f"_{name}") if name else ("", "")
+
     def rescore(rows, cols):
         return _rescore_pairs(*exact, m, rows, cols)
+
     cnt = sus.cnt[:w]
     # All 2K capture slots, ascending: the K smallest, then the K largest.
     cand = torch.cat([sus.mn[:w], sus.mx[:w].flip(1)], dim=1)
@@ -405,10 +486,10 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
 
     passc = None
     if flagged.numel():
-        with phase(profile, "2. Compute [pass C]", device=dev):
-            passc = scan_flagged_rows(stats, thr, flagged, w=w, excl=excl)
+        with phase(profile, f"2. Compute [pass C{tag}]", device=dev):
+            passc = scan_flagged_rows(stats, thr, flagged, w=w, excl=excl, side=side)
 
-    with phase(profile, "3. Rescore [f64 slots]", device=dev):
+    with phase(profile, f"3. Rescore [f64 slots{tag}]", device=dev):
         # Sentinels and repeated slots (a count <= 2K repeats indices in
         # both halves) -> -1: rescore gives them AGGREGATE_INIT.
         cand = torch.where(cand == SUSPECT_MIN_INIT, -1, cand)
@@ -421,17 +502,18 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
 
     if nrows.numel():
         # Every suspect lies in the captured interval [mn1, mx1]; when it is
-        # narrow (correlation plateaus), rescore the whole interval.
-        with phase(profile, "3. Rescore [f64 plateau runs]", device=dev):
+        # narrow (correlation plateaus), rescore the whole interval, less
+        # the pairs inside the zone or on the other side.
+        with phase(profile, f"3. Rescore [f64 plateau runs{tag}]", device=dev):
             runs = mn1[nrows][:, None] + torch.arange(RUNCAP, device=dev, dtype=torch.int32)
             runs = torch.where(runs <= mx1[nrows][:, None], runs, -1)
-            runs = torch.where((runs - nrows[:, None]).abs() >= excl, runs, -1)
+            runs = torch.where(_side_zone(runs - nrows[:, None], excl, side), runs, -1)
             rP = rescore(nrows.repeat_interleave(RUNCAP), runs.reshape(-1)).reshape(-1, RUNCAP)
             bestP[nrows], bestI[nrows] = _best_of(rP, runs)
 
     scanned = flagged[:0]
     if flagged.numel():
-        with phase(profile, "3. Rescore [f64 pass C top-64]", device=dev):
+        with phase(profile, f"3. Rescore [f64 pass C top-64{tag}]", device=dev):
             bv, bi, ccnt = passc
             eP = rescore(flagged.repeat_interleave(PASS_C_K), bi.reshape(-1))
             eP = eP.reshape(-1, PASS_C_K).masked_fill_(
@@ -441,12 +523,17 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
             # More than K pairs reach thr: the top-K may miss the winner.
             scanned = flagged[ccnt > PASS_C_K]
         if scanned.numel():
-            with phase(profile, "3. Rescore [f64 row scans]", device=dev):
-                bestP[scanned], bestI[scanned] = _row_scan(*exact, m, w, excl, scanned)
+            if scanned.numel() > 1000:
+                Logger.warning(f"hybrid tier: {scanned.numel()} subsequences have more "
+                               f"than {PASS_C_K} near-maximal pairs; exact row scans "
+                               f"may dominate the runtime")
+            with phase(profile, f"3. Rescore [f64 row scans{tag}]", device=dev):
+                bestP[scanned], bestI[scanned] = _row_scan(*exact, m, w, excl, scanned,
+                                                           side=side)
     if profile is not None:
-        profile.counts.update({"plateau_rows": int(nrows.numel()),
-                               "pass_c_rows": int(flagged.numel()),
-                               "row_scan_rows": int(scanned.numel())})
+        profile.counts.update({f"plateau_rows{key}": int(nrows.numel()),
+                               f"pass_c_rows{key}": int(flagged.numel()),
+                               f"row_scan_rows{key}": int(scanned.numel())})
     return bestP, bestI
 
 
@@ -471,15 +558,10 @@ def hybrid_statistics(T64, m: int, *, band: int, chunk: int, device, host_stats=
     return stats, exact
 
 
-def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
-                                      margin: Optional[float] = None, profile=None):
-    """Exact double-precision self-join profile through the hybrid tier.
-
-    Returns (MP float64 distances, MPI int32) tensors on ``config.device``;
-    untouched entries are sqrt(2m(1+1e12)) / -1, as on the other tiers.
-    ``profile`` (:class:`mpx_torch.utils.profile.BenchmarkProfile`) takes
-    the per-phase times and, in ``profile.counts``, the flags per job and
-    the escalated rows."""
+def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool):
+    """The hybrid tier end to end: the self-join's (bestP, bestI) or, with
+    ``left_right``, the left and right sides' (bestP, bestI) each, as
+    distances (see the public functions)."""
     m = config.m
     T64 = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
     T64 = np.asarray(T64, dtype=np.float64)
@@ -500,15 +582,63 @@ def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
 
     grid = make_job_grid(w, S, W)
     pw = stats.mu.shape[0]
+    jobs = len(grid.r0)
+    nbytes = capture_bytes(jobs, S, W)
+    sparse = _sparse_ok(w, nbytes, dev)
     with phase(profile, "2. Compute [pass A]", device=dev):
         thr, cap = run_max_jobs(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
-                                pw=pw)
-    sus = run_suspect_jobs_sparse(stats, thr, cap, S=S, W=W, m=m, w=w, profile=profile)
-    del cap  # the captured job maxima
+                                pw=pw, combine=not left_right, capture=sparse)
+    thr_r, thr_c = thr if left_right else (thr, None)
+    kw = dict(S=S, W=W, m=m, w=w, thr_col=thr_c, combine=not left_right)
+    if sparse:
+        sus = run_suspect_jobs_sparse(stats, thr_r, cap, profile=profile, **kw)
+        del cap  # the captured job maxima
+    else:
+        with phase(profile, "2. Compute [pass B dense]", device=dev):
+            sus = run_suspect_jobs(stats, thr_r, grid.r0, grid.k0, **kw)
+        if profile is not None:
+            profile.counts.update({"jobs": jobs, "dense_jobs": jobs})
+    if profile is not None:
+        profile.counts.update({"pass_b": "sparse" if sparse else "dense",
+                               "capture_bytes": nbytes if sparse else 0})
 
-    bestP, bestI = _resolve_side(sus, w, m, stats=stats, thr=thr,
-                                 exact=(exact.T, exact.mu[:w], exact.inv[:w]),
-                                 excl=excl, profile=profile)
+    resolve = dict(stats=stats, exact=(exact.T, exact.mu[:w], exact.inv[:w]), excl=excl,
+                   profile=profile)
+    if left_right:
+        # The job grid covers the upper triangle: the row side is the
+        # right profile, the column side the left.
+        sides = [_resolve_side(sus[1], w, m, thr=thr_c, side=-1, **resolve),
+                 _resolve_side(sus[0], w, m, thr=thr_r, side=+1, **resolve)]
+    else:
+        sides = [_resolve_side(sus, w, m, thr=thr_r, **resolve)]
     with phase(profile, "4. Post-Computation", device=dev):
-        MP = torch.sqrt(torch.clamp(2.0 * m * (1.0 - bestP), min=0.0))
-    return MP, bestI
+        return tuple(x for P, I in sides
+                     for x in (torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0)), I))
+
+
+def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
+                                      margin: Optional[float] = None, profile=None):
+    """Exact double-precision self-join profile through the hybrid tier.
+
+    Returns (MP float64 distances, MPI int32) tensors on ``config.device``;
+    untouched entries are sqrt(2m(1+1e12)) / -1, as on the other tiers.
+    ``profile`` (:class:`mpx_torch.utils.profile.BenchmarkProfile`) takes
+    the per-phase times and, in ``profile.counts``, pass B's route
+    (``pass_b``: sparse or dense) and capture bytes, the flags per job and
+    the escalated rows."""
+    return _run(T, config, margin=margin, profile=profile, left_right=False)
+
+
+def compute_left_right_f64_hybrid(T, config: MatrixProfileConfig, *,
+                                  margin: Optional[float] = None, profile=None):
+    """Exact double-precision left/right profiles through the hybrid tier:
+    each subsequence's nearest earlier (left) and later (right) neighbor.
+
+    Passes A and B run with per-side thresholds, and each side resolves on
+    its own with every escalation kept to that side.  Returns (MP_left,
+    MPI_left, MP_right, MPI_right), float64 and int32 tensors on
+    ``config.device``; a side with no valid neighbor (the first and last
+    ``m // 4`` windows, zero-variance ones) is sqrt(2m(1+1e12)) / -1.
+    ``profile`` as for :func:`compute_matrix_profile_f64_hybrid`, with the
+    escalation counts and resolve phases named by side."""
+    return _run(T, config, margin=margin, profile=profile, left_right=True)

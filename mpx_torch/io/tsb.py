@@ -5,6 +5,8 @@
 * ``.mpb``  — raw little-endian float64 matrix profile (n - m + 1 values)
 * ``.mpib`` — raw little-endian int32 matrix profile index
 * ``.txt`` / ``.txt.gz`` — whitespace-separated ascii
+* MPXQ fixed-point containers (:mod:`mpx_torch.io.apfixed`), found by
+  their magic whatever the extension
 
 A binary file must hold a whole number of elements, and exactly ``n``
 of them when ``n`` is given.
@@ -18,12 +20,12 @@ from typing import Optional
 
 import numpy as np
 
+from mpx_torch.io.apfixed import is_quantized_file, read_quantized
+
 _BINARY_DTYPES = {
     "double": np.dtype("<f8"),
     "int": np.dtype("<i4"),
 }
-# Magic of mpx's fixed-point MPXQ container (mpx/io/apfixed.py).
-_MPXQ_MAGIC = b"MPXQ"
 
 
 def _dtype_for(type_name: str) -> np.dtype:
@@ -64,15 +66,18 @@ def read_ascii(path: str) -> np.ndarray:
     return np.array([float(x) for x in text.split()], dtype=np.float64)
 
 
+def write_ascii(path: str, data, oneline: bool = False) -> None:
+    """One value a line (or one line), each as Python's ``repr``."""
+    sep = " " if oneline else "\n"
+    with open(path, "w") as f:
+        f.write(sep.join(repr(float(x)) for x in np.asarray(data)) + "\n")
+
+
 def read_series(path: str) -> np.ndarray:
-    """Load a time series from any supported container by extension."""
-    with open(path, "rb") as f:
-        if f.read(4) == _MPXQ_MAGIC:
-            raise NotImplementedError(
-                f"{path} is an MPXQ fixed-point container; reading it is not "
-                f"ported to mpx_torch yet: ROADMAP.md queue 1 item 7 "
-                f"(io/apfixed.py)"
-            )
+    """Load a time series from any supported container: an MPXQ container
+    by its magic (its exact quantized values), else by extension."""
+    if is_quantized_file(path):
+        return read_quantized(path)
     if path.endswith(".tsb") or path.endswith(".mpb"):
         return read_binary(path, "double")
     if path.endswith(".mpib"):

@@ -16,7 +16,7 @@ The hybrid tier's float32 passes live here too (counterparts of mpx's
 ``sweep_band_suspects_sparse``): the value-only max sweep (pass A's plain
 version) and the suspect captures of pass B, as torch ops.  mpx lowers
 them through XLA, not Pallas; their products are ``torch.matmul`` of
-float32 panels with TF32 off.
+float32 panels in full FP32 (:func:`mpx_torch.dtypes.full_precision_matmul`).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, torch_dtype
+from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul, torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut
 from mpx_torch.types import Aggregates, Stats
 
@@ -75,13 +75,11 @@ def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     dt = torch_dtype(dtype)
     if U.dtype != dt:
         raise ValueError(f"stats are {U.dtype}, sweep asked for {dt}")
-    if U.device.type == "cuda":
-        # Full-precision products: TF32 keeps ~3 decimal digits, far
-        # outside the distance tolerance.
-        torch.backends.cuda.matmul.allow_tf32 = False
     r0, k0 = int(r0), int(k0)
     c0 = r0 + k0
-    return reduce_tile(U[r0 : r0 + S] @ U[c0 : c0 + W].T, stats, r0, c0, geom)
+    with full_precision_matmul():
+        P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
+    return reduce_tile(P, stats, r0, c0, geom)
 
 
 def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
@@ -122,14 +120,6 @@ def pair_mask(stats: Stats, rows: torch.Tensor, cols: torch.Tensor,
     return (c - r >= geom.excl) & (r <= geom.w - 1) & (c <= geom.wc - 1) & fin_r & fin_c
 
 
-def _full_precision(U: torch.Tensor) -> None:
-    if U.device.type == "cuda":
-        # TF32 keeps ~3 decimal digits: far outside the distance tolerance,
-        # and outside the hybrid's margin, where it would pick a wrong
-        # neighbor without an error.
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry):
     """Value-only band sweep in the windows' dtype, the plain version of
     pass A: per-row and per-column max correlation of the masked tile, no
@@ -140,9 +130,9 @@ def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry):
     U = stats.windows
     if U is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
-    _full_precision(U)
     r0, c0 = int(r0), int(r0) + int(k0)
-    P = U[r0 : r0 + geom.S] @ U[c0 : c0 + geom.W].T
+    with full_precision_matmul():
+        P = U[r0 : r0 + geom.S] @ U[c0 : c0 + geom.W].T
     dev = P.device
     rows = torch.arange(r0, r0 + geom.S, dtype=torch.int32, device=dev)
     cols = torch.arange(c0, c0 + geom.W, dtype=torch.int32, device=dev)
@@ -172,22 +162,25 @@ def suspect_reduce(hit: torch.Tensor, idx: torch.Tensor, dim: int) -> SuspectWin
 
 
 def sweep_band_suspects(stats: Stats, r0: int, k0: int, geom: BandGeometry,
-                        thr: torch.Tensor) -> SuspectOut:
+                        thr: torch.Tensor, thr_col=None) -> SuspectOut:
     """Dense pass-B job: recompute the float32 tile and summarize, per
     subsequence, every valid pair whose correlation reaches ``thr`` (its
     global float32 maximum less twice the hybrid's margin).  The job grid
-    covers each valid pair once, so counts add across jobs."""
+    covers each valid pair once, so counts add across jobs.  ``thr_col``
+    (default ``thr``) is the column side's own threshold (the left/right
+    profiles: rows find later neighbors, columns earlier ones)."""
     S, W = geom.S, geom.W
     U = stats.windows
-    _full_precision(U)
+    thr_c = thr if thr_col is None else thr_col
     r0, c0 = int(r0), int(r0) + int(k0)
-    P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
+    with full_precision_matmul():
+        P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
     dev = P.device
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
     cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
     valid = pair_mask(stats, rows, cols, geom)
     row = suspect_reduce(valid & (P >= thr[r0 : r0 + S, None]), cols, 1)
-    col = suspect_reduce(valid & (P >= thr[None, c0 : c0 + W]), rows, 0)
+    col = suspect_reduce(valid & (P >= thr_c[None, c0 : c0 + W]), rows, 0)
     return SuspectOut(row=row, col=col)
 
 
@@ -207,13 +200,14 @@ def compact_flags(flags: torch.Tensor, F: int) -> torch.Tensor:
 
 def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tensor,
                                jcol: torch.Tensor, geom: BandGeometry,
-                               thr: torch.Tensor, nr: int, nc: int):
+                               thr: torch.Tensor, nr: int, nc: int, thr_col=None):
     """Sparse pass-B job: re-examine only the rows and columns whose pass-A
     job maxima (``jrow`` (S,), ``jcol`` (W,)) reach the threshold.  A row
     below it provably holds no suspect in this job, so the (S x W) tile
     shrinks to a product of the flagged rows with the job's columns and
     one of the job's rows with the flagged columns.  ``nr``/``nc`` are the
-    flag counts (known on the host).
+    flag counts (known on the host); ``thr_col`` (default ``thr``) is the
+    column side's threshold, as in :func:`sweep_band_suspects`.
 
     Returns (row side, column side), each (global window indices of the
     flagged rows / columns, their SuspectWindow), ``nr`` / ``nc`` long, or
@@ -225,7 +219,7 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
     chunk, the bounds past w - 1, zero-variance partners always."""
     S, W, w, excl = geom.S, geom.W, geom.w, geom.excl
     U = stats.windows
-    _full_precision(U)
+    thr_c = thr if thr_col is None else thr_col
     r0, c0 = int(r0), int(r0) + int(k0)
     dev = U.device
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
@@ -238,7 +232,9 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
         rf = (r0 + compact_flags(jrow >= thr[r0 : r0 + S], panel_rows(nr))).to(torch.int32)
         t = thr.index_select(0, rf)
         t[nr:] = torch.inf
-        hit = (U.index_select(0, rf) @ U[c0 : c0 + W].T) >= t[:, None]
+        with full_precision_matmul():
+            P = U.index_select(0, rf) @ U[c0 : c0 + W].T
+        hit = P >= t[:, None]
         ok = torch.isfinite(stats.inv[c0 : c0 + W])
         if c0 + W > w:
             ok &= cols <= w - 1
@@ -250,10 +246,12 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
     else:
         out.append(None)
     if nc:
-        cf = (c0 + compact_flags(jcol >= thr[c0 : c0 + W], panel_rows(nc))).to(torch.int32)
-        t = thr.index_select(0, cf)
+        cf = (c0 + compact_flags(jcol >= thr_c[c0 : c0 + W], panel_rows(nc))).to(torch.int32)
+        t = thr_c.index_select(0, cf)
         t[nc:] = torch.inf
-        hit = (U[r0 : r0 + S] @ U.index_select(0, cf).T) >= t[None, :]
+        with full_precision_matmul():
+            P = U[r0 : r0 + S] @ U.index_select(0, cf).T
+        hit = P >= t[None, :]
         ok = torch.isfinite(stats.inv[r0 : r0 + S])
         if r0 + S > w:
             ok &= rows <= w - 1

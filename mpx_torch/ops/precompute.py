@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpx_torch.dtypes import torch_dtype
+from mpx_torch.dtypes import full_precision_matmul, torch_dtype
 from mpx_torch.types import Stats
 
 # A window's centered sum-of-squares below REL * (its raw sum-of-squares)
@@ -96,13 +96,12 @@ def sliding_dot_product(q: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     this cancels later, so it stays a matmul in full precision.  The
     product copies the overlapping window view, so it runs in blocks of
     ``_BLOCK_BYTES``."""
-    if T.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
     U = T.unfold(0, q.shape[0], 1)
     blk = max(1, _BLOCK_BYTES // (U.shape[1] * U.element_size()))
-    if U.shape[0] <= blk:
-        return U @ q
-    return torch.cat([U[o : o + blk] @ q for o in range(0, U.shape[0], blk)])
+    with full_precision_matmul():
+        if U.shape[0] <= blk:
+            return U @ q
+        return torch.cat([U[o : o + blk] @ q for o in range(0, U.shape[0], blk)])
 
 
 def build_windows(stats: Stats, m: int, dtype=None) -> torch.Tensor:

@@ -281,3 +281,57 @@ def test_hybrid_on_card_matches_cpu(card, series):
         assert abs(gap) <= DIST_TOL["float64"], f"MPI[{i}] not an equidistant tie"
     print(f"\nhybrid {series}: card {counts['cuda']}, cpu {counts['cpu']}, "
           f"max |card - cpu| {np.abs(MP - MPc).max():.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [True, False])
+def test_tf32_setting_is_left_as_found(card, tf32):
+    """The port clears TF32 only around its own float32 products: after
+    ``auto``, ``mxu``, ``hybrid`` and the left/right hybrid on the card the
+    caller's setting is what it was."""
+    flag = torch.backends.cuda.matmul
+    saved = flag.allow_tf32
+    T = _series(3000, 11, constant_run=False)
+    try:
+        flag.allow_tf32 = tf32
+        for kernel, dtype, left_right in (("auto", "float32", False), ("mxu", "float32", False),
+                                          ("hybrid", "float64", False),
+                                          ("hybrid", "float64", True)):
+            cfg = MatrixProfileConfig(m=32, dtype=dtype, kernel=kernel, band=256, chunk=512,
+                                      device="cuda")
+            compute_matrix_profile(T, config=cfg, left_right=left_right)
+            torch.cuda.synchronize()
+            assert flag.allow_tf32 is tf32, (kernel, left_right)
+    finally:
+        flag.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_left_right_hybrid_on_card_matches_cpu(card):
+    """The left/right hybrid on the card against the same code on the CPU:
+    each side within 1e-8, indices equal or equidistant; pass A is K1, one
+    launch a job, no plain sweep."""
+    from mpx_torch.config import make_job_grid
+
+    n, m, band, chunk = 16384, 64, 1024, 4096
+    T = _series(n, 5, constant_run=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=band,
+                                  chunk=chunk, device=dev)
+        calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+        res = compute_matrix_profile(T, config=cfg, left_right=True)
+        assert all(o.device.type == dev for o in res)
+        if dev == "cuda":
+            assert mxu_fused.LAUNCHES - launches == len(make_job_grid(n - m + 1, band,
+                                                                      chunk).r0)
+            assert mxu.CALLS == calls
+        out[dev] = [o.cpu().numpy() for o in res]
+    for side in (0, 2):
+        MP, MPI = out["cuda"][side : side + 2]
+        MPc, MPIc = out["cpu"][side : side + 2]
+        np.testing.assert_allclose(MP, MPc, rtol=0, atol=DIST_TOL["float64"])
+        for i in np.nonzero(MPI != MPIc)[0]:
+            assert MPI[i] >= 0 and MPIc[i] >= 0, f"side {side} row {i}"
+            gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPIc[i])
+            assert abs(gap) <= DIST_TOL["float64"], f"MPI[{i}] not an equidistant tie"

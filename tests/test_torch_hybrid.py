@@ -291,13 +291,20 @@ def test_driver_matrix_profile_and_cli(tmp_path):
 
 
 def test_unsupported_hybrid_modes_raise():
+    """``stats=`` is refused; ``left_right=True``, once refused, now runs
+    and gives mpx's left/right hybrid profiles."""
     from mpx_torch.ops.precompute import precompute_statistics
 
     T = random_walk(300, seed=1)
     cfg = MatrixProfileConfig(m=16, dtype="float64", kernel="hybrid", band=64, chunk=64,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        compute_matrix_profile(T, config=cfg, left_right=True)
+    ours = [o.numpy() for o in compute_matrix_profile(T, config=cfg, left_right=True)]
+    ref = mpx_hybrid.compute_left_right_f64_hybrid(T, mpx.MatrixProfileConfig(
+        m=16, dtype="float64", kernel="hybrid", band=64, chunk=64, tile_rows=8,
+        tile_cols=64))
+    for side in (0, 2):
+        assert_profile_close(T, 16, ours[side], ours[side + 1], ref[side], ref[side + 1],
+                             eps=1e-8)
     stats = precompute_statistics(T, 16, band=64, chunk=64, dtype="float64", device="cpu")
     with pytest.raises(ValueError, match="stats"):
         compute_matrix_profile(T, config=cfg, stats=stats)

@@ -64,13 +64,34 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(num_shards=2), "queue 1 item 13"),
     (dict(shard_mode="ring"), "queue 1 item 13"),
-    (dict(input_quant="ap16"), "queue 1 item 7"),
-    (dict(dtype="ap32"), "queue 1 item 7"),
     (dict(dispatch_group=64), "Not to port"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         MatrixProfileConfig(m=16, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,eps", [
+    (dict(input_quant="ap16"), 2e-3),
+    (dict(dtype="ap32"), 1e-8),
+])
+def test_fixed_point_options_run_and_agree_with_mpx(kwargs, eps):
+    """The fixed-point input tier, once refused, runs and gives mpx's
+    profile of the quantized series (float32 tolerance for ap16, float64
+    for ap32)."""
+    import mpx
+    from mpx.io.apfixed import quantize
+
+    from mpx_torch import compute_matrix_profile
+    from tests.helpers import assert_profile_close
+
+    T = read_series(os.path.join(REPO_ROOT, "data", "test", "1024.txt"))
+    cfg = MatrixProfileConfig(m=16, device="cpu", band=256, chunk=512, **kwargs)
+    MP, MPI = (o.numpy() for o in compute_matrix_profile(T, config=cfg))
+    MP_ref, MPI_ref = mpx.compute_matrix_profile(
+        T, config=mpx.MatrixProfileConfig(m=16, band=256, chunk=512, **kwargs))
+    Tq = quantize(T, cfg.input_quant)
+    assert_profile_close(Tq, 16, MP, MPI, np.asarray(MP_ref), np.asarray(MPI_ref), eps=eps)
 
 
 @pytest.mark.parametrize("kernel", ["xla", "pallas"])
@@ -88,10 +109,17 @@ def test_invalid_options_raise(kwargs):
 
 
 def test_quantized_container_is_not_read_as_doubles(tmp_path):
-    path = tmp_path / "q.tsb"
-    path.write_bytes(b"MPXQ" + bytes(20))
-    with pytest.raises(NotImplementedError, match="io/apfixed.py"):
-        read_series(str(path))
+    """An MPXQ container, whatever its extension, is read as its quantized
+    values (as mpx reads it), not as raw doubles."""
+    from mpx.io.apfixed import write_quantized
+    from mpx.io.tsb import read_series as mpx_read_series
+
+    T = np.random.default_rng(3).uniform(-7, 7, 100)
+    path = str(tmp_path / "q.tsb")
+    write_quantized(path, T, "ap24")
+    got = read_series(path)
+    np.testing.assert_array_equal(got, mpx_read_series(path))
+    np.testing.assert_array_equal(got, np.trunc(T * 2**16) / 2**16)
 
 
 def test_kernel_library_is_not_built_at_import():
