@@ -71,15 +71,40 @@ script exits nonzero without the final line):
     shape through K3, validated on 64 rows) as a subprocess, ``compute
     --left-right --kernel hybrid`` and ``compute --dtype ap32`` on
     data/binary/16384.tsb, and ``tsbin -e``/``-d`` round trips;
+18. K1 with a column operand: AB jobs of S=4096 x W=32768, m=256, on two
+    random walks (65,536 and 49,152 samples, a constant run each), an
+    interior job, one over both constant runs and the ragged edge, against
+    the plain ``sweep_band_mxu(stats_c=)``, f32 and f64; K1's time per AB
+    job and share of the bound; the self-join through the two-operand
+    launch (``stats_c=stats``) bit-equal to ``stats_c=None``, timed beside
+    phase 2;
+19. the AB-join end to end through ``auto`` (K1), f32 and f64: A = 2^20,
+    B = 2^19 samples with 8 planted copies of A's segments under 1e-3
+    noise, m=256, band 4096, chunk 32768: 4,096 K1 launches per dtype and
+    no plain call; 64 A windows and 64 B windows (outside the copies)
+    against exact f64 scans of the other series, and every copy found;
+20. the same AB-join in f64 through ``kernel='hybrid'``: 4,096 K1 f32
+    launches (pass A), each side against the exact scans and phase 19's
+    f64 profiles; its phase split, flags, captures and peak memory;
+21. top-k on the card (m=256, k=4, f64 strict, band 4096, chunk 32768:
+    ``topk-f64-1048576-k4`` without its hybrid, cut to n=2^19 because n=2^20
+    takes 75 s on an H100 at 700 W), 32 rows against an exact scan;
+    ``compute_topk_ab`` f32 on phase 3's series in halves;
+22. sum-threshold on the card (n=2^20, m=256, threshold 0.7, f32, band
+    4096, chunk 16384: ``thresh-f32-1048576``), 32 rows against exact f64
+    sums and counts;
+23. the ``abjoin``, ``topk`` and ``thresh`` command lines on
+    data/binary/16384.tsb, each file equal to the API's result;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
-    leaves it so through every phase.
+    leaves it so through every phase (checked after each, reported last).
 
 The line before the last but one is a JSON object with one entry per
-kernel and dtype (launches counted in that kernel's main-path run: K1 in
-phases 10 and 4, K3 in phases 7 and 8; the bound and the library call's
-time at the band-level shape; the hybrid adds no kernel, and its K1
-launches are in phase 12's and 14's lines); the line before the last is the
-card's name and power limit; the last line is
+kernel and dtype (launches counted in that kernel's main-path runs: K1 in
+phases 10 and 4 and the AB-joins of phase 19, K3 in phases 7 and 8; the
+bound and the library call's time at the band-level shape; the hybrid
+adds no kernel, and its K1 launches are in phase 12's, 14's and 20's
+lines; top-k and sum-threshold are torch ops); the line before the last is
+the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
 
@@ -153,25 +178,35 @@ def unit_windows64(T: np.ndarray, m: int, lo: int, hi: int):
     return Z, degenerate
 
 
-def row_scan64(T: np.ndarray, m: int, rows: np.ndarray) -> np.ndarray:
-    """Exact z-normalized distances (len(rows), w) of the sampled rows to
-    every window, +inf inside the exclusion zone and for degenerate
-    windows; blockwise so memory stays bounded."""
-    w = T.shape[0] - m + 1
-    Zq = np.stack([unit_windows64(T, m, r, r + 1)[0][0] for r in rows])
-    degenerate = np.zeros(w, bool)
-    D = np.empty((len(rows), w))
+def row_corr64(T: np.ndarray, m: int, rows: np.ndarray, target=None) -> np.ndarray:
+    """Exact Pearson correlations (len(rows), wt) of the sampled windows of
+    ``T`` to every window of ``target`` (default ``T``: the self-join,
+    NaN inside the exclusion zone), NaN for degenerate windows; blockwise
+    so memory stays bounded."""
+    Tt = T if target is None else target
+    wt = Tt.shape[0] - m + 1
+    q = [unit_windows64(T, m, r, r + 1) for r in rows]
+    Zq, deg_q = np.stack([z[0] for z, _ in q]), np.array([d[0] for _, d in q])
+    P = np.empty((len(rows), wt))
     blk = max(1, (128 << 20) // (8 * m))  # ~128 MB of windows per block
-    for o in range(0, w, blk):
-        Z, deg = unit_windows64(T, m, o, min(o + blk, w))
-        degenerate[o : o + Z.shape[0]] = deg
-        P = Zq @ Z.T
-        D[:, o : o + Z.shape[0]] = np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0))
-    cols = np.arange(w)
-    D[np.abs(cols[None, :] - rows[:, None]) < m // 4] = np.inf
-    D[:, degenerate] = np.inf
-    D[degenerate[rows]] = np.inf
-    return D
+    for o in range(0, wt, blk):
+        Z, deg = unit_windows64(Tt, m, o, min(o + blk, wt))
+        P[:, o : o + Z.shape[0]] = Zq @ Z.T
+        P[:, o : o + Z.shape[0]][:, deg] = np.nan
+    if target is None:
+        cols = np.arange(wt)
+        P[np.abs(cols[None, :] - rows[:, None]) < m // 4] = np.nan
+    P[deg_q] = np.nan
+    return P
+
+
+def row_scan64(T: np.ndarray, m: int, rows: np.ndarray, target=None) -> np.ndarray:
+    """Exact z-normalized distances of :func:`row_corr64`'s pairs, +inf
+    where it has NaN."""
+    P = row_corr64(T, m, rows, target)
+    with np.errstate(invalid="ignore"):
+        D = np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0))
+    return np.where(np.isnan(P), np.inf, D)
 
 
 def check_rows(T, m, MP, MPI, rows, tol, side: int = 0, D=None) -> float:
@@ -198,25 +233,27 @@ def check_rows(T, m, MP, MPI, rows, tol, side: int = 0, D=None) -> float:
     return worst
 
 
-def pair_distances64(T, m, a, b) -> np.ndarray:
-    """Exact z-normalized distances between windows a[k] and b[k]."""
+def pair_distances64(T, m, a, b, target=None) -> np.ndarray:
+    """Exact z-normalized distances between windows a[k] of ``T`` and b[k]
+    of ``target`` (default ``T``)."""
     wv = np.lib.stride_tricks.sliding_window_view(T, m)
-    za, zb = (wv[x] - wv[x].mean(axis=1, keepdims=True) for x in (a, b))
+    wt = wv if target is None else np.lib.stride_tricks.sliding_window_view(target, m)
+    za, zb = (v[x] - v[x].mean(axis=1, keepdims=True) for v, x in ((wv, a), (wt, b)))
     P = np.einsum("ij,ij->i", za, zb) / np.sqrt(
         np.einsum("ij,ij->i", za, za) * np.einsum("ij,ij->i", zb, zb))
     return np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0))
 
 
-def check_profiles_agree(T, m, MP, MPI, MP2, MPI2, tol) -> float:
-    """Two profiles of one series: distances within tol, indices equal
-    or equidistant within tol."""
+def check_profiles_agree(T, m, MP, MPI, MP2, MPI2, tol, target=None) -> float:
+    """Two profiles of one series (against ``target``, for an AB-join):
+    distances within tol, indices equal or equidistant within tol."""
     err = float(np.abs(MP.astype(np.float64) - MP2).max())
     require(err <= tol, f"profiles differ by {err} (tol {tol})")
     diff = np.nonzero(MPI != MPI2)[0]
     require(bool(((MPI[diff] >= 0) & (MPI2[diff] >= 0)).all()),
             "a row has a neighbor in one profile and none in the other")
-    gap = np.abs(pair_distances64(T, m, diff, MPI[diff])
-                 - pair_distances64(T, m, diff, MPI2[diff]))
+    gap = np.abs(pair_distances64(T, m, diff, MPI[diff], target)
+                 - pair_distances64(T, m, diff, MPI2[diff], target))
     require(bool((gap <= tol).all()),
             f"{int((gap > tol).sum())} rows: indices differ and are not equidistant")
     return err
@@ -240,14 +277,19 @@ def phase_device(torch):
 def phase_build():
     from mpx_torch.kernels import _build
 
+    # Build from the checkout's sources in this run, even where an earlier
+    # run left the library: the ptxas report below comes from the build.
+    if os.path.exists(_build.library_path()):
+        os.remove(_build.library_path())
     t0 = time.perf_counter()
     _build.load()
     seconds = time.perf_counter() - t0
     regs = [ln.strip() for ln in (_build.BUILD_LOG or "").splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
     mma = tensor_core_counts(_build)
-    for name, kind in (("k1_tiles<double>", "DMMA"), ("k1_tiles<float>", "HMMA")):
-        require(mma[name][kind] > 0, f"{name} has no {kind} instruction: {mma[name]}")
+    for name, counted in mma.items():
+        kind = "DMMA" if "double" in name else "HMMA"
+        require(counted[kind] > 0, f"{name} has no {kind} instruction: {counted}")
     say("1 build", seconds=seconds, library=os.path.relpath(
         _build.library_path(), REPO), ptxas=regs, sass_mma=mma,
         k3_ptxas=k3_ptxas(_build.BUILD_LOG or ""))
@@ -274,8 +316,13 @@ def k3_ptxas(log: str) -> dict:
     return out
 
 
+K1_TILES = {f"k1_tiles<{t}, {ab}>": f"k1_tilesI{c}Lb{int(ab == 'true')}E"
+            for t, c in (("double", "d"), ("float", "f")) for ab in ("false", "true")}
+
+
 def tensor_core_counts(_build) -> dict:
-    """DMMA and HMMA instructions in each of K1's tile kernels, counted in
+    """DMMA and HMMA instructions in each of K1's tile kernels (per dtype,
+    the self-join's and the two-operand instantiation), counted in
     ``cuobjdump -sass`` of the built library."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
@@ -283,15 +330,13 @@ def tensor_core_counts(_build) -> dict:
     out = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
-        for key, mangled in (("k1_tiles<double>", "k1_tilesIdE"),
-                             ("k1_tiles<float>", "k1_tilesIfE")):
+        for key, mangled in K1_TILES.items():
             if mangled in name:
                 ops = [op for ln in section.splitlines() if "*/" in ln
                        for op in ln.split("*/", 1)[1].split()[:2]]  # [predicate] opcode
                 out[key] = {kind: sum(op.startswith(kind + ".") or op == kind
                                       for op in ops) for kind in ("DMMA", "HMMA")}
-    require(set(out) == {"k1_tiles<double>", "k1_tiles<float>"},
-            f"K1's tile kernels not found in the SASS: {sorted(out)}")
+    require(set(out) == set(K1_TILES), f"K1's tile kernels not found in the SASS: {sorted(out)}")
     return out
 
 
@@ -329,11 +374,14 @@ def band_setup(dtype: str, m: int = 256, W: int = 16384):
     return stats, geom, jobs
 
 
-def compare_band(torch, what: str, a, b, U64, r0: int, k0: int, tol: float) -> float:
+def compare_band(torch, what: str, a, b, U64, r0: int, k0: int, tol: float,
+                 U64c=None) -> float:
     """Band outputs a (plain) and b (kernel): values within tol, indices
-    equal or tied within tol on the exact unit windows U64."""
+    equal or tied within tol on the exact unit windows U64 (of the rows)
+    and U64c (of the columns, default U64)."""
+    U64c = U64 if U64c is None else U64c
     worst = 0.0
-    for side, base in (("row", r0), ("col", r0 + k0)):
+    for side, base, own_w, cand_w in (("row", r0, U64, U64c), ("col", r0 + k0, U64c, U64)):
         pa, pb = getattr(a, side), getattr(b, side)
         require(pa.value.shape == pb.value.shape, f"{what} {side}: shapes differ")
         err = float((pa.value.double() - pb.value.double()).abs().max())
@@ -343,8 +391,8 @@ def compare_band(torch, what: str, a, b, U64, r0: int, k0: int, tol: float) -> f
         bad = torch.nonzero(ia != ib).flatten()
         require(bool(((ia[bad] >= 0) & (ib[bad] >= 0)).all()),
                 f"{what} {side}: a masked aggregate differs")
-        own = U64[base + bad]
-        gap = ((own * U64[ia[bad]]).sum(1) - (own * U64[ib[bad]]).sum(1)).abs()
+        own = own_w[base + bad]
+        gap = ((own * cand_w[ia[bad]]).sum(1) - (own * cand_w[ib[bad]]).sum(1)).abs()
         require(bool((gap <= tol).all()),
                 f"{what} {side}: index differs where values do not tie")
     return worst
@@ -802,18 +850,18 @@ def phase_margin_probe(torch):
     say("11 margin probe", n=n, S=S, W=W, jobs=list(jobs), **out)
 
 
-def hybrid_split(phases: dict) -> dict:
-    """The hybrid's phase seconds, grouped as phases 12 and 14 report them
-    (the left/right run's rescore per side)."""
+def hybrid_split(phases: dict, sides=("left", "right")) -> dict:
+    """The hybrid's phase seconds, grouped as phases 12, 14 and 20 report
+    them (the rescore per side: left/right, or the AB-join's a/b)."""
     def total(*prefixes, side=""):
         return sum(v for k, v in phases.items()
-                   if k.startswith(prefixes) and (not side or k.endswith(f"{side}]")))
+                   if k.startswith(prefixes) and (not side or k.endswith(f", {side}]")))
     return {"statistics": total("1. "), "pass_a": total("2. Compute [pass A]"),
             "pass_b_sparse": total("2. Compute [pass B sparse]"),
             "pass_b_dense": total("2. Compute [pass B dense]"),
             "pass_c": total("2. Compute [pass C"), "rescore": total("3. "),
-            "rescore_left": total("3. ", side=", left"),
-            "rescore_right": total("3. ", side=", right"), "post": total("4. ")}
+            **{f"rescore_{side}": total("3. ", side=side) for side in sides},
+            "post": total("4. ")}
 
 
 def run_hybrid(torch, T, m, left_right: bool = False, **cfg_kwargs):
@@ -1119,6 +1167,382 @@ def phase_auto_large_m(torch):
         k1_wall_s=wall1, max_err_vs_k1=err, tol=tol)
 
 
+def ab_band_setup(dtype: str, m: int = 256, S: int = 4096, W: int = 32768):
+    """Phase 18's two series (65,536 and 49,152 samples of random walks,
+    each with a constant run), their statistics, the AB geometry and its
+    jobs (r0, c0): an interior one, one over both constant runs, and the
+    ragged edge (rows past wa - 1, columns past wb - 1).  A's run opens
+    A and B's closes B: runs inside both would give the two series
+    identical step windows (a run and one other sample: P = 1), where two
+    float32 summation orders differ most (1.07e-5 in the first run of this
+    phase, past phase 2's 1e-5)."""
+    from mpx_torch.kernels.common import NO_EXCL, band_geometry
+    from mpx_torch.ops.precompute import precompute_statistics
+
+    A, B = random_walk(65536, SEED + 7), random_walk(49152, SEED + 8)
+    A[:700] = A[700]
+    B[-600:] = B[-601]
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    sa, sb = (precompute_statistics(X, m, band=S, chunk=W, dtype=dtype, device="cuda")
+              for X in (A, B))
+    geom = band_geometry(S, W, m, wa, wc=wb, excl=NO_EXCL)
+    jobs = {"interior": (4096, 0), "constant runs": (0, 32768),
+            "ragged edge": ((wa - 1) // S * S, (wb - 1) // W * W)}
+    return sa, sb, geom, jobs
+
+
+def phase_ab_band(torch, dtype: str, self_join_ms: float) -> dict:
+    """K1 with a column operand (an AB job, S=4096 x W=32768, m=256)
+    against the plain ``sweep_band_mxu(stats_c=)`` on the card, its time
+    per job and share of the bound; and K1's self-join launch (the same
+    matrix passed twice, ``stats_c=stats``) bit-equal to ``stats_c=None``,
+    timed beside phase 2's time."""
+    from mpx_torch.kernels.mxu import sweep_band_mxu
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+
+    sa, sb, geom, jobs = ab_band_setup(dtype)
+    S, W, m = geom.S, geom.W, geom.m
+    tol = BAND_TOL[dtype]
+    Ua, Ub = sa.windows.double(), sb.windows.double()
+    worst = 0.0
+    for what, (r0, c0) in jobs.items():
+        a = sweep_band_mxu(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
+        b = sweep_band_mxu_fused(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_band(torch, f"K1 AB {dtype} {what}", a, b, Ua, r0,
+                                        c0 - r0, tol, Ub))
+    del Ua, Ub
+    r0, c0 = jobs["interior"]
+    ms = time_ms(torch, lambda: sweep_band_mxu_fused(sa, r0, c0 - r0, geom, dtype, stats_c=sb))
+    bound = k1_bound(S, W, m, sa.windows.element_size(), dtype)
+    del sa, sb
+    # The self-join through the two-operand launch: phase 2's interior job.
+    stats, geom2, _ = band_setup(dtype)
+    r0, k0 = 4096, geom2.W
+    one = sweep_band_mxu_fused(stats, r0, k0, geom2, dtype)
+    two = sweep_band_mxu_fused(stats, r0, k0, geom2, dtype, stats_c=stats)
+    require(all(torch.equal(getattr(one, s).value, getattr(two, s).value)
+                and torch.equal(getattr(one, s).index, getattr(two, s).index)
+                for s in ("row", "col")), "K1 self-join: stats_c=stats differs from None")
+    self_ms = time_ms(torch, lambda: sweep_band_mxu_fused(stats, r0, k0, geom2, dtype))
+    say(f"18 K1 AB band {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
+        max_abs_err=worst, tol=tol, k1_ab_ms=ms, **bound,
+        k1_ab_share_of_bound=bound["bound_ms"] / ms,
+        k1_ab_tflops=2.0 * S * W * m / ms / 1e9,
+        self_join_bit_equal=True, self_join_ms_now=self_ms, self_join_ms_phase_2=self_join_ms)
+    return {"k1_ab_ms": ms, "bound_ms": bound["bound_ms"]}
+
+
+PLANTED_LEN = 4096
+
+
+def planted_ab(seed: int, copies: int = 8, L: int = PLANTED_LEN):
+    """A (2^20) and B (2^19) random walks; B carries ``copies`` copies of
+    L-sample segments of A under 1e-3 noise, one in each 1/copies of B.
+    Returns A, B and the (A start, B start) of each copy."""
+    rng = np.random.default_rng(seed)
+    A = np.cumsum(rng.standard_normal(1 << 20))
+    B = np.cumsum(rng.standard_normal(1 << 19))
+    part = B.shape[0] // copies
+    src = rng.choice(A.shape[0] // L - 1, copies, replace=False) * L
+    dst = np.arange(copies) * part + rng.integers(0, part - L, copies)
+    for s, d in zip(src, dst):
+        B[d : d + L] = A[s : s + L] - A[s] + B[d] + rng.standard_normal(L) * 1e-3
+    return A, B, list(zip(src.tolist(), dst.tolist()))
+
+
+def run_ab(torch, A, B, cfg):
+    """One AB-join on the card: its four arrays, wall seconds, phase
+    seconds, the card's clock and power, and the run's profile."""
+    from mpx_torch.abjoin import compute_ab_join
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    prof = BenchmarkProfile()
+    torch.cuda.synchronize()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        out = compute_ab_join(A, B, config=cfg, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = [o.cpu().numpy() for o in out]
+    for (MP, MPI), X, Y in ((out[:2], A, B), (out[2:], B, A)):
+        wq, wt = X.shape[0] - cfg.m + 1, Y.shape[0] - cfg.m + 1
+        require(MP.shape == (wq,) and MPI.shape == (wq,), f"AB shapes {MP.shape}")
+        require(np.isfinite(MP).all() and ((MPI >= -1) & (MPI < wt)).all(),
+                "AB: non-finite distance or index out of range")
+    phases = {k: v / 1e9 for k, v in prof.category_totals().items()}
+    return out, wall, phases, card.summary, prof
+
+
+def ab_jobs_of(cfg, wa: int, wb: int) -> int:
+    from mpx_torch.abjoin import ab_jobs
+
+    c = cfg.shrink_to(max(wa, wb))
+    return len(ab_jobs(wa, wb, c.band, c.chunk)[0])
+
+
+def rows_outside(w: int, seed: int, starts, L: int, m: int) -> np.ndarray:
+    """Phase 19's 64 sampled windows: the first, the last and 62 drawn at
+    random, none overlapping a planted copy (``starts``, L samples each).
+    A copy's windows lie within float32's rounding of distance 0, where
+    sqrt(2m(1 - P)) turns it into ~5e-3: they are held by their index."""
+    rng = np.random.default_rng(seed)
+    ok = np.ones(w, bool)
+    for s in starts:
+        ok[max(s - m + 1, 0) : s + L] = False
+    pick = rng.choice(np.nonzero(ok[1:-1])[0] + 1, 62, replace=False)
+    return np.sort(np.concatenate([[0, w - 1], pick]))
+
+
+def check_ab(A, B, m, out, scans, tol, copies) -> dict:
+    """Both directions on the sampled windows against the exact scans,
+    and every planted copy found in both directions."""
+    (rows_a, D_a), (rows_b, D_b) = scans
+    err = {"a_to_b": check_rows(A, m, out[0], out[1], rows_a, tol, D=D_a),
+           "b_to_a": check_rows(B, m, out[2], out[3], rows_b, tol, D=D_b)}
+    for s, d in copies:
+        for off in (256, 2048):
+            require(out[1][s + off] == d + off and out[3][d + off] == s + off,
+                    f"planted copy A[{s}] -> B[{d}] not found at offset {off}: "
+                    f"{out[1][s + off]}, {out[3][d + off]}")
+    return err
+
+
+def phase_ab_e2e(torch) -> dict:
+    """The AB-join end to end through ``auto`` (K1) in f32 and f64: A = 2^20,
+    B = 2^19 with 8 planted copies of A's segments, m=256, band 4096, chunk
+    32768: 256 x 16 = 4,096 K1 launches per dtype and no plain call; 64 A
+    windows and 64 B windows against exact f64 scans of the other series;
+    every copy found."""
+    from mpx_torch import MatrixProfileConfig
+
+    m = 256
+    A, B, copies = planted_ab(SEED + 9)
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    L = PLANTED_LEN
+    rows_a = rows_outside(wa, SEED + 9, [s for s, _ in copies], L, m)
+    rows_b = rows_outside(wb, SEED + 10, [d for _, d in copies], L, m)
+    scans = ((rows_a, row_scan64(A, m, rows_a, target=B)),
+             (rows_b, row_scan64(B, m, rows_b, target=A)))
+    out = {"scans": scans, "series": (A, B, copies)}
+    for dt in ("float32", "float64"):
+        cfg = MatrixProfileConfig(m=m, dtype=dt, band=4096, chunk=32768, device="cuda")
+        jobs = ab_jobs_of(cfg, wa, wb)
+        require(jobs == 4096, f"AB job grid: {jobs} jobs")
+        reset_counts()
+        res, wall, phases, card, _ = run_ab(torch, A, B, cfg)
+        launches = require_only(counts(), "k1", f"AB auto {dt}", jobs)
+        err = check_ab(A, B, m, res, scans, DIST_TOL[dt], copies)
+        sweep = next(v for k, v in phases.items() if k.startswith("2. Compute"))
+        say(f"19 AB-join {dt} auto (K1)", na=A.shape[0], nb=B.shape[0], m=m, band=4096,
+            chunk=32768, jobs=jobs, k1_launches=launches, plain_calls=0, wall_s=wall,
+            pairs_per_s=wa * wb / wall, phases_s=phases,
+            split_s={"statistics": phases.get("1. Pre-Computation", 0.0), "sweep": sweep,
+                     "sweep_ms_per_job": sweep / jobs * 1e3},
+            card=card, max_err_vs_exact_64_windows=err, copies_found=len(copies),
+            tol=DIST_TOL[dt])
+        out[dt] = {"launches": launches, "profile": res, "wall_s": wall}
+    return out
+
+
+def phase_ab_hybrid(torch, p19: dict):
+    """The AB-join in f64 through ``kernel='hybrid'`` on phase 19's series:
+    4,096 K1 f32 launches (pass A), each side within 1e-8 of the exact
+    scans and within 1e-10 of phase 19's f64 profiles (indices only between
+    equidistant neighbors; in the planted copies, equal indices and
+    correlations within 1e-13); its phase split, flags, captures and peak
+    memory."""
+    from mpx_torch import MatrixProfileConfig
+
+    m = 256
+    A, B, copies = p19["series"]
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=4096, chunk=32768,
+                              device="cuda")
+    jobs = ab_jobs_of(cfg, wa, wb)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, wall, phases, card, prof = run_ab(torch, A, B, cfg)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = require_only(counts(), "k1", "AB hybrid (pass A)", jobs)
+    err = check_ab(A, B, m, res, p19["scans"], DIST_TOL["float64"], copies)
+    ref = p19["float64"]["profile"]
+    vs_k1 = {}
+    for name, (X, Y, starts, MP, MPI, MP2, MPI2) in (
+            ("a_to_b", (A, B, [s for s, _ in copies], res[0], res[1], ref[0], ref[1])),
+            ("b_to_a", (B, A, [d for _, d in copies], res[2], res[3], ref[2], ref[3]))):
+        # A planted copy's windows lie near distance 0, where sqrt(2m(1 - P))
+        # turns the two tiers' float64 roundings of P (~1e-15) into ~3e-10:
+        # there the indices must be equal and the correlations within 1e-13.
+        near = np.zeros(MP.shape[0], bool)
+        for s in starts:
+            near[max(s - m + 1, 0) : s + PLANTED_LEN] = True
+        require(bool((MPI[near] == MPI2[near]).all()), f"AB hybrid {name}: copy indices")
+        dP = np.abs(MP[near] ** 2 - MP2[near] ** 2) / (2 * m)
+        require(float(dP.max()) <= 1e-13, f"AB hybrid {name}: copy correlations {dP.max()}")
+        vs_k1[name] = {"max_err_outside_copies": check_profiles_agree(
+            X, m, MP, MPI, np.where(near, MP, MP2), np.where(near, MPI, MPI2), 1e-10, Y),
+            "max_corr_err_in_copies": float(dP.max())}
+    split = hybrid_split(phases, sides=("a", "b"))
+    say("20 AB-join f64 hybrid", na=A.shape[0], nb=B.shape[0], m=m, band=4096, chunk=32768,
+        jobs=jobs, k1_launches=launches, plain_calls=0, wall_s=wall,
+        pairs_per_s=wa * wb / wall, split_s=split,
+        pass_b_sparse_ms_per_job=split["pass_b_sparse"] / jobs * 1e3,
+        counts=dict(prof.counts), peak_device_bytes=peak, card=card, phases_s=phases,
+        max_err_vs_exact_64_windows=err, max_err_vs_phase_19_f64=vs_k1,
+        index_differs_vs_phase_19={"a": int((res[1] != ref[1]).sum()),
+                                   "b": int((res[3] != ref[3]).sum())},
+        phase_19_f64_wall_s=p19["float64"]["wall_s"], tol=DIST_TOL["float64"])
+
+
+def check_topk_rows(D, I, rows, Dx, k: int, tol: float) -> float:
+    """Each sampled row's k-list against the exact scan ``Dx`` of that row:
+    the k distances within tol of the k smallest, and each index at its
+    listed distance (so the index set is exact up to equidistant ties)."""
+    worst = 0.0
+    for j, r in enumerate(rows):
+        best = np.sort(Dx[j])[:k]
+        live = np.isfinite(best)
+        require((np.isfinite(D[r]) == live).all() and (I[r][~live] == -1).all(),
+                f"row {r}: missing neighbors differ")
+        err = float(np.abs(D[r][live] - best[live]).max(initial=0.0))
+        worst = max(worst, err)
+        require(err <= tol, f"row {r}: top-{k} {D[r]} vs exact {best}")
+        at = Dx[j][I[r][live]]
+        require(bool((np.abs(at - best[live]) <= tol).all()),
+                f"row {r}: indices {I[r]} at {at}, exact {best}")
+    return worst
+
+
+def phase_topk(torch, n: int = 1 << 19):
+    """Top-k on the card: the suite row's shape (m=256, k=4, f64 strict,
+    band 4096, chunk 32768) cut from n=2^20 to 2^19, as torch ops (no K1,
+    no plain sweep), 32 sampled rows against an exact f64 scan; then
+    ``compute_topk_ab`` in f32 on phase 3's series split in two halves."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.topk import compute_topk_ab, compute_topk_profile
+
+    m, k = 256, 4
+    T = random_walk(n, SEED + 11)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", band=4096, chunk=32768, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        D, I = compute_topk_profile(T, k=k, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(not any(counts().values()), f"top-k launched a band sweep: {counts()}")
+    D, I = D.cpu().numpy(), I.cpu().numpy()
+    require(D.shape == (w, k) and I.dtype == np.int32, f"top-k shapes {D.shape}")
+    rows = sample_rows(w, SEED + 11)[::2]
+    err = check_topk_rows(D, I, rows, row_scan64(T, m, rows), k, DIST_TOL["float64"])
+    T3, m3 = parity_series()
+    A, B = T3[: T3.shape[0] // 2], T3[T3.shape[0] // 2 :]
+    cfg3 = MatrixProfileConfig(m=m3, dtype="float32", device="cuda")
+    t0 = time.perf_counter()
+    Dab, Iab = (x.cpu().numpy() for x in compute_topk_ab(A, B, k=k, config=cfg3))
+    wall_ab = time.perf_counter() - t0
+    rows_ab = sample_rows(A.shape[0] - m3 + 1, SEED + 12)[::2]
+    err_ab = check_topk_rows(Dab, Iab, rows_ab, row_scan64(A, m3, rows_ab, target=B), k,
+                             DIST_TOL["float32"])
+    say("21 top-k", n=n, m=m, k=k, dtype="float64", band=4096, chunk=32768,
+        jobs=len(make_job_grid(w, 4096, 32768).r0), wall_s=wall,
+        pairs_per_s=w * (w - 1) / 2 / wall, card=card.summary,
+        max_err_vs_exact_32_rows=err, tol=DIST_TOL["float64"],
+        ab_f32={"na": A.shape[0], "nb": B.shape[0], "m": m3, "wall_s": wall_ab,
+                "max_err_vs_exact_32_rows": err_ab, "tol": DIST_TOL["float32"]})
+
+
+def phase_thresh(torch):
+    """Sum-threshold on the card at ``thresh-f32-1048576``'s shape (n=2^20,
+    m=256, threshold 0.7, f32, band 4096, chunk 16384) as torch ops; 32
+    sampled rows against exact f64 sums and counts: a count may differ only
+    by pairs whose exact correlation is within 1e-5 of the threshold, a sum
+    by 1e-4 of itself plus those pairs."""
+    from mpx_torch import MatrixProfileConfig, compute_sum_thresh, make_job_grid
+
+    n, m, thr, near_tol = 1 << 20, 256, 0.7, 1e-5
+    T = random_walk(n, SEED + 13)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=4096, chunk=16384, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        sums, cnts = compute_sum_thresh(T, config=cfg, threshold=thr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(not any(counts().values()), f"thresh launched a band sweep: {counts()}")
+    sums, cnts = sums.cpu().numpy().astype(np.float64), cnts.cpu().numpy()
+    require(sums.shape == cnts.shape == (w,) and np.isfinite(sums).all(), "thresh outputs")
+    rows = sample_rows(w, SEED + 13)[::2]
+    P = np.nan_to_num(row_corr64(T, m, rows), nan=-2.0)
+    hit = P > thr
+    exact_s, exact_c = np.where(hit, P, 0.0).sum(1), hit.sum(1)
+    near = (np.abs(P - thr) <= near_tol).sum(1)
+    dc = np.abs(cnts[rows].astype(np.int64) - exact_c)
+    ds = np.abs(sums[rows] - exact_s)
+    require(bool((dc <= near).all()), f"thresh counts off by {dc} (near pairs {near})")
+    require(bool((ds <= 1e-4 * np.abs(exact_s) + near).all()), f"thresh sums off by {ds}")
+    say("22 sum-threshold", n=n, m=m, threshold=thr, dtype="float32", band=4096,
+        chunk=16384, jobs=len(make_job_grid(w, 4096, 16384).r0), wall_s=wall,
+        pairs_per_s=w * (w - 1) / 2 / wall, card=card.summary, max_count_diff=int(dc.max()),
+        near_pairs_max=int(near.max()),
+        max_sum_rel_err=float((ds / np.maximum(np.abs(exact_s), 1.0)).max()),
+        counts_of_8_rows=exact_c.tolist()[:8])
+
+
+def phase_epilogue_cli(torch):
+    """``abjoin`` (A and B the halves of data/binary/16384.tsb), ``topk``
+    and ``thresh`` (threshold 0.2: the series' windows rarely correlate
+    more) on the card through the command line: each file equal to the
+    API's result on the card."""
+    from mpx_torch import MatrixProfileConfig, compute_ab_join, compute_sum_thresh
+    from mpx_torch.io.tsb import read_binary, read_series, write_binary
+    from mpx_torch.topk import compute_topk_profile
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T, m = read_series(src), 256
+    A, B = T[: T.shape[0] // 2], T[T.shape[0] // 2 :]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, base = (os.path.join(tmp, x) for x in ("a.tsb", "b.tsb", "out"))
+        write_binary(a, A)
+        write_binary(b, B)
+        t0 = time.perf_counter()
+        run_cli("abjoin", "-a", a, "-b", b, "-m", str(m), "-o", base)
+        files = [read_binary(base + s + e, k) for s in (".a", ".b")
+                 for e, k in ((".mpb", "double"), (".mpib", "int"))]
+        api = compute_ab_join(A, B, config=MatrixProfileConfig(m=m, band=4096, chunk=4096,
+                                                               device="cuda"))
+        require(all(np.array_equal(f, x.cpu().numpy()) for f, x in zip(files, api)),
+                "abjoin's files differ from compute_ab_join on the card")
+        out["abjoin"] = {"seconds": time.perf_counter() - t0, "wa": int(files[0].shape[0])}
+        t0 = time.perf_counter()
+        run_cli("topk", "-i", src, "-m", str(m), "-k", "4", "-o", base)
+        got = np.load(base + ".topk.npz")
+        D, I = compute_topk_profile(T, k=4, config=MatrixProfileConfig(
+            m=m, band=4096, chunk=4096, device="cuda"))
+        require(np.array_equal(got["distances"], D.cpu().numpy())
+                and np.array_equal(got["indices"], I.cpu().numpy()),
+                "topk's file differs from compute_topk_profile on the card")
+        out["topk"] = {"seconds": time.perf_counter() - t0, "shape": list(D.shape)}
+        t0 = time.perf_counter()
+        run_cli("thresh", "-i", src, "-m", str(m), "--threshold", "0.2", "-o", base)
+        got = np.load(base + ".thresh.npz")
+        sums, cnts = compute_sum_thresh(T, config=MatrixProfileConfig(m=m, device="cuda"),
+                                        threshold=0.2)
+        require(np.array_equal(got["sums"], sums.cpu().numpy())
+                and np.array_equal(got["counts"], cnts.cpu().numpy()),
+                "thresh's file differs from compute_sum_thresh on the card")
+        out["thresh"] = {"seconds": time.perf_counter() - t0, "count_max": int(cnts.max())}
+    say("23 epilogue commands", input="data/binary/16384.tsb", m=m, **out)
+
+
 def main() -> int:
     import torch
 
@@ -1170,6 +1594,22 @@ def main() -> int:
     tf32_kept("15")
     phase_surfaces(torch)
     tf32_kept("16")
+    for dt in ("float32", "float64"):
+        phase_ab_band(torch, dt, band[dt]["ms"])
+    tf32_kept("18")
+    p19 = phase_ab_e2e(torch)
+    tf32_kept("19")
+    phase_ab_hybrid(torch, p19)
+    tf32_kept("20")
+    for dt in ("float32", "float64"):
+        launches["mxu_fused"][dt] += p19[dt]["launches"]
+    del p19
+    phase_topk(torch)
+    tf32_kept("21")
+    phase_thresh(torch)
+    tf32_kept("22")
+    phase_epilogue_cli(torch)
+    tf32_kept("23")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after)
     kernels = [

@@ -9,14 +9,19 @@ profiles) through the fused tile-sweep kernel K1 (``kernels/mxu_fused.py``,
 ``csrc/mxu_fused.cu``), the SCAMP recurrence K3 (``kernels/recurrence.py``,
 ``csrc/band_recurrence.cu``) and the hybrid float64 tier (``hybrid.py``,
 ``kernel='hybrid'``); the fixed-point input tier (``io/apfixed.py``,
-``dtype='ap16'`` .. ``'ap64'``); ``io/`` and ``bench.py``; and the
-``compute``, ``tsbin``, ``golden``, ``datasets`` and ``bench`` command
-lines (``python -m mpx_torch ...``).
+``dtype='ap16'`` .. ``'ap64'``); ``io/`` and ``bench.py``; the AB-join
+(``abjoin.py``, K1 with a second operand, and its hybrid), the top-k
+profiles (``topk.py``) and the sum-threshold profiles (``thresh.py``); and
+the ``compute``, ``abjoin``, ``topk``, ``thresh``, ``tsbin``, ``golden``,
+``datasets`` and ``bench`` command lines (``python -m mpx_torch ...``).
 """
 
+from mpx_torch.abjoin import compute_ab_join
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
+from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
+from mpx_torch.topk import compute_topk_profile
 from mpx_torch.types import Aggregates, JobGrid, Stats
 
 __version__ = "0.1.0"
@@ -26,6 +31,10 @@ __all__ = [
     "make_job_grid",
     "compute_matrix_profile",
     "matrix_profile",
+    "compute_ab_join",
+    "compute_topk_profile",
+    "compute_sum_thresh",
+    "compute_sum_thresh_ab",
     "Aggregates",
     "JobGrid",
     "Stats",

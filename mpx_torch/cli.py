@@ -3,6 +3,11 @@
 * ``compute``  — a self-join matrix profile (``--left-right`` for the
   left/right profiles, ``--dtype ap16|ap24|ap32|ap64`` for the
   fixed-point input tier);
+* ``abjoin``   — the AB-join of two series (``<o>.a``/``<o>.b``
+  ``.mpb``/``.mpib``);
+* ``topk``     — the k nearest neighbors of every window (``<o>.topk.npz``);
+* ``thresh``   — the sum-threshold and frequency profile
+  (``<o>.thresh.npz``);
 * ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
   MPXQ fixed-point containers);
 * ``golden``   — golden MP/MPI through the numpy oracle
@@ -80,6 +85,123 @@ def _cmd_compute(args) -> int:
             print(f"... ({out[0].shape[0]} total; pass -o to persist)")
     if args.verbose:
         prof.report(file=sys.stdout)
+    return 0
+
+
+def _add_abjoin(sub):
+    p = sub.add_parser("abjoin", help="AB-join: profile of series A against series B")
+    p.add_argument("-a", "--input-a", required=True)
+    p.add_argument("-b", "--input-b", required=True)
+    p.add_argument("-o", "--output", help="base path; writes <o>.a.mpb/.mpib and <o>.b.mpb/.mpib")
+    p.add_argument("-m", type=int, default=32)
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--band", type=int, default=4096)
+    p.add_argument("--chunk", type=int, default=4096)
+    p.add_argument("--mpdist", action="store_true",
+                   help="also print MPdist(A, B) (not ported yet)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_abjoin(args) -> int:
+    from mpx_torch.abjoin import compute_ab_join
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series, write_results
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    if args.mpdist:
+        raise NotImplementedError("abjoin --mpdist is not ported to mpx_torch yet: "
+                                  "ROADMAP.md queue 1 item 12 (analysis)")
+    Logger.verbose = args.verbose
+    A, B = read_series(args.input_a), read_series(args.input_b)
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, band=args.band, chunk=args.chunk,
+                              device=args.device)
+    prof = BenchmarkProfile()
+    res = [o.cpu().numpy() for o in compute_ab_join(A, B, config=cfg, profile=prof)]
+    if args.output:
+        write_results(args.output + ".a", res[0], res[1])
+        write_results(args.output + ".b", res[2], res[3])
+        Logger.info(f"wrote {args.output}.a/.b .mpb/.mpib")
+    else:
+        for d, i in zip(res[0][:10], res[1][:10]):
+            print(d, i)
+    if args.verbose:
+        prof.report(file=sys.stdout)
+    return 0
+
+
+def _add_topk(sub):
+    p = sub.add_parser("topk", help="k nearest neighbors per subsequence")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("-k", type=int, default=4)
+    p.add_argument("-o", "--output", help="writes <o>.topk.npz (distances, indices)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--band", type=int, default=4096)
+    p.add_argument("--chunk", type=int, default=4096)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    return p
+
+
+def _cmd_topk(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.topk import compute_topk_profile
+
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, band=args.band, chunk=args.chunk,
+                              device=args.device)
+    D, I = (o.cpu().numpy() for o in compute_topk_profile(read_series(args.input), k=args.k,
+                                                          config=cfg))
+    if args.output:
+        np.savez(args.output + ".topk", distances=D, indices=I)
+        Logger.info(f"wrote {args.output}.topk.npz")
+    else:
+        for row_d, row_i in zip(D[:5], I[:5]):
+            print(" ".join(f"{d:.4f}@{i}" for d, i in zip(row_d, row_i)))
+        if D.shape[0] > 5:
+            print(f"... ({D.shape[0]} rows; pass -o to persist)")
+    return 0
+
+
+def _add_thresh(sub):
+    p = sub.add_parser(
+        "thresh", help="sum-threshold / frequency profile (pattern density)",
+        description="Per window: the SUM of Pearson correlations to every non-trivial "
+        "neighbor above --threshold, and the COUNT of such neighbors (SCAMP's "
+        "SUM_THRESH / FREQUENCY_THRESH profile types).")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("--threshold", type=float, default=0.0,
+                   help="correlation threshold in [-1, 1] (default 0)")
+    p.add_argument("-k", type=int, default=5, help="print the k densest windows (default 5)")
+    p.add_argument("-o", "--output", help="write <out>.thresh.npz (sums, counts)")
+    p.add_argument("--band", type=int, default=None,
+                   help="job band rows (default: config default)")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="job diagonal chunk (default: config default)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_thresh(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.thresh import compute_sum_thresh
+
+    Logger.verbose = args.verbose
+    kw = {k: v for k, v in (("band", args.band), ("chunk", args.chunk)) if v is not None}
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, device=args.device, **kw)
+    sums, cnts = (o.cpu().numpy() for o in compute_sum_thresh(
+        read_series(args.input), config=cfg, threshold=args.threshold))
+    if args.output:
+        np.savez(args.output + ".thresh.npz", sums=sums, counts=cnts)
+        print(f"wrote {args.output}.thresh.npz")
+    print(f"densest windows (threshold {args.threshold}):")
+    for i in np.argsort(-sums)[: max(args.k, 0)]:
+        print(f"  {int(i):>8}  sum {sums[i]:.6f}  count {int(cnts[i])}")
     return 0
 
 
@@ -185,6 +307,9 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command")
     _add_compute(sub)
+    _add_abjoin(sub)
+    _add_topk(sub)
+    _add_thresh(sub)
     _add_tsbin(sub)
     _add_golden(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
@@ -194,7 +319,8 @@ def main(argv=None) -> int:
         parser.print_help()
         return 2
     try:
-        return {"compute": _cmd_compute, "tsbin": _cmd_tsbin, "golden": _cmd_golden,
+        return {"compute": _cmd_compute, "abjoin": _cmd_abjoin, "topk": _cmd_topk,
+                "thresh": _cmd_thresh, "tsbin": _cmd_tsbin, "golden": _cmd_golden,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mpx_torch.dtypes import canonical_dtype
-from mpx_torch.io.apfixed import FORMATS, get_format
+from mpx_torch.io.apfixed import FORMATS, get_format, quantize
 from mpx_torch.types import JobGrid
 
 _KERNELS = ("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid")
@@ -113,6 +113,16 @@ class MatrixProfileConfig:
                     f"NaN/inf would silently poison every correlation"
                 )
 
+    def prepare_series(self, T) -> np.ndarray:
+        """``T`` (array-like or tensor) as a float64 numpy array, validated
+        and quantized to ``input_quant`` when that is set (mpx's order:
+        quantize, then route to a tier): what every entry point computes
+        on."""
+        T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else T
+        T = np.asarray(T, dtype=np.float64)
+        self.validate_series(T.shape[0], T)
+        return T if self.input_quant is None else quantize(T, self.input_quant)
+
     def shrink_to(self, w: int) -> "MatrixProfileConfig":
         """Clamp band/chunk to the actual profile width so tiny inputs do
         not pay for full-size padded jobs."""
@@ -121,6 +131,16 @@ class MatrixProfileConfig:
         if band == self.band and chunk == self.chunk:
             return self
         return dataclasses.replace(self, band=band, chunk=chunk)
+
+
+def config_for(m: Optional[int], config: Optional[MatrixProfileConfig]) -> MatrixProfileConfig:
+    """An entry point's config: ``config``, or a default one for ``m``
+    (mpx's rule: an ``m`` given beside a config must agree with it)."""
+    if config is None:
+        return MatrixProfileConfig(m=m if m is not None else 32)
+    if m is not None and m != config.m:
+        raise ValueError(f"m={m} conflicts with config.m={config.m}")
+    return config
 
 
 def _round_up(x: int, mult: int) -> int:

@@ -1,13 +1,15 @@
-// K1: fused tile sweep of one self-join job, for Hopper (sm_90a), on the
-// tensor cores.
+// K1: fused tile sweep of one job, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas TPU kernel mpx/kernels/mxu_fused.py:_kernel (wrapper
 // sweep_band_mxu_fused).  For the job rows [r0, r0+S) x columns [c0, c0+W)
 // it computes the correlation tile P = U_r . U_c^T of unit-normalized
 // windows, masks it (exclusion zone c - r >= excl, bounds r <= w-1 and
-// c <= w-1, finite inverse norms; a masked pair is -1e12, never 0) and
+// c <= wc-1, finite inverse norms; a masked pair is -1e12, never 0) and
 // reduces it to the row max with the smallest column and the column max
-// with the smallest row.  P never reaches device memory.
+// with the smallest row.  P never reaches device memory.  Rows come from
+// (U, inv), columns from (Uc, inv_c): a self-join passes the same matrix
+// twice, an AB-join the two series' (no exclusion zone: the wrapper passes
+// an excl that no pair of the job can fail).
 //
 // Bound: the tensor-core rate, 2m FLOPs per pair.  f64 runs on the FP64
 // tensor cores (DMMA, mma.sync m16n8k8 .f64; 67 TFLOP/s on an H100 SXM,
@@ -121,12 +123,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy k-slab [k0, k0 + ROW_BYTES / sizeof(T)) of the block's BM rows
-// (from a_row0, a_rows of them in the job) and BN columns (from b_row0)
-// into the slab at shared address `slab`, zero-filling what lies outside.
+// (rows of U from a_row0, a_rows of them in the job) and BN columns (rows
+// of Uc from b_row0) into the slab at shared address `slab`, zero-filling
+// what lies outside.
 template <typename T>
-__device__ __forceinline__ void load_slab(uint32_t slab, const T* __restrict__ U, int m,
-                                          int k0, int a_row0, int a_rows, int b_row0,
-                                          int b_rows, bool vec, int tid) {
+__device__ __forceinline__ void load_slab(uint32_t slab, const T* __restrict__ U,
+                                          const T* __restrict__ Uc, int m, int k0,
+                                          int a_row0, int a_rows, int b_row0, int b_rows,
+                                          bool vec, int tid) {
   constexpr int E = 16 / sizeof(T);           // elements per chunk
   constexpr int BK = ROW_BYTES / sizeof(T);   // elements per slab row
   if (vec) {
@@ -135,7 +139,7 @@ __device__ __forceinline__ void load_slab(uint32_t slab, const T* __restrict__ U
     const int lr0 = tid / CHUNKS, c = tid % CHUNKS;
     const int k = k0 + c * E;
     const T* a_src = U + (size_t)(a_row0 + lr0) * m + k;
-    const T* b_src = U + (size_t)(b_row0 + lr0) * m + k;
+    const T* b_src = Uc + (size_t)(b_row0 + lr0) * m + k;
 #pragma unroll
     for (int i = 0; i < BM / PASS; ++i) {
       const bool ok = lr0 + PASS * i < a_rows && k < m;
@@ -157,7 +161,8 @@ __device__ __forceinline__ void load_slab(uint32_t slab, const T* __restrict__ U
       const int lr = a ? r : r - BM;
       const int k = k0 + kk;
       const bool ok = lr < (a ? a_rows : b_rows) && k < m;
-      const T* src = ok ? U + (size_t)((a ? a_row0 : b_row0) + lr) * m + k : U;
+      const T* base = a ? U : Uc;
+      const T* src = ok ? base + (size_t)((a ? a_row0 : b_row0) + lr) * m + k : U;
       cp_async_elem<(int)sizeof(T)>(slab + chunk_offset(r, kk / E) + (kk % E) * sizeof(T), src,
                                ok ? (int)sizeof(T) : 0);
     }
@@ -264,15 +269,24 @@ __device__ __forceinline__ void mma_group(float (&acc)[MI][NI][4], const unsigne
 }
 
 // Resident blocks per SM: the registers of f64's accumulators allow two;
-// f32 fits three.
-template <typename T>
+// f32 fits three.  AB = false is the self-join: the columns are read from
+// (U, inv, w) and the column operand is ignored, so the compiler sees one
+// matrix (with two, ptxas schedules the f64 body otherwise and it runs ~6 %
+// slower on an H100).
+template <typename T, bool AB>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 8 ? 2 : 3)
-k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, int m,
-         int r0, int c0, int S, int W, int w, int excl,
+k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, const T* __restrict__ Uc,
+         const T* __restrict__ inv_c, int m, int r0, int c0, int S, int W, int w, int wc,
+         int excl,
          T* __restrict__ part_rv, int* __restrict__ part_ri,
          T* __restrict__ part_cv, int* __restrict__ part_ci) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int BK = ROW_BYTES / sizeof(T);
+  if (!AB) {
+    Uc = U;
+    inv_c = inv;
+    wc = w;
+  }
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -285,7 +299,7 @@ k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, int m,
   const int rb = by * BM;    // block's first row, local to the band
   const int cb = bx * BN;    // block's first column, local to the chunk
   const bool vec = m % (16 / (int)sizeof(T)) == 0 &&
-                   (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+                   ((reinterpret_cast<uintptr_t>(U) | reinterpret_cast<uintptr_t>(Uc)) & 15) == 0;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int arow = wm * WM + g;
   const int brow = BM + wn * WN + g;
@@ -307,7 +321,7 @@ k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, int m,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
-      load_slab<T>(sbase + s * STAGE_BYTES, U, m, s * BK, r0 + rb, a_rows, c0 + cb,
+      load_slab<T>(sbase + s * STAGE_BYTES, U, Uc, m, s * BK, r0 + rb, a_rows, c0 + cb,
                    b_rows, vec, tid);
     cp_async_commit();
   }
@@ -317,7 +331,7 @@ k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, int m,
     const int next = kt + STAGES - 1;
     const unsigned char* slab = smem + (kt % STAGES) * STAGE_BYTES;
     if (next < nk)
-      load_slab<T>(sbase + (next % STAGES) * STAGE_BYTES, U, m, next * BK, r0 + rb,
+      load_slab<T>(sbase + (next % STAGES) * STAGE_BYTES, U, Uc, m, next * BK, r0 + rb,
                    a_rows, c0 + cb, b_rows, vec, tid);
     cp_async_commit();
 #pragma unroll
@@ -344,7 +358,7 @@ k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, int m,
     for (int j = 0; j < 2; ++j) {
       const int lc = cb + wn * WN + ni * 8 + 2 * t + j;
       gcol[ni][j] = c0 + lc;
-      cok[ni][j] = lc < W && gcol[ni][j] <= w - 1 && isfinite(inv[gcol[ni][j]]);
+      cok[ni][j] = lc < W && gcol[ni][j] <= wc - 1 && isfinite(inv_c[gcol[ni][j]]);
     }
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -492,20 +506,23 @@ k1_reduce(const T* __restrict__ part_rv, const int* __restrict__ part_ri,
 }
 
 template <typename T>
-int launch(const void* U, const void* inv, int m, int r0, int c0, int S, int W,
-           int w, int excl, void* part_rv, void* part_ri, void* part_cv,
+int launch(const void* U, const void* inv, const void* Uc, const void* inv_c, int m,
+           int r0, int c0, int S, int W, int w, int wc, int excl, void* part_rv,
+           void* part_ri, void* part_cv,
            void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nbn = (W + BN - 1) / BN;
   const int nbm = (S + BM - 1) / BM;
+  const bool ab = U != Uc || inv != inv_c || w != wc;
+  auto tiles = ab ? k1_tiles<T, true> : k1_tiles<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      k1_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k1_tiles<T><<<nbn * nbm, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const T*>(U), static_cast<const T*>(inv), m, r0, c0, S, W, w,
-      excl, static_cast<T*>(part_rv), static_cast<int*>(part_ri),
-      static_cast<T*>(part_cv), static_cast<int*>(part_ci));
+  tiles<<<nbn * nbm, THREADS, SMEM_BYTES, st>>>(
+      static_cast<const T*>(U), static_cast<const T*>(inv), static_cast<const T*>(Uc),
+      static_cast<const T*>(inv_c), m, r0, c0, S, W, w, wc, excl, static_cast<T*>(part_rv),
+      static_cast<int*>(part_ri), static_cast<T*>(part_cv), static_cast<int*>(part_ci));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (S + RED_ROWS - 1) / RED_ROWS + (W + REDUCE_THREADS - 1) / REDUCE_THREADS;
@@ -526,20 +543,22 @@ int mpx_k1_block_n() { return BN; }
 
 // One job: tile kernel then partial reduce, both on `stream`.  Returns a
 // cudaError_t (0 on success).  Pointers are device pointers; U is the
-// (pw, m) row-major unit-window matrix, inv its (pw,) inverse norms.
-int mpx_k1_sweep_f32(const void* U, const void* inv, int m, int r0, int c0,
-                     int S, int W, int w, int excl, void* part_rv, void* part_ri,
-                     void* part_cv, void* part_ci, void* row_v, void* row_i,
-                     void* col_v, void* col_i, void* stream) {
-  return launch<float>(U, inv, m, r0, c0, S, W, w, excl, part_rv, part_ri,
+// (pw, m) row-major unit-window matrix of the rows, inv its (pw,) inverse
+// norms, Uc / inv_c the same of the columns (pw_c rows; U / inv again for
+// a self-join).
+int mpx_k1_sweep_f32(const void* U, const void* inv, const void* Uc, const void* inv_c,
+                     int m, int r0, int c0, int S, int W, int w, int wc, int excl,
+                     void* part_rv, void* part_ri, void* part_cv, void* part_ci,
+                     void* row_v, void* row_i, void* col_v, void* col_i, void* stream) {
+  return launch<float>(U, inv, Uc, inv_c, m, r0, c0, S, W, w, wc, excl, part_rv, part_ri,
                        part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
 }
 
-int mpx_k1_sweep_f64(const void* U, const void* inv, int m, int r0, int c0,
-                     int S, int W, int w, int excl, void* part_rv, void* part_ri,
-                     void* part_cv, void* part_ci, void* row_v, void* row_i,
-                     void* col_v, void* col_i, void* stream) {
-  return launch<double>(U, inv, m, r0, c0, S, W, w, excl, part_rv, part_ri,
+int mpx_k1_sweep_f64(const void* U, const void* inv, const void* Uc, const void* inv_c,
+                     int m, int r0, int c0, int S, int W, int w, int wc, int excl,
+                     void* part_rv, void* part_ri, void* part_cv, void* part_ci,
+                     void* row_v, void* row_i, void* col_v, void* col_i, void* stream) {
+  return launch<double>(U, inv, Uc, inv_c, m, r0, c0, S, W, w, wc, excl, part_rv, part_ri,
                         part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
 }
 

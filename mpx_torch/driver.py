@@ -13,12 +13,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
-from mpx_torch.io.apfixed import quantize
 from mpx_torch.kernels import band_geometry, get_sweep_fn, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import (
     init_aggregates,
@@ -81,19 +79,13 @@ def compute_matrix_profile(
     quantized to that fixed-point grid (:func:`mpx_torch.io.apfixed.quantize`),
     then computed through the tier ``config.kernel`` selects.
     """
-    if config is None:
-        config = MatrixProfileConfig(m=m if m is not None else 32)
-    elif m is not None and m != config.m:
-        raise ValueError(f"m={m} conflicts with config.m={config.m}")
+    config = config_for(m, config)
     m = config.m
 
-    T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
+    # With input_quant: the reference's double -> ap_fixed cast (range
+    # check, then round toward zero), then the exact pipeline.
+    T = config.prepare_series(T)
     n = T.shape[0]
-    config.validate_series(n, T)
-    if config.input_quant is not None:
-        # The reference's double -> ap_fixed cast (range check, then round
-        # toward zero), then the exact pipeline on the quantized values.
-        T = quantize(T, config.input_quant)
     if config.kernel == "hybrid":
         return _hybrid(T, config, stats=stats, profile=profile, left_right=left_right)
     w = n - m + 1

@@ -1,17 +1,21 @@
 """Hybrid double-precision tier: float32 sweeps + exact float64 rescoring.
 
 Counterpart of ``mpx/hybrid.py`` (``kernel='hybrid'``): the self-join
-(:func:`compute_matrix_profile_f64_hybrid`) and the left/right profiles
-(:func:`compute_left_right_f64_hybrid`).  All O(n^2) work runs in float32;
-only the few suspects of each subsequence are scored in float64:
+(:func:`compute_matrix_profile_f64_hybrid`), the left/right profiles
+(:func:`compute_left_right_f64_hybrid`) and the AB-join
+(:func:`compute_ab_join_f64_hybrid`: rows from one series, columns from
+the other, no exclusion zone; each series is one side).  All O(n^2) work
+runs in float32; only the few suspects of each subsequence are scored in
+float64:
 
 1. **Pass A** — K1's float32 sweep (split TF32 on the card,
    :func:`mpx_torch.kernels.mxu_fused.sweep_band_max_fused`) gives every
    job's per-row and per-column maxima.  Below ``SPARSE_MAX_W`` windows,
    and when they fit the device, they are kept (the captures).  They are
    folded into each subsequence's maximum ``gmax32`` and its threshold
-   ``thr = gmax32 - 2 * margin``; the left/right profiles keep one
-   threshold per side (rows: later neighbors, columns: earlier ones).
+   ``thr = gmax32 - 2 * margin``; the left/right profiles and the AB-join
+   keep one threshold per side (rows: later neighbors or the first
+   series, columns: earlier ones or the second).
 2. **Pass B** — with captures (sparse), each job re-examines only the rows
    and columns whose pass-A job maximum reaches ``thr``: every valid pair
    at or above ``thr`` is counted and the SUSPECT_K smallest and largest
@@ -26,7 +30,8 @@ only the few suspects of each subsequence are scored in float64:
    with a streaming top-64 and a count at or above ``thr``, and the top-64
    are rescored.  A count above 64 gets an exact float64 row scan.  The
    left/right profiles resolve each side on its own, every stage kept to
-   that side's neighbors.
+   that side's neighbors; the AB-join resolves each series against the
+   other.
 
 Correctness needs only that each float32 pass be within ``margin`` of the
 float64 truth for every pair: the true argmax c* then has
@@ -52,7 +57,7 @@ import torch
 
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul
-from mpx_torch.kernels.common import band_geometry
+from mpx_torch.kernels.common import NO_EXCL, band_geometry
 from mpx_torch.kernels.mxu import (
     SUSPECT_K,
     SUSPECT_MAX_INIT,
@@ -192,11 +197,14 @@ def _merge_many(g: SuspectWindow, pos: torch.Tensor, win: SuspectWindow) -> None
 
 
 def _finish_suspects(rows_g: SuspectWindow, cols_g: SuspectWindow, *, w: int,
-                     combine: bool):
-    """The global row-axis and column-axis summaries cut to the profile:
-    folded into one per subsequence (``combine``, the self-join), or apart
-    as (row side: later neighbors, column side: earlier ones)."""
-    rows, cols = (SuspectWindow(*(a[:w] for a in g)) for g in (rows_g, cols_g))
+                     combine: bool, wc: Optional[int] = None):
+    """The global row-axis and column-axis summaries cut to the profiles
+    (``w`` rows, ``wc`` columns, default ``w``): folded into one per
+    subsequence (``combine``, the self-join), or apart as (row side: later
+    neighbors or the first series, column side: earlier ones or the
+    second)."""
+    rows = SuspectWindow(*(a[:w] for a in rows_g))
+    cols = SuspectWindow(*(a[: w if wc is None else wc] for a in cols_g))
     return _combine_suspects(rows, cols) if combine else (rows, cols)
 
 
@@ -209,52 +217,61 @@ def _sparse_budget(S: int, W: int) -> int:
 # ---------------------------------------------------------------- pass A
 
 
-def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int, combine: bool = True):
+def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int, combine: bool = True,
+               wc: Optional[int] = None, pwc: Optional[int] = None):
     """Fold pass A's maxima into the suspect thresholds, (pw,) float32:
     ``gmax32 - 2 margin`` (in float32, as mpx), +inf for windows with no
     valid pair (they would flag in every job) and in the pad tail.  With
     ``combine`` one threshold from both maxima; without, (rows from the
-    row maxima only, columns from the column maxima only)."""
+    row maxima only, columns from the column maxima only: (pwc,) over the
+    ``wc`` columns, defaults ``pw`` and ``w``)."""
     dev = rmax.device
     two_eps = (torch.tensor(2.0, dtype=torch.float32)
                * torch.tensor(margin, dtype=torch.float32)).to(dev)
 
-    def fold(gmax):
-        thr = torch.full((pw,), torch.inf, dtype=torch.float32, device=dev)
-        thr[:w] = torch.where(gmax > AGGREGATE_INIT, gmax - two_eps, torch.inf)
+    def fold(gmax, width, padded):
+        thr = torch.full((padded,), torch.inf, dtype=torch.float32, device=dev)
+        thr[:width] = torch.where(gmax[:width] > AGGREGATE_INIT, gmax[:width] - two_eps,
+                                  torch.inf)
         return thr
 
     if combine:
-        return fold(torch.maximum(rmax[:w], cmax[:w]))
-    return fold(rmax[:w]), fold(cmax[:w])
+        return fold(torch.maximum(rmax[:w], cmax[:w]), w, pw)
+    return (fold(rmax, w, pw),
+            fold(cmax, w if wc is None else wc, pw if pwc is None else pwc))
 
 
 def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int,
-                 pw: int, combine: bool = True, capture: bool = True):
+                 pw: int, combine: bool = True, capture: bool = True, stats_c=None,
+                 wc: Optional[int] = None, pwc: Optional[int] = None,
+                 excl: Optional[int] = None):
     """Pass A: one K1 float32 launch per job (the plain sweep for CPU
-    tensors), max-merged into (w + S,) row and (w + W,) column maxima and
+    tensors), max-merged into (w + S,) row and (wc + W,) column maxima and
     folded into the thresholds (see :func:`_build_thr`; a pair
-    ``(rows, columns)`` without ``combine``).  Returns (thresholds,
-    captures): with ``capture`` the captures ``(r0s, k0s, jrow (J, S),
-    jcol (J, W))`` are each job's per-row and per-column maxima, pass B's
-    skip oracle; without, None and nothing is kept."""
-    geom = band_geometry(S, W, m, w)
+    ``(rows, columns)`` without ``combine``).  ``stats_c``, ``wc``,
+    ``pwc`` and ``excl`` carry an AB-join's geometry (the columns' series,
+    width, padded width, and :data:`NO_EXCL`); by default the self-join's.
+    Returns (thresholds, captures): with ``capture`` the captures
+    ``(r0s, k0s, jrow (J, S), jcol (J, W))`` are each job's per-row and
+    per-column maxima, pass B's skip oracle; without, None and nothing is
+    kept."""
+    geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
     dev = stats.windows.device
     r0s, k0s = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
     rmax = torch.full((w + S,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
-    cmax = torch.full((w + W,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+    cmax = torch.full((geom.wc + W,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
     if capture:
         jrow = torch.empty((len(r0s), S), dtype=torch.float32, device=dev)
         jcol = torch.empty((len(r0s), W), dtype=torch.float32, device=dev)
     for j, (r0, k0) in enumerate(zip(r0s.tolist(), k0s.tolist())):
-        rv, cv = sweep_band_max_fused(stats, r0, k0, geom)
+        rv, cv = sweep_band_max_fused(stats, r0, k0, geom, stats_c)
         seg_r, seg_c = rmax[r0 : r0 + S], cmax[r0 + k0 : r0 + k0 + W]
         torch.maximum(seg_r, rv, out=seg_r)
         torch.maximum(seg_c, cv, out=seg_c)
         if capture:
             jrow[j].copy_(rv)
             jcol[j].copy_(cv)
-    thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine)
+    thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine, wc=wc, pwc=pwc)
     return thr, ((r0s, k0s, jrow, jcol) if capture else None)
 
 
@@ -262,26 +279,29 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
 
 
 def _dense_jobs(stats, thr, r0s, k0s, geom, rows_g: SuspectWindow,
-                cols_g: SuspectWindow, thr_col=None) -> None:
+                cols_g: SuspectWindow, thr_col=None, stats_c=None) -> None:
     """Sweep the jobs' whole tiles, merging each job's summaries into the
     global row-axis and column-axis ones."""
     for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
-        out = sweep_band_suspects(stats, r0, k0, geom, thr, thr_col)
+        out = sweep_band_suspects(stats, r0, k0, geom, thr, thr_col, stats_c)
         _merge_suspects_at(rows_g, out.row, r0)
         _merge_suspects_at(cols_g, out.col, r0 + k0)
 
 
 def run_suspect_jobs(stats, thr, r0s, k0s, *, S: int, W: int, m: int, w: int,
-                     thr_col=None, combine: bool = True):
+                     thr_col=None, combine: bool = True, stats_c=None,
+                     wc: Optional[int] = None, excl: Optional[int] = None):
     """Dense pass B over the given jobs (the reference of the sparse pass
     B, and the route without captures).  ``thr_col`` is the column side's
-    threshold (default ``thr``); returns one summary per subsequence, or
-    the row and column sides apart without ``combine``
+    threshold (default ``thr``), ``stats_c``/``wc``/``excl`` an AB-join's
+    geometry (:func:`run_max_jobs`); returns one summary per subsequence,
+    or the row and column sides apart without ``combine``
     (:func:`_finish_suspects`)."""
     dev = stats.windows.device
-    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
-    _dense_jobs(stats, thr, r0s, k0s, band_geometry(S, W, m, w), rows_g, cols_g, thr_col)
-    return _finish_suspects(rows_g, cols_g, w=w, combine=combine)
+    geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
+    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(geom.wc + W, dev)
+    _dense_jobs(stats, thr, r0s, k0s, geom, rows_g, cols_g, thr_col, stats_c)
+    return _finish_suspects(rows_g, cols_g, w=w, wc=wc, combine=combine)
 
 
 def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, thr_col=None,
@@ -305,15 +325,17 @@ def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, thr_col=None,
 
 
 def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
-                            thr_col=None, combine: bool = True, profile=None):
+                            thr_col=None, combine: bool = True, profile=None,
+                            stats_c=None, wc: Optional[int] = None,
+                            excl: Optional[int] = None):
     """Sparse pass B: each job re-examines only the rows and columns its
     pass-A captures flag, at its exact flag counts (fetched once for all
     jobs); a job over the budget takes the dense sweep.  Same result as
-    :func:`run_suspect_jobs` over all jobs."""
+    :func:`run_suspect_jobs` over all jobs (and the same arguments)."""
     r0s, k0s, jrow, jcol = cap
-    geom = band_geometry(S, W, m, w)
+    geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
     dev = stats.windows.device
-    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(w + W, dev)
+    rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(geom.wc + W, dev)
     with phase(profile, "2. Compute [pass B sparse]", device=dev):
         counts = _flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W, thr_col=thr_col)
         dense = counts.max(axis=1) > _sparse_budget(S, W)
@@ -321,7 +343,7 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
         for j in np.nonzero(~dense & (counts.max(axis=1) > 0))[0].tolist():
             for side, got in zip(found, sweep_band_suspects_sparse(
                     stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
-                    *(int(x) for x in counts[j]), thr_col=thr_col)):
+                    *(int(x) for x in counts[j]), thr_col=thr_col, stats_c=stats_c)):
                 if got is not None:
                     side.append(got)
         # One merge for all sparse jobs: their summaries land in one sort.
@@ -333,7 +355,8 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
         Logger.verbose_log(f"hybrid sparse pass B: {int(dense.sum())} job(s) over the "
                            "flag budget to the dense sweep")
     with phase(profile, "2. Compute [pass B dense]", device=dev):
-        _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g, thr_col)
+        _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g, thr_col,
+                    stats_c)
     if profile is not None:
         flags = counts.max(axis=1)
         profile.counts.update({
@@ -341,29 +364,34 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
             "flags_per_job_p99": float(np.percentile(flags, 99)),
             "flags_per_job_max": int(flags.max()), "dense_jobs": int(dense.sum()),
             "jobs_without_flags": int((flags == 0).sum())})
-    return _finish_suspects(rows_g, cols_g, w=w, combine=combine)
+    return _finish_suspects(rows_g, cols_g, w=w, wc=wc, combine=combine)
 
 
 # ---------------------------------------------------------------- pass C
 
 
-def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0):
+def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0,
+                      stats_t=None):
     """Pass C: for each flagged subsequence, recompute its full float32
     correlation row in PASS_C_COLS columns at a time, keep the top
     PASS_C_K by a streaming merge, and count the pairs at or above ``thr``:
     a count <= PASS_C_K proves the top-K holds every suspect.  ``side``
     keeps the neighbors of one side (:func:`_side_zone`: +1 later, -1
-    earlier, 0 both).  Returns (values (F, K), indices (F, K), -1 where
-    empty; counts (F,))."""
+    earlier, 0 both).  ``stats_t`` is the target series (an AB-join's
+    other one; default ``stats``) and ``w`` its width.  Returns (values
+    (F, K), indices (F, K), -1 where empty; counts (F,))."""
     K, CW = PASS_C_K, PASS_C_COLS
-    U = stats.windows
+    stats_t = stats if stats_t is None else stats_t
+    U = stats_t.windows
     dev = U.device
-    fin = torch.isfinite(stats.inv)
+    fin = torch.isfinite(stats_t.inv)
     outs = []
     for o in range(0, flag_idx.shape[0], _ROW_BLOCK):
         fi = flag_idx[o : o + _ROW_BLOCK].to(dev, torch.int32)
         F = fi.shape[0]
-        Uf, fin_f, thr_f = U.index_select(0, fi), fin.index_select(0, fi), thr.index_select(0, fi)
+        Uf = stats.windows.index_select(0, fi)
+        fin_f = torch.isfinite(stats.inv.index_select(0, fi))
+        thr_f = thr.index_select(0, fi)
         bv = torch.full((F, K), AGGREGATE_INIT, dtype=torch.float32, device=dev)
         bi = torch.full((F, K), INDEX_INIT, dtype=torch.int32, device=dev)
         cnt = torch.zeros(F, dtype=torch.int32, device=dev)
@@ -388,59 +416,71 @@ def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0)
 # ---------------------------------------------------------------- exact stages
 
 
-def _rescore_pairs(T64, mu, inv, m: int, rows, cols) -> torch.Tensor:
-    """Exact float64 Pearson correlation of the pairs (rows[i], cols[i]),
-    mpx's formula (centered-window dot x inv x inv); AGGREGATE_INIT where
-    cols[i] < 0 or either window has zero variance.  Float64 tensors on
-    the run's device; only the valid pairs are gathered."""
-    dev = T64.device
+def _rescore_pairs_ab(Tq, muq, invq, Tt, mut, invt, m: int, rows, cols) -> torch.Tensor:
+    """Exact float64 Pearson correlation of the pairs (query rows[i],
+    target cols[i]), mpx's formula (centered-window dot x inv x inv);
+    AGGREGATE_INIT where cols[i] < 0 or either window has zero variance.
+    Float64 tensors on the run's device; only the valid pairs are
+    gathered."""
+    dev = Tq.device
     rows = torch.as_tensor(rows, device=dev).long()
     cols = torch.as_tensor(cols, device=dev).long()
     P = torch.full(rows.shape, AGGREGATE_INIT, dtype=torch.float64, device=dev)
-    fin = torch.isfinite(inv)
     cc = cols.clamp_min(0)
-    ok = (cols >= 0) & fin[cc] & fin[rows]
+    ok = (cols >= 0) & torch.isfinite(invt)[cc] & torch.isfinite(invq)[rows]
     idx = torch.nonzero(ok).flatten()
-    win = T64.unfold(0, m, 1)
+    win_q, win_t = Tq.unfold(0, m, 1), Tt.unfold(0, m, 1)
     blk = max(1, _RESCORE_BYTES // (16 * m))
     for o in range(0, idx.shape[0], blk):
         sel = idx[o : o + blk]
         a, b = rows[sel], cc[sel]
-        wa = win[a] - mu[a][:, None]
-        wb = win[b] - mu[b][:, None]
-        P[sel] = (wa * wb).sum(dim=1) * inv[a] * inv[b]
+        wa = win_q[a] - muq[a][:, None]
+        wb = win_t[b] - mut[b][:, None]
+        P[sel] = (wa * wb).sum(dim=1) * invq[a] * invt[b]
     return P
 
 
-def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows, side: int = 0):
-    """Exact float64 best neighbor of each given row over ALL its valid
-    pairs (outside the exclusion zone on the given side, see
-    :func:`_side_zone`; finite inverse norms): the smallest index among
-    ties.  ``side=+1``/``-1`` is mpx's ``_row_scan_sided``.  Returns
-    (bestP float64, bestI int32)."""
-    dev = T64.device
+def _rescore_pairs(T64, mu, inv, m: int, rows, cols) -> torch.Tensor:
+    """:func:`_rescore_pairs_ab` of a series against itself."""
+    return _rescore_pairs_ab(T64, mu, inv, T64, mu, inv, m, rows, cols)
+
+
+def _row_scan_ab(Tq, muq, invq, Tt, mut, invt, m: int, wt: int, rows, *,
+                 excl: int = NO_EXCL, side: int = 0):
+    """Exact float64 best target neighbor of each given query row over ALL
+    its valid pairs (outside the exclusion zone on the given side, see
+    :func:`_side_zone`, none by default; finite inverse norms): the first
+    maximum, the smallest index, on a tie.  Returns (bestP float64, bestI
+    int32)."""
+    dev = Tq.device
     rows = torch.as_tensor(rows, device=dev).long()
-    win = T64.unfold(0, m, 1)[:w]
-    fin = torch.isfinite(inv)
+    win_q, win_t = Tq.unfold(0, m, 1), Tt.unfold(0, m, 1)[:wt]
+    fin_q, fin_t = torch.isfinite(invq), torch.isfinite(invt)
     bestP = torch.full(rows.shape, AGGREGATE_INIT, dtype=torch.float64, device=dev)
     bestI = torch.full(rows.shape, INDEX_INIT, dtype=torch.int64, device=dev)
     for o in range(0, rows.shape[0], _ROW_BLOCK):
         rr = rows[o : o + _ROW_BLOCK]
-        Q = win[rr] - mu[rr][:, None]
+        Q = win_q[rr] - muq[rr][:, None]
         bp, bi = bestP[o : o + _ROW_BLOCK], bestI[o : o + _ROW_BLOCK]
-        for c0 in range(0, w, _SCAN_COLS):
-            c1 = min(c0 + _SCAN_COLS, w)
-            qt = Q @ (win[c0:c1] - mu[c0:c1][:, None]).T
-            P = qt * inv[c0:c1][None, :] * inv[rr][:, None]
+        for c0 in range(0, wt, _SCAN_COLS):
+            c1 = min(c0 + _SCAN_COLS, wt)
+            qt = Q @ (win_t[c0:c1] - mut[c0:c1][:, None]).T
+            P = qt * invt[c0:c1][None, :] * invq[rr][:, None]
             cols = torch.arange(c0, c1, device=dev)
             bad = (~_side_zone(cols[None, :] - rr[:, None], excl, side)
-                   | ~fin[c0:c1][None, :] | ~fin[rr][:, None])
+                   | ~fin_t[c0:c1][None, :] | ~fin_q[rr][:, None])
             v, i = P.masked_fill_(bad, AGGREGATE_INIT).max(dim=1)
             upd = v > bp  # strictly: an earlier block keeps a tie
             bp.copy_(torch.where(upd, v, bp))
             bi.copy_(torch.where(upd, i + c0, bi))
     bestI = torch.where(bestP > AGGREGATE_INIT, bestI, INDEX_INIT).to(torch.int32)
     return bestP, bestI
+
+
+def _row_scan(T64, mu, inv, m: int, w: int, excl: int, rows, side: int = 0):
+    """:func:`_row_scan_ab` of a series against itself, outside its
+    exclusion zone: ``side=+1``/``-1`` is mpx's ``_row_scan_sided``."""
+    return _row_scan_ab(T64, mu, inv, T64, mu, inv, m, w, rows, excl=excl, side=side)
 
 
 def _best_of(P, cand):
@@ -454,31 +494,31 @@ def _best_of(P, cand):
     return best, idx.to(torch.int32)
 
 
-_SIDE_NAMES = {0: "", 1: "right", -1: "left"}
-
-
-def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl: int,
-                  profile, side: int = 0):
+def _resolve_side(sus: SuspectWindow, wq: int, m: int, *, stats_q, stats_t, thr_q,
+                  exact_q, exact_t, excl: int, wt: int, profile, side: int = 0,
+                  name: str = ""):
     """Rescore the captured candidates exactly, run pass C for
     capture-overflow rows whose captured interval is wide, and hand rows
     with more than PASS_C_K near-maximal pairs to the exact row scan.
-    ``sus`` is the summary on the device, ``stats``/``thr`` pass C's
-    float32 operands, ``exact`` the float64 (T, mu, inv); ``side`` keeps
-    every stage to one side's neighbors (+1 the right profile, -1 the
-    left, 0 the self-join).  Phases and counts of a side carry its name."""
+    ``sus`` is the summary over the ``wq`` query windows on the device,
+    ``stats_q``/``thr_q`` pass C's float32 query operands and ``stats_t``
+    its ``wt`` target windows (the same series but for the AB-join),
+    ``exact_q``/``exact_t`` the float64 (T, mu, inv) of each; ``side``
+    keeps every stage to one side's neighbors (+1 the right profile, -1 the
+    left, 0 both) and ``excl`` is the exclusion zone (:data:`NO_EXCL` for
+    the AB-join).  Phases and counts carry the side's ``name``."""
     dev = sus.cnt.device
-    name = _SIDE_NAMES[side]
     tag, key = (f", {name}", f"_{name}") if name else ("", "")
 
     def rescore(rows, cols):
-        return _rescore_pairs(*exact, m, rows, cols)
+        return _rescore_pairs_ab(*exact_q, *exact_t, m, rows, cols)
 
-    cnt = sus.cnt[:w]
+    cnt = sus.cnt[:wq]
     # All 2K capture slots, ascending: the K smallest, then the K largest.
-    cand = torch.cat([sus.mn[:w], sus.mx[:w].flip(1)], dim=1)
+    cand = torch.cat([sus.mn[:wq], sus.mx[:wq].flip(1)], dim=1)
     nslots = cand.shape[1]
     over = cnt > nslots
-    mn1, mx1 = sus.mn[:w, 0], sus.mx[:w, 0]
+    mn1, mx1 = sus.mn[:wq, 0], sus.mx[:wq, 0]
     spread = mx1.long() - mn1.long() + 1
     narrow = over & (mn1 != SUSPECT_MIN_INIT) & (spread <= RUNCAP)
     nrows = torch.nonzero(narrow).flatten()
@@ -487,7 +527,8 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
     passc = None
     if flagged.numel():
         with phase(profile, f"2. Compute [pass C{tag}]", device=dev):
-            passc = scan_flagged_rows(stats, thr, flagged, w=w, excl=excl, side=side)
+            passc = scan_flagged_rows(stats_q, thr_q, flagged, w=wt, excl=excl, side=side,
+                                      stats_t=stats_t)
 
     with phase(profile, f"3. Rescore [f64 slots{tag}]", device=dev):
         # Sentinels and repeated slots (a count <= 2K repeats indices in
@@ -496,8 +537,8 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
         for j in range(1, nslots):
             dup = (cand[:, :j] == cand[:, j : j + 1]).any(dim=1)
             cand[:, j] = torch.where(dup, -1, cand[:, j])
-        rows_idx = torch.arange(w, device=dev).repeat_interleave(nslots)
-        P = rescore(rows_idx, cand.reshape(-1)).reshape(w, nslots)
+        rows_idx = torch.arange(wq, device=dev).repeat_interleave(nslots)
+        P = rescore(rows_idx, cand.reshape(-1)).reshape(wq, nslots)
         bestP, bestI = _best_of(P, cand)
 
     if nrows.numel():
@@ -528,8 +569,8 @@ def _resolve_side(sus: SuspectWindow, w: int, m: int, *, stats, thr, exact, excl
                                f"than {PASS_C_K} near-maximal pairs; exact row scans "
                                f"may dominate the runtime")
             with phase(profile, f"3. Rescore [f64 row scans{tag}]", device=dev):
-                bestP[scanned], bestI[scanned] = _row_scan(*exact, m, w, excl, scanned,
-                                                           side=side)
+                bestP[scanned], bestI[scanned] = _row_scan_ab(
+                    *exact_q, *exact_t, m, wt, scanned, excl=excl, side=side)
     if profile is not None:
         profile.counts.update({f"plateau_rows{key}": int(nrows.numel()),
                                f"pass_c_rows{key}": int(flagged.numel()),
@@ -558,13 +599,53 @@ def hybrid_statistics(T64, m: int, *, band: int, chunk: int, device, host_stats=
     return stats, exact
 
 
+def _host_f64(T) -> np.ndarray:
+    T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
+    return np.asarray(T, dtype=np.float64)
+
+
+def _passes(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int, pw: int,
+            combine: bool, profile, stats_c=None, wc: Optional[int] = None,
+            pwc: Optional[int] = None, excl: Optional[int] = None):
+    """Passes A and B over the given jobs: the thresholds and the suspect
+    summaries (one of each, or the row and column sides' with
+    ``combine=False``).  Pass B's route comes from the capture gate on the
+    wider axis, and lands in ``profile.counts``; ``stats_c`` .. ``excl``
+    carry an AB-join's geometry (:func:`run_max_jobs`)."""
+    dev = stats.windows.device
+    jobs = len(r0s)
+    nbytes = capture_bytes(jobs, S, W)
+    sparse = _sparse_ok(max(w, w if wc is None else wc), nbytes, dev)
+    ab = dict(stats_c=stats_c, wc=wc, excl=excl)
+    with phase(profile, "2. Compute [pass A]", device=dev):
+        thr, cap = run_max_jobs(stats, r0s, k0s, margin, S=S, W=W, m=m, w=w, pw=pw,
+                                pwc=pwc, combine=combine, capture=sparse, **ab)
+    thr_r, thr_c = (thr, None) if combine else thr
+    kw = dict(S=S, W=W, m=m, w=w, thr_col=thr_c, combine=combine, **ab)
+    if sparse:
+        sus = run_suspect_jobs_sparse(stats, thr_r, cap, profile=profile, **kw)
+        del cap  # the captured job maxima
+    else:
+        with phase(profile, "2. Compute [pass B dense]", device=dev):
+            sus = run_suspect_jobs(stats, thr_r, r0s, k0s, **kw)
+        if profile is not None:
+            profile.counts.update({"jobs": jobs, "dense_jobs": jobs})
+    if profile is not None:
+        profile.counts.update({"pass_b": "sparse" if sparse else "dense",
+                               "capture_bytes": nbytes if sparse else 0})
+    return thr, sus
+
+
+def _distances(P: torch.Tensor, m: int) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0))
+
+
 def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool):
     """The hybrid tier end to end: the self-join's (bestP, bestI) or, with
     ``left_right``, the left and right sides' (bestP, bestI) each, as
     distances (see the public functions)."""
     m = config.m
-    T64 = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T)
-    T64 = np.asarray(T64, dtype=np.float64)
+    T64 = _host_f64(T)
     n = T64.shape[0]
     config.validate_series(n, T64)
     w = n - m + 1
@@ -581,39 +662,70 @@ def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool):
         stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
 
     grid = make_job_grid(w, S, W)
-    pw = stats.mu.shape[0]
-    jobs = len(grid.r0)
-    nbytes = capture_bytes(jobs, S, W)
-    sparse = _sparse_ok(w, nbytes, dev)
-    with phase(profile, "2. Compute [pass A]", device=dev):
-        thr, cap = run_max_jobs(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
-                                pw=pw, combine=not left_right, capture=sparse)
-    thr_r, thr_c = thr if left_right else (thr, None)
-    kw = dict(S=S, W=W, m=m, w=w, thr_col=thr_c, combine=not left_right)
-    if sparse:
-        sus = run_suspect_jobs_sparse(stats, thr_r, cap, profile=profile, **kw)
-        del cap  # the captured job maxima
-    else:
-        with phase(profile, "2. Compute [pass B dense]", device=dev):
-            sus = run_suspect_jobs(stats, thr_r, grid.r0, grid.k0, **kw)
-        if profile is not None:
-            profile.counts.update({"jobs": jobs, "dense_jobs": jobs})
-    if profile is not None:
-        profile.counts.update({"pass_b": "sparse" if sparse else "dense",
-                               "capture_bytes": nbytes if sparse else 0})
-
-    resolve = dict(stats=stats, exact=(exact.T, exact.mu[:w], exact.inv[:w]), excl=excl,
+    thr, sus = _passes(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
+                       pw=stats.mu.shape[0], combine=not left_right, profile=profile)
+    ex = (exact.T, exact.mu[:w], exact.inv[:w])
+    resolve = dict(stats_q=stats, stats_t=stats, exact_q=ex, exact_t=ex, excl=excl, wt=w,
                    profile=profile)
     if left_right:
         # The job grid covers the upper triangle: the row side is the
         # right profile, the column side the left.
-        sides = [_resolve_side(sus[1], w, m, thr=thr_c, side=-1, **resolve),
-                 _resolve_side(sus[0], w, m, thr=thr_r, side=+1, **resolve)]
+        sides = [_resolve_side(sus[1], w, m, thr_q=thr[1], side=-1, name="left", **resolve),
+                 _resolve_side(sus[0], w, m, thr_q=thr[0], side=+1, name="right", **resolve)]
     else:
-        sides = [_resolve_side(sus, w, m, thr=thr_r, **resolve)]
+        sides = [_resolve_side(sus, w, m, thr_q=thr, **resolve)]
     with phase(profile, "4. Post-Computation", device=dev):
-        return tuple(x for P, I in sides
-                     for x in (torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0)), I))
+        return tuple(x for P, I in sides for x in (_distances(P, m), I))
+
+
+def compute_ab_join_f64_hybrid(A, B, config: MatrixProfileConfig, *,
+                               margin: Optional[float] = None, profile=None):
+    """Exact double-precision AB-join through the hybrid tier (port of
+    mpx's ``compute_ab_join_f64_hybrid``).
+
+    Passes A and B sweep the rectangle jobs of :func:`mpx_torch.abjoin.ab_jobs`
+    (rows of ``A``, columns of ``B``, no exclusion zone) with one
+    threshold per series; each series' suspects are then resolved against
+    the other's windows.  Returns an :class:`mpx_torch.abjoin.ABJoinResult`
+    of float64 distances and int32 indices on ``config.device``; a
+    zero-variance window has no neighbor (sqrt(2m(1+1e12)) / -1).
+    ``profile`` as for :func:`compute_matrix_profile_f64_hybrid`, the
+    escalation counts and resolve phases named by series (``a``, ``b``)."""
+    from mpx_torch.abjoin import ABJoinResult, ab_jobs
+
+    m = config.m
+    A64, B64 = _host_f64(A), _host_f64(B)
+    config.validate_series(A64.shape[0], A64)
+    config.validate_series(B64.shape[0], B64)
+    wa, wb = A64.shape[0] - m + 1, B64.shape[0] - m + 1
+    config = config.shrink_to(max(wa, wb))
+    S, W = config.band, config.chunk
+    if margin is None:
+        margin = default_margin(m)
+    dev = torch.device(config.device)
+
+    with phase(profile, "1. Pre-Computation [host f64]"):
+        sa, sb = (precompute_statistics_numpy(X, m) for X in (A64, B64))
+    with phase(profile, "1. Pre-Computation [device]", device=dev):
+        (stats_a, exact_a), (stats_b, exact_b) = (
+            hybrid_statistics(X, m, band=S, chunk=W, device=dev, host_stats=s)
+            for X, s in ((A64, sa), (B64, sb)))
+
+    r0s, c0s = ab_jobs(wa, wb, S, W)
+    (thr_a, thr_b), (sus_a, sus_b) = _passes(
+        stats_a, r0s, c0s - r0s, margin, S=S, W=W, m=m, w=wa, pw=stats_a.mu.shape[0],
+        combine=False, profile=profile, stats_c=stats_b, wc=wb, pwc=stats_b.mu.shape[0],
+        excl=NO_EXCL)
+    ex_a = (exact_a.T, exact_a.mu[:wa], exact_a.inv[:wa])
+    ex_b = (exact_b.T, exact_b.mu[:wb], exact_b.inv[:wb])
+    Pa, Ia = _resolve_side(sus_a, wa, m, stats_q=stats_a, stats_t=stats_b, thr_q=thr_a,
+                           exact_q=ex_a, exact_t=ex_b, excl=NO_EXCL, wt=wb, profile=profile,
+                           name="a")
+    Pb, Ib = _resolve_side(sus_b, wb, m, stats_q=stats_b, stats_t=stats_a, thr_q=thr_b,
+                           exact_q=ex_b, exact_t=ex_a, excl=NO_EXCL, wt=wa, profile=profile,
+                           name="b")
+    with phase(profile, "4. Post-Computation", device=dev):
+        return ABJoinResult(mp_a=_distances(Pa, m), mpi_a=Ia, mp_b=_distances(Pb, m), mpi_b=Ib)
 
 
 def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,

@@ -80,7 +80,8 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             for name in ("mpx_k1_sweep_f32", "mpx_k1_sweep_f64"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, i, i, i, i, i, i, i,  # U, inv, m, r0, c0, S, W, w, excl
+                fn.argtypes = [p, p, p, p,                # U, inv, Uc, inv_c
+                               i, i, i, i, i, i, i, i,    # m, r0, c0, S, W, w, wc, excl
                                p, p, p, p,                # row/col partials
                                p, p, p, p,                # row/col outputs
                                p]                         # stream

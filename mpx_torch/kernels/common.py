@@ -21,7 +21,8 @@ jobs may run in any order.
 Masking rules (per pair (r, c)):
 
 * in-bounds:      r <= w-1 and c <= wc-1   (w = n - m + 1)
-* exclusion zone: c - r >= excl            (excl = m // 4)
+* exclusion zone: c - r >= excl            (excl = m // 4; NO_EXCL for
+                                           an AB-join)
 * finite stats:   inv[r] and inv[c] finite (zero-variance windows never match)
 
 Masked pairs contribute the aggregate init (-1e12), never 0: a masked 0
@@ -36,6 +37,11 @@ import torch
 
 from mpx_torch.ops.precompute import sliding_dot_product
 from mpx_torch.types import Aggregates
+
+
+# The exclusion bound of an AB-join (mpx's ``NO_EXCL``): its pairs join
+# two series, so none is trivial; ``c - r >= NO_EXCL`` holds for them all.
+NO_EXCL = -(2**30)
 
 
 class BandOut(NamedTuple):

@@ -9,7 +9,11 @@ max/argmax with the smallest index winning ties.
 This is the semantic reference of the fused CUDA kernel
 (:mod:`mpx_torch.kernels.mxu_fused`), the path every CPU tensor takes,
 and a deliberate user choice (``kernel='mxu'``) on the card.  It
-materializes the whole tile in device memory.
+materializes the whole tile in device memory.  Every sweep takes an
+optional ``stats_c``: the column axis's statistics, an AB-join's second
+series (mpx's ``stats_c``), bounded by ``geom.wc``.  The masked tile
+itself (:func:`job_correlations`) is shared with the top-k and
+sum-threshold epilogues.
 
 The hybrid tier's float32 passes live here too (counterparts of mpx's
 ``sweep_band_max``, ``sweep_band_suspects`` and
@@ -64,37 +68,64 @@ class SuspectOut(NamedTuple):
     col: SuspectWindow  # subsequences of the job's columns, suspects among its rows
 
 
-def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
-                   dtype) -> BandOut:
-    global CALLS
-    CALLS += 1
-    S, W = geom.S, geom.W
-    U = stats.windows
-    if U is None:
+def _columns(stats: Stats, stats_c: Stats | None) -> Stats:
+    """The statistics of the column axis: ``stats_c`` (an AB-join's second
+    series) or, for a self-join, ``stats`` itself."""
+    return stats if stats_c is None else stats_c
+
+
+def job_correlations(stats: Stats, r0: int, c0: int, geom: BandGeometry, dtype,
+                     stats_c: Stats | None = None) -> torch.Tensor:
+    """The shared (S, W) correlation tile of rows ``r0..`` and columns
+    ``c0..`` (of ``stats_c`` when given: the AB-join), masked: every pair
+    that :func:`pair_mask` rejects holds AGGREGATE_INIT.  Counterpart of
+    mpx's ``_job_correlations``; the float32 product runs in full FP32."""
+    U, Uc = stats.windows, _columns(stats, stats_c).windows
+    if U is None or Uc is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
     dt = torch_dtype(dtype)
-    if U.dtype != dt:
-        raise ValueError(f"stats are {U.dtype}, sweep asked for {dt}")
-    r0, k0 = int(r0), int(k0)
-    c0 = r0 + k0
+    if U.dtype != dt or Uc.dtype != dt:
+        raise ValueError(f"stats are {U.dtype}/{Uc.dtype}, sweep asked for {dt}")
+    r0, c0 = int(r0), int(c0)
     with full_precision_matmul():
-        P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
-    return reduce_tile(P, stats, r0, c0, geom)
+        P = U[r0 : r0 + geom.S] @ Uc[c0 : c0 + geom.W].T
+    return _mask(P, stats, r0, c0, geom, stats_c)
+
+
+def _mask(P: torch.Tensor, stats: Stats, r0: int, c0: int, geom: BandGeometry,
+          stats_c: Stats | None = None) -> torch.Tensor:
+    """``P`` (rows r0.., columns c0..) with its invalid pairs set to
+    AGGREGATE_INIT, in place."""
+    S, W = P.shape
+    rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=P.device)
+    cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=P.device)
+    return P.masked_fill_(~pair_mask(stats, rows, cols, geom, stats_c), AGGREGATE_INIT)
+
+
+def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
+                   dtype, stats_c: Stats | None = None) -> BandOut:
+    global CALLS
+    CALLS += 1
+    r0 = int(r0)
+    c0 = r0 + int(k0)
+    return _reduce(job_correlations(stats, r0, c0, geom, dtype, stats_c), r0, c0)
 
 
 def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
-                geom: BandGeometry) -> BandOut:
+                geom: BandGeometry, stats_c: Stats | None = None) -> BandOut:
     """Mask the (S, W) correlation tile of rows r0.. and columns c0.. (in
     place) and reduce it to row and column max with the smallest index
     winning ties."""
-    dt, dev = P.dtype, P.device
-    S, W = P.shape
+    return _reduce(_mask(P, stats, r0, c0, geom, stats_c), r0, c0)
+
+
+def _reduce(Pm: torch.Tensor, r0: int, c0: int) -> BandOut:
+    """Row and column max of a masked tile, the smallest index on a tie."""
+    dt, dev = Pm.dtype, Pm.device
+    S, W = Pm.shape
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
     cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
-    valid = pair_mask(stats, rows, cols, geom)
     init_v = torch.tensor(AGGREGATE_INIT, dtype=dt, device=dev)
-    Pm = P.masked_fill_(~valid, AGGREGATE_INIT)
-    del valid  # free the mask before the reductions allocate
 
     # max + first-occurrence index via an iota-min over the tie mask.
     big = torch.tensor(2**30, dtype=torch.int32, device=dev)
@@ -109,34 +140,30 @@ def reduce_tile(P: torch.Tensor, stats: Stats, r0: int, c0: int,
 
 
 def pair_mask(stats: Stats, rows: torch.Tensor, cols: torch.Tensor,
-              geom: BandGeometry) -> torch.Tensor:
-    """(len(rows), len(cols)) mask of the valid pairs of the upper triangle:
-    ``c - r >= excl``, both in bounds, both windows of finite inverse norm.
-    ``rows``/``cols`` are global int32 window indices."""
-    fin = torch.isfinite(stats.inv)
-    fin_r = fin.index_select(0, rows)[:, None]
-    fin_c = fin.index_select(0, cols)[None, :]
+              geom: BandGeometry, stats_c: Stats | None = None) -> torch.Tensor:
+    """(len(rows), len(cols)) mask of the valid pairs: ``c - r >= excl``
+    (the upper triangle of a self-join; an AB-join's excl lets every pair
+    pass), ``r <= w - 1``, ``c <= wc - 1``, both windows of finite inverse
+    norm (the columns' from ``stats_c`` when given).  ``rows``/``cols`` are
+    global int32 window indices."""
+    fin_r = torch.isfinite(stats.inv.index_select(0, rows))[:, None]
+    fin_c = torch.isfinite(_columns(stats, stats_c).inv.index_select(0, cols))[None, :]
     r, c = rows[:, None], cols[None, :]
     return (c - r >= geom.excl) & (r <= geom.w - 1) & (c <= geom.wc - 1) & fin_r & fin_c
 
 
-def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry):
+def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry,
+                   stats_c: Stats | None = None):
     """Value-only band sweep in the windows' dtype, the plain version of
     pass A: per-row and per-column max correlation of the masked tile, no
     index.  Returns ((S,) row maxima, (W,) column maxima), AGGREGATE_INIT
     where a row or column has no valid pair."""
     global CALLS
     CALLS += 1
-    U = stats.windows
-    if U is None:
+    if stats.windows is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
-    r0, c0 = int(r0), int(r0) + int(k0)
-    with full_precision_matmul():
-        P = U[r0 : r0 + geom.S] @ U[c0 : c0 + geom.W].T
-    dev = P.device
-    rows = torch.arange(r0, r0 + geom.S, dtype=torch.int32, device=dev)
-    cols = torch.arange(c0, c0 + geom.W, dtype=torch.int32, device=dev)
-    Pm = P.masked_fill_(~pair_mask(stats, rows, cols, geom), AGGREGATE_INIT)
+    r0 = int(r0)
+    Pm = job_correlations(stats, r0, r0 + int(k0), geom, stats.windows.dtype, stats_c)
     return Pm.amax(dim=1), Pm.amax(dim=0)
 
 
@@ -162,25 +189,26 @@ def suspect_reduce(hit: torch.Tensor, idx: torch.Tensor, dim: int) -> SuspectWin
 
 
 def sweep_band_suspects(stats: Stats, r0: int, k0: int, geom: BandGeometry,
-                        thr: torch.Tensor, thr_col=None) -> SuspectOut:
+                        thr: torch.Tensor, thr_col=None,
+                        stats_c: Stats | None = None) -> SuspectOut:
     """Dense pass-B job: recompute the float32 tile and summarize, per
     subsequence, every valid pair whose correlation reaches ``thr`` (its
     global float32 maximum less twice the hybrid's margin).  The job grid
     covers each valid pair once, so counts add across jobs.  ``thr_col``
     (default ``thr``) is the column side's own threshold (the left/right
-    profiles: rows find later neighbors, columns earlier ones)."""
+    profiles: rows find later neighbors, columns earlier ones; the
+    AB-join: the second series' windows, ``stats_c``).  A threshold is
+    above AGGREGATE_INIT, so the masked pairs never reach it."""
     S, W = geom.S, geom.W
-    U = stats.windows
     thr_c = thr if thr_col is None else thr_col
-    r0, c0 = int(r0), int(r0) + int(k0)
-    with full_precision_matmul():
-        P = U[r0 : r0 + S] @ U[c0 : c0 + W].T
-    dev = P.device
+    r0 = int(r0)
+    c0 = r0 + int(k0)
+    Pm = job_correlations(stats, r0, c0, geom, torch.float32, stats_c)
+    dev = Pm.device
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=dev)
     cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=dev)
-    valid = pair_mask(stats, rows, cols, geom)
-    row = suspect_reduce(valid & (P >= thr[r0 : r0 + S, None]), cols, 1)
-    col = suspect_reduce(valid & (P >= thr_c[None, c0 : c0 + W]), rows, 0)
+    row = suspect_reduce(Pm >= thr[r0 : r0 + S, None], cols, 1)
+    col = suspect_reduce(Pm >= thr_c[None, c0 : c0 + W], rows, 0)
     return SuspectOut(row=row, col=col)
 
 
@@ -200,14 +228,16 @@ def compact_flags(flags: torch.Tensor, F: int) -> torch.Tensor:
 
 def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tensor,
                                jcol: torch.Tensor, geom: BandGeometry,
-                               thr: torch.Tensor, nr: int, nc: int, thr_col=None):
+                               thr: torch.Tensor, nr: int, nc: int, thr_col=None,
+                               stats_c: Stats | None = None):
     """Sparse pass-B job: re-examine only the rows and columns whose pass-A
     job maxima (``jrow`` (S,), ``jcol`` (W,)) reach the threshold.  A row
     below it provably holds no suspect in this job, so the (S x W) tile
     shrinks to a product of the flagged rows with the job's columns and
     one of the job's rows with the flagged columns.  ``nr``/``nc`` are the
     flag counts (known on the host); ``thr_col`` (default ``thr``) is the
-    column side's threshold, as in :func:`sweep_band_suspects`.
+    column side's threshold and ``stats_c`` the columns' statistics, as
+    for :func:`sweep_band_suspects`.
 
     Returns (row side, column side), each (global window indices of the
     flagged rows / columns, their SuspectWindow), ``nr`` / ``nc`` long, or
@@ -216,9 +246,11 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
     A flagged window is a valid row or column (its threshold is finite), so
     only its partners are masked, and only by the tests this job's place
     can fail (the host knows which): the exclusion zone on the first
-    chunk, the bounds past w - 1, zero-variance partners always."""
-    S, W, w, excl = geom.S, geom.W, geom.w, geom.excl
-    U = stats.windows
+    chunk, the bounds past w - 1 (rows) or wc - 1 (columns), zero-variance
+    partners always."""
+    S, W, w, wc, excl = geom.S, geom.W, geom.w, geom.wc, geom.excl
+    U, sc = stats.windows, _columns(stats, stats_c)
+    Uc = sc.windows
     thr_c = thr if thr_col is None else thr_col
     r0, c0 = int(r0), int(r0) + int(k0)
     dev = U.device
@@ -233,11 +265,11 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
         t = thr.index_select(0, rf)
         t[nr:] = torch.inf
         with full_precision_matmul():
-            P = U.index_select(0, rf) @ U[c0 : c0 + W].T
+            P = U.index_select(0, rf) @ Uc[c0 : c0 + W].T
         hit = P >= t[:, None]
-        ok = torch.isfinite(stats.inv[c0 : c0 + W])
-        if c0 + W > w:
-            ok &= cols <= w - 1
+        ok = torch.isfinite(sc.inv[c0 : c0 + W])
+        if c0 + W > wc:
+            ok &= cols <= wc - 1
         hit &= ok[None, :]
         if zone:
             hit &= cols[None, :] - rf[:, None] >= excl
@@ -250,7 +282,7 @@ def sweep_band_suspects_sparse(stats: Stats, r0: int, k0: int, jrow: torch.Tenso
         t = thr_c.index_select(0, cf)
         t[nc:] = torch.inf
         with full_precision_matmul():
-            P = U[r0 : r0 + S] @ U.index_select(0, cf).T
+            P = U[r0 : r0 + S] @ Uc.index_select(0, cf).T
         hit = P >= t[None, :]
         ok = torch.isfinite(stats.inv[r0 : r0 + S])
         if r0 + S > w:

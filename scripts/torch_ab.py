@@ -1,8 +1,9 @@
-"""Parent-against-change readings of the port's end-to-end phases on one
-card: phases 4 (f32 n=2^20 through K1), 7 (the f64 showcase through K3),
-10 (the same through K1) and 12 (through the hybrid, with its pass-B
-profile) of a source tree's ``chip_smoke.py``, run in that tree with its
-kernels built anew.
+"""Parent-against-change readings of the port's phases on one card:
+phases 2 (K1 against its plain version at band level, f32 and f64), 4
+(f32 n=2^20 through K1), 7 (the f64 showcase through K3), 10 (the same
+through K1), 12 (through the hybrid, with its pass-B profile) and 14 (its
+left/right profiles) of a source tree's ``chip_smoke.py``, run in that tree
+with its kernels built anew.
 
     python3 scripts/torch_ab.py TREE LABEL
 
@@ -29,9 +30,11 @@ if not cs.__file__.startswith(tree):
     raise SystemExit(f"chip_smoke.py imported from {cs.__file__}, not from {tree}")
 print(f"=== {label} {tree}", flush=True)
 cs.phase_build()
+for dt in ("float32", "float64"):
+    cs.phase_band(torch, dt)
 cs.phase_e2e_f32(torch)
 _, k3p, k3w = cs.phase_showcase(torch, f"7 showcase f64 K3 [{label}]", "pallas", "k3",
                                 cs.SEED + 2)
 _, _, k1w = cs.phase_showcase(torch, f"10 showcase f64 auto (K1) [{label}]", "auto", "k1",
                               cs.SEED + 4)
-cs.phase_showcase_hybrid(torch, k3p, k3w, k1w)
+cs.phase_left_right_hybrid(torch, cs.phase_showcase_hybrid(torch, k3p, k3w, k1w))

@@ -1,0 +1,94 @@
+"""The ``abjoin``, ``topk`` and ``thresh`` subcommands of ``python -m
+mpx_torch`` (``--device cpu``) against ``python -m mpx``'s with the same
+arguments: the same files, distances within 1e-8 (float64) / 2e-3
+(float32), indices equal but between equidistant neighbors, counts equal
+(float64) or apart only by pairs within 1e-5 of the threshold (float32).
+"""
+
+import argparse
+
+import numpy as np
+import pytest
+
+from mpx.cli import main as mpx_main
+from mpx_torch.abjoin import unit_windows
+from mpx_torch.cli import _add_abjoin, _add_thresh, _add_topk
+from mpx_torch.cli import main as port_main
+from mpx_torch.io.tsb import read_binary, write_binary
+from tests.conftest import random_walk
+from tests.test_torch_abjoin import assert_ab_close
+from tests.test_torch_thresh import _near_counts, assert_thresh_close
+from tests.test_torch_topk import assert_topk_close
+
+EPS = {"float32": 2e-3, "float64": 1e-8}
+
+
+def _series(tmp_path, name, n, seed):
+    X = random_walk(n, seed=seed)
+    path = str(tmp_path / f"{name}.tsb")
+    write_binary(path, X, "double")
+    return X, path
+
+
+def _both(tmp_path, args):
+    """Run the port (on the CPU) and mpx with the same arguments; returns
+    the two output base paths."""
+    ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
+    assert port_main(args + ["-o", ours, "--device", "cpu"]) == 0
+    assert mpx_main(args + ["-o", ref]) == 0
+    return ours, ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_abjoin_writes_mpxs_files(tmp_path, dtype):
+    (A, a), (B, b) = _series(tmp_path, "a", 700, 1), _series(tmp_path, "b", 500, 2)
+    m = 16
+    ours, ref = _both(tmp_path, ["abjoin", "-a", a, "-b", b, "-m", str(m), "--dtype", dtype,
+                                 "--band", "128", "--chunk", "256"])
+    files = [[read_binary(base + side + ext, kind) for side in (".a", ".b")
+              for ext, kind in ((".mpb", "double"), (".mpib", "int"))] for base in (ours, ref)]
+    assert files[0][0].shape == (700 - m + 1,) and files[0][2].shape == (500 - m + 1,)
+    assert_ab_close(A, B, m, *files, EPS[dtype])
+
+
+def test_topk_writes_mpxs_file(tmp_path):
+    T, path = _series(tmp_path, "t", 900, 3)
+    m = 16
+    ours, ref = _both(tmp_path, ["topk", "-i", path, "-m", str(m), "-k", "3", "--dtype",
+                                 "float64", "--band", "128", "--chunk", "256"])
+    got, exp = np.load(ours + ".topk.npz"), np.load(ref + ".topk.npz")
+    assert got["distances"].shape == (900 - m + 1, 3)
+    Z = unit_windows(T, m)
+    assert_topk_close(Z, Z, m, got["distances"], got["indices"], exp["distances"],
+                      exp["indices"], EPS["float64"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thresh_writes_mpxs_file(tmp_path, dtype, capsys):
+    T, path = _series(tmp_path, "t", 800, 4)
+    m, thr = 16, 0.6
+    ours, ref = _both(tmp_path, ["thresh", "-i", path, "-m", str(m), "--threshold", str(thr),
+                                 "--dtype", dtype, "--band", "128", "--chunk", "256"])
+    assert "densest windows" in capsys.readouterr().out
+    got, exp = np.load(ours + ".thresh.npz"), np.load(ref + ".thresh.npz")
+    Z = unit_windows(T, m)
+    i = np.arange(Z.shape[0])
+    near = _near_counts(Z, Z, np.abs(i[:, None] - i[None, :]) >= m // 4, thr)
+    assert_thresh_close(got["sums"], got["counts"], exp["sums"], exp["counts"], dtype, near)
+
+
+def test_abjoin_mpdist_is_not_ported(tmp_path):
+    (_, a), (_, b) = _series(tmp_path, "a", 300, 5), _series(tmp_path, "b", 300, 6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        port_main(["abjoin", "-a", a, "-b", b, "-m", "16", "--mpdist", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("command", ["abjoin", "topk", "thresh"])
+def test_epilogue_commands_default_to_the_card(command):
+    """Like ``compute``, the new subcommands run on ``cuda`` unless asked
+    for the CPU."""
+    sub = argparse.ArgumentParser().add_subparsers()
+    add = {"abjoin": _add_abjoin, "topk": _add_topk, "thresh": _add_thresh}[command]
+    p = add(sub)
+    req = (["-a", "x", "-b", "y"] if command == "abjoin" else ["-i", "x", "-m", "8"])
+    assert p.parse_args(req).device == "cuda"

@@ -335,3 +335,216 @@ def test_left_right_hybrid_on_card_matches_cpu(card):
             assert MPI[i] >= 0 and MPIc[i] >= 0, f"side {side} row {i}"
             gap = _znorm_distance(T, m, i, MPI[i]) - _znorm_distance(T, m, i, MPIc[i])
             assert abs(gap) <= DIST_TOL["float64"], f"MPI[{i}] not an equidistant tie"
+
+
+def _ab_series():
+    """Two series with a constant run each (zero-variance windows on both
+    axes), lengths off the block tile."""
+    A, B = _series(2500, 21, constant_run=False), _series(1900, 22, constant_run=False)
+    A[800:900] = A[800]
+    B[1200:1290] = -3.0
+    return A, B
+
+
+def _assert_ab_band_close(ours, ref, Ua, Ub, r0, c0, tol):
+    for side, base, own_w, cand_w in (("row", r0, Ua, Ub), ("col", c0, Ub, Ua)):
+        a, b = getattr(ours, side), getattr(ref, side)
+        assert a.value.shape == b.value.shape, (r0, c0, side)
+        err = (a.value.double() - b.value.double()).abs().max().item()
+        assert err <= tol, (r0, c0, side, err)
+        bad = torch.nonzero(a.index != b.index).flatten()
+        assert bool(((a.index[bad] >= 0) & (b.index[bad] >= 0)).all())
+        own = own_w[base + bad]
+        gap = ((own * cand_w[a.index[bad].long()]).sum(1)
+               - (own * cand_w[b.index[bad].long()]).sum(1)).abs()
+        assert bool((gap <= tol).all()), (r0, c0, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [37, 64])
+def test_k1_with_column_operand_matches_plain_on_card(card, dtype, m):
+    """K1 with a second series as its column operand (``stats_c``) against
+    the plain sweep: every job of the AB grid, ragged edges on both axes,
+    zero-variance windows in both series, rows off 16-byte boundaries at
+    m = 37; one launch a job."""
+    from mpx_torch.abjoin import ab_jobs
+    from mpx_torch.kernels.common import NO_EXCL
+
+    A, B = _ab_series()
+    band, chunk = 200, 328
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    sa, sb = (precompute_statistics(X, m, band=band, chunk=chunk, dtype=dtype, device=card)
+              for X in (A, B))
+    assert not np.isfinite(sa.inv.cpu().numpy()[:wa]).all()
+    assert not np.isfinite(sb.inv.cpu().numpy()[:wb]).all()
+    Ua, Ub = sa.windows.double(), sb.windows.double()
+    geom = band_geometry(band, chunk, m, wa, wc=wb, excl=NO_EXCL)
+    r0s, c0s = ab_jobs(wa, wb, band, chunk)
+    launches = mxu_fused.LAUNCHES
+    for r0, c0 in zip(r0s.tolist(), c0s.tolist()):
+        ours = mxu_fused.sweep_band_mxu_fused(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
+        ref = mxu.sweep_band_mxu(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
+        torch.cuda.synchronize()
+        _assert_ab_band_close(ours, ref, Ua, Ub, r0, c0, BAND_TOL[dtype])
+    assert mxu_fused.LAUNCHES == launches + len(r0s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_self_join_is_bit_equal_with_stats_c(card, dtype):
+    """The self-join passes one window matrix as both operands: with
+    ``stats_c=stats`` K1 gives what it gives without, bit for bit."""
+    stats = precompute_statistics(_series(N, 7), M, band=S, chunk=W, dtype=dtype,
+                                  device=card)
+    geom = band_geometry(S, W, M, W_PROFILE)
+    for r0, k0 in EDGE_JOBS:
+        one = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
+        two = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype, stats_c=stats)
+        for side in ("row", "col"):
+            assert torch.equal(getattr(one, side).value, getattr(two, side).value)
+            assert torch.equal(getattr(one, side).index, getattr(two, side).index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_no_exclusion_bound(card, dtype):
+    """The AB-join's NO_EXCL reaches the kernel as -pw (int32 for every pw
+    the wrapper accepts, 2**31 - 1 included) and masks exactly what
+    ``excl = -pw`` and the plain sweep mask."""
+    from mpx_torch.kernels.common import NO_EXCL
+    from mpx_torch.kernels.mxu_fused import kernel_excl
+
+    assert kernel_excl(NO_EXCL, 2**31 - 1) == -(2**31 - 1)
+    assert kernel_excl(NO_EXCL, 2**30 + 1) == -(2**30 + 1)
+    A, B = _ab_series()
+    m, band, chunk = 64, 256, 512
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    sa, sb = (precompute_statistics(X, m, band=band, chunk=chunk, dtype=dtype, device=card)
+              for X in (A, B))
+    pw = sa.windows.shape[0]
+    outs = [mxu_fused.sweep_band_mxu_fused(sa, 1024, -1024, band_geometry(
+        band, chunk, m, wa, wc=wb, excl=excl), dtype, stats_c=sb) for excl in (NO_EXCL, -pw)]
+    ref = mxu.sweep_band_mxu(sa, 1024, -1024, band_geometry(band, chunk, m, wa, wc=wb,
+                                                            excl=NO_EXCL), dtype, stats_c=sb)
+    for side in ("row", "col"):
+        assert torch.equal(getattr(outs[0], side).value, getattr(outs[1], side).value)
+        assert torch.equal(getattr(outs[0], side).index, getattr(outs[1], side).index)
+    _assert_ab_band_close(outs[0], ref, sa.windows.double(), sb.windows.double(), 1024, 0,
+                          BAND_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [("auto", "float32"), ("auto", "float64"),
+                                          ("hybrid", "float64")])
+def test_ab_join_on_card_matches_cpu(card, kernel, dtype):
+    """The AB-join on the card (K1, or the hybrid with K1 as pass A)
+    against the same code on the CPU: distances within the profile
+    tolerance, indices equal or equidistant; one K1 launch a job.  The two
+    constant runs give both series identical step windows (distance 0),
+    where sqrt(2m(1 - P)) turns float32's 1e-6 on P into 5e-3: float32 is
+    held in correlation there, 1e-5 (K1's band tolerance)."""
+    from mpx_torch.abjoin import ab_jobs, compute_ab_join
+
+    A, B = _ab_series()
+    m, band, chunk = 64, 512, 1024
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=band, chunk=chunk,
+                                  device=dev)
+        launches, calls = mxu_fused.LAUNCHES, mxu.CALLS
+        res = compute_ab_join(A, B, config=cfg)
+        if dev == "cuda":
+            jobs = len(ab_jobs(A.shape[0] - m + 1, B.shape[0] - m + 1, band, chunk)[0])
+            assert mxu_fused.LAUNCHES - launches == jobs and mxu.CALLS == calls
+        out[dev] = [o.cpu().numpy() for o in res]
+    tol = DIST_TOL[dtype]
+    for (MP, MPI, MPc, MPIc), (Q, R) in (((*out["cuda"][:2], *out["cpu"][:2]), (A, B)),
+                                         ((*out["cuda"][2:], *out["cpu"][2:]), (B, A))):
+        live = MPIc >= 0
+        np.testing.assert_array_equal(MPI >= 0, live)
+        if dtype == "float32":
+            P, Pc = (1 - np.asarray(d[live], np.float64) ** 2 / (2 * m) for d in (MP, MPc))
+            np.testing.assert_allclose(P, Pc, rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_allclose(MP[live], MPc[live], rtol=0, atol=tol)
+        for i in np.nonzero(MPI != MPIc)[0]:
+            q = Q[i : i + m]
+            d = [_ab_distance(q, R[j : j + m]) for j in (MPI[i], MPIc[i])]
+            assert abs(d[0] - d[1]) <= max(tol, 1e-7), (i, MPI[i], MPIc[i])
+
+
+def _ab_distance(a, b) -> float:
+    a, b = (a - a.mean()) / a.std(), (b - b.mean()) / b.std()
+    return float(np.sqrt(np.sum((a - b) ** 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_topk_tie_order_on_card_matches_cpu(card, dtype):
+    """A series of exact copies of one integer segment: every k-list is a
+    run of ties, and the card must order them as the CPU does (lax.top_k's
+    order, restored by ``_topk_desc``): indices equal."""
+    from mpx_torch.topk import compute_topk_profile
+
+    motif = np.random.default_rng(3).integers(-8, 9, 40).astype(np.float64)
+    T = np.tile(motif, 60)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = MatrixProfileConfig(m=16, dtype=dtype, band=256, chunk=512, device=dev)
+        out[dev] = [o.cpu().numpy() for o in compute_topk_profile(T, k=6, config=cfg)]
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    P = [1 - np.asarray(o[0], np.float64) ** 2 / 32 for o in (out["cuda"], out["cpu"])]
+    np.testing.assert_allclose(P[0], P[1], rtol=0, atol=1e-6 if dtype == "float32" else 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thresh_on_card_matches_cpu(card, dtype):
+    from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
+
+    A, B = _ab_series()
+    for fn, args in ((compute_sum_thresh, (A,)), (compute_sum_thresh_ab, (A, B))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cfg = MatrixProfileConfig(m=32, dtype=dtype, band=256, chunk=512, device=dev)
+            out[dev] = [o.cpu().numpy() for o in fn(*args, config=cfg, threshold=0.4)]
+        (s, c), (sc, cc) = out["cuda"], out["cpu"]
+        if dtype == "float64":
+            np.testing.assert_array_equal(c, cc)
+        else:  # float32 products in other orders: a pair at the threshold may flip
+            assert np.abs(c.astype(np.int64) - cc).max() <= 2
+        np.testing.assert_allclose(s, sc, rtol=1e-4, atol=1.0 if dtype == "float32" else 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [True, False])
+def test_tf32_setting_is_left_as_found_by_the_epilogues(card, tf32):
+    """After the AB-join (K1 and the hybrid), the top-k and the
+    sum-threshold profiles on the card the caller's TF32 setting is what
+    it was."""
+    from mpx_torch.abjoin import compute_ab_join
+    from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
+    from mpx_torch.topk import compute_topk_ab, compute_topk_profile
+
+    flag = torch.backends.cuda.matmul
+    saved = flag.allow_tf32
+    A, B = _ab_series()
+
+    def cfg(dtype="float32", kernel="auto"):
+        return MatrixProfileConfig(m=32, dtype=dtype, kernel=kernel, band=256, chunk=512,
+                                   device="cuda")
+    calls = [lambda: compute_ab_join(A, B, config=cfg()),
+             lambda: compute_ab_join(A, B, config=cfg("float64", "hybrid")),
+             lambda: compute_topk_profile(A, k=3, config=cfg()),
+             lambda: compute_topk_ab(A, B, k=3, config=cfg()),
+             lambda: compute_sum_thresh(A, config=cfg(), threshold=0.5),
+             lambda: compute_sum_thresh_ab(A, B, config=cfg(), threshold=0.5)]
+    try:
+        flag.allow_tf32 = tf32
+        for i, call in enumerate(calls):
+            call()
+            torch.cuda.synchronize()
+            assert flag.allow_tf32 is tf32, i
+    finally:
+        flag.allow_tf32 = saved
