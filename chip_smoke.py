@@ -78,32 +78,54 @@ script exits nonzero without the final line):
     job and share of the bound; the self-join through the two-operand
     launch (``stats_c=stats``) bit-equal to ``stats_c=None``, timed beside
     phase 2;
-19. the AB-join end to end through ``auto`` (K1), f32 and f64: A = 2^20,
-    B = 2^19 samples with 8 planted copies of A's segments under 1e-3
-    noise, m=256, band 4096, chunk 32768: 4,096 K1 launches per dtype and
-    no plain call; 64 A windows and 64 B windows (outside the copies)
+19. the AB-join end to end through ``auto`` (K1), f32 and f64: A = 2^19,
+    B = 2^18 samples (cut from 2^20 x 2^19 to keep the script under 600
+    s once phases 24-28 came) with 8 planted copies of A's segments under
+    1e-3 noise, m=256, band 4096, chunk 32768: 1,024 K1 launches per dtype
+    and no plain call; 64 A windows and 64 B windows (outside the copies)
     against exact f64 scans of the other series, and every copy found;
-20. the same AB-join in f64 through ``kernel='hybrid'``: 4,096 K1 f32
+20. the same AB-join in f64 through ``kernel='hybrid'``: 1,024 K1 f32
     launches (pass A), each side against the exact scans and phase 19's
     f64 profiles; its phase split, flags, captures and peak memory;
 21. top-k on the card (m=256, k=4, f64 strict, band 4096, chunk 32768:
     ``topk-f64-1048576-k4`` without its hybrid, cut to n=2^19 because n=2^20
     takes 75 s on an H100 at 700 W), 32 rows against an exact scan;
     ``compute_topk_ab`` f32 on phase 3's series in halves;
-22. sum-threshold on the card (n=2^20, m=256, threshold 0.7, f32, band
-    4096, chunk 16384: ``thresh-f32-1048576``), 32 rows against exact f64
+22. sum-threshold on the card (m=256, threshold 0.7, f32, band 4096,
+    chunk 16384: ``thresh-f32-1048576`` cut from n=2^20 to 2^19 to keep the
+    script under 600 s once phases 24-28 came), 32 rows against exact f64
     sums and counts;
 23. the ``abjoin``, ``topk`` and ``thresh`` command lines on
     data/binary/16384.tsb, each file equal to the API's result;
+24. the float64 top-k hybrid at ``topk-f64-1048576-k4``'s full shape
+    (n=2^20, m=256, k=4, band 4096, chunk 32768): 4,224 K1 float32 launches
+    (pass A) and no plain sweep, 32 rows against the exact scan; then
+    phase 21's n=2^19 series, equal to phase 21's strict tile within
+    1e-10, the strict tile's time beside; phase split, rows resolved per
+    stage and round, rounds, peak memory, clock and power;
+25. the top-k hybrid on phase 13's tie-heavy series at k=4 and k=8 against
+    the strict float64 tile, pass C, the wide pass C and the exact row
+    scan each resolving rows (a knob set between the series' tie counts);
+26. the raw-Euclidean (AAMP) profiles: the self-join f32 at n=2^20 and
+    f64 at n=2^18, the AB-join f32 (A = 2^19, B = 2^18), a large-amplitude
+    f64 series (a walk x 1e6 + 1e7, n=2^16), 64 rows each against an exact
+    f64 raw scan (mpx's 2e-4 / 1e-10 of the largest distance), and mpx's
+    globally centered f32 form on the same rows beside;
+27. the pooled distance matrix at ``matrix-f32-1048576``'s shape (n=2^20,
+    m=256, 64 x 64, band = chunk = 4096): 8 cells recomputed exactly in
+    f64, symmetry, and an AB summary against ``brute_force_pooled_matrix``;
+28. the ``compute --raw``, ``matrix`` (with and without ``-b``) and ``topk
+    --dtype float64`` command lines, each file equal to the API's result;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path runs: K1 in
-phases 10 and 4 and the AB-joins of phase 19, K3 in phases 7 and 8; the
-bound and the library call's time at the band-level shape; the hybrid
-adds no kernel, and its K1 launches are in phase 12's, 14's and 20's
-lines; top-k and sum-threshold are torch ops); the line before the last is
+phases 10 and 4, the AB-joins of phase 19 and (f32) the top-k hybrid's
+pass A of phase 24, K3 in phases 7 and 8; the bound and the library
+call's time at the band-level shape; the 1-NN hybrids' K1 launches are in
+phase 12's, 14's and 20's lines; top-k, sum-threshold, AAMP and the pooled
+matrix are otherwise torch ops); the line before the last is
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
@@ -1237,12 +1259,12 @@ PLANTED_LEN = 4096
 
 
 def planted_ab(seed: int, copies: int = 8, L: int = PLANTED_LEN):
-    """A (2^20) and B (2^19) random walks; B carries ``copies`` copies of
+    """A (2^19) and B (2^18) random walks; B carries ``copies`` copies of
     L-sample segments of A under 1e-3 noise, one in each 1/copies of B.
     Returns A, B and the (A start, B start) of each copy."""
     rng = np.random.default_rng(seed)
-    A = np.cumsum(rng.standard_normal(1 << 20))
-    B = np.cumsum(rng.standard_normal(1 << 19))
+    A = np.cumsum(rng.standard_normal(1 << 19))
+    B = np.cumsum(rng.standard_normal(1 << 18))
     part = B.shape[0] // copies
     src = rng.choice(A.shape[0] // L - 1, copies, replace=False) * L
     dst = np.arange(copies) * part + rng.integers(0, part - L, copies)
@@ -1309,9 +1331,9 @@ def check_ab(A, B, m, out, scans, tol, copies) -> dict:
 
 
 def phase_ab_e2e(torch) -> dict:
-    """The AB-join end to end through ``auto`` (K1) in f32 and f64: A = 2^20,
-    B = 2^19 with 8 planted copies of A's segments, m=256, band 4096, chunk
-    32768: 256 x 16 = 4,096 K1 launches per dtype and no plain call; 64 A
+    """The AB-join end to end through ``auto`` (K1) in f32 and f64: A = 2^19,
+    B = 2^18 with 8 planted copies of A's segments, m=256, band 4096, chunk
+    32768: 128 x 8 = 1,024 K1 launches per dtype and no plain call; 64 A
     windows and 64 B windows against exact f64 scans of the other series;
     every copy found."""
     from mpx_torch import MatrixProfileConfig
@@ -1328,7 +1350,7 @@ def phase_ab_e2e(torch) -> dict:
     for dt in ("float32", "float64"):
         cfg = MatrixProfileConfig(m=m, dtype=dt, band=4096, chunk=32768, device="cuda")
         jobs = ab_jobs_of(cfg, wa, wb)
-        require(jobs == 4096, f"AB job grid: {jobs} jobs")
+        require(jobs == 1024, f"AB job grid: {jobs} jobs")
         reset_counts()
         res, wall, phases, card, _ = run_ab(torch, A, B, cfg)
         launches = require_only(counts(), "k1", f"AB auto {dt}", jobs)
@@ -1347,7 +1369,7 @@ def phase_ab_e2e(torch) -> dict:
 
 def phase_ab_hybrid(torch, p19: dict):
     """The AB-join in f64 through ``kernel='hybrid'`` on phase 19's series:
-    4,096 K1 f32 launches (pass A), each side within 1e-8 of the exact
+    1,024 K1 f32 launches (pass A), each side within 1e-8 of the exact
     scans and within 1e-10 of phase 19's f64 profiles (indices only between
     equidistant neighbors; in the planted copies, equal indices and
     correlations within 1e-13); its phase split, flags, captures and peak
@@ -1455,17 +1477,18 @@ def phase_topk(torch, n: int = 1 << 19):
         max_err_vs_exact_32_rows=err, tol=DIST_TOL["float64"],
         ab_f32={"na": A.shape[0], "nb": B.shape[0], "m": m3, "wall_s": wall_ab,
                 "max_err_vs_exact_32_rows": err_ab, "tol": DIST_TOL["float32"]})
+    return {"T": T, "D": D, "I": I, "wall_s": wall}
 
 
 def phase_thresh(torch):
-    """Sum-threshold on the card at ``thresh-f32-1048576``'s shape (n=2^20,
-    m=256, threshold 0.7, f32, band 4096, chunk 16384) as torch ops; 32
+    """Sum-threshold on the card at ``thresh-f32-1048576``'s shape cut to
+    n=2^19 (m=256, threshold 0.7, f32, band 4096, chunk 16384) as torch ops; 32
     sampled rows against exact f64 sums and counts: a count may differ only
     by pairs whose exact correlation is within 1e-5 of the threshold, a sum
     by 1e-4 of itself plus those pairs."""
     from mpx_torch import MatrixProfileConfig, compute_sum_thresh, make_job_grid
 
-    n, m, thr, near_tol = 1 << 20, 256, 0.7, 1e-5
+    n, m, thr, near_tol = 1 << 19, 256, 0.7, 1e-5
     T = random_walk(n, SEED + 13)
     w = n - m + 1
     cfg = MatrixProfileConfig(m=m, dtype="float32", band=4096, chunk=16384, device="cuda")
@@ -1543,6 +1566,372 @@ def phase_epilogue_cli(torch):
     say("23 epilogue commands", input="data/binary/16384.tsb", m=m, **out)
 
 
+def topk_split(phases: dict) -> dict:
+    """The top-k hybrid's phase seconds, grouped: pass B per round, the
+    pass-C scans and the exact stages per path."""
+    def total(*prefixes):
+        return sum(v for k, v in phases.items() if k.startswith(prefixes))
+    rounds = {k.split("round ")[1].rstrip("]"): v for k, v in phases.items()
+              if k.startswith("2. Compute [topk pass B, round")}
+    return {"statistics": total("1. "), "pass_a": total("2. Compute [pass A]"),
+            "thr_estimate": total("2. Compute [topk thr estimate]"),
+            "pass_b": sum(rounds.values()), "pass_b_per_round": rounds,
+            "pass_c": total("2. Compute [topk pass C]"),
+            "pass_c_wide": total("2. Compute [topk pass C wide]"),
+            "rescore_slots": total("3. Rescore [f64 topk slots]"),
+            "rescore_plateau_runs": total("3. Rescore [f64 topk plateau runs]"),
+            "rescore_pass_c": total("3. Rescore [f64 topk pass C"),
+            "row_scan": total("3. Rescore [f64 topk row scan]"), "post": total("4. ")}
+
+
+def run_topk(torch, T, m: int, k: int, **cfg_kwargs):
+    """One top-k run through ``compute_topk_profile`` on the card, timed,
+    with its profile, the card's clock and power and its peak device
+    memory.  Returns (D, I, wall, phases, counts, card, peak, launches)."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.topk import compute_topk_profile
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda", **cfg_kwargs)
+    prof = BenchmarkProfile()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        D, I = compute_topk_profile(T, k=k, config=cfg, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = counts()
+    D, I = D.cpu().numpy(), I.cpu().numpy()
+    w = T.shape[0] - m + 1
+    require(D.shape == I.shape == (w, k) and I.dtype == np.int32, f"top-k shapes {D.shape}")
+    require(bool((np.isfinite(D) == (I >= 0)).all()), "top-k: inf distances and -1 apart")
+    phases = {k_: v / 1e9 for k_, v in prof.category_totals().items()}
+    return D, I, wall, phases, dict(prof.counts), card.summary, peak, launches
+
+
+def check_topk_agree(T, m, D, I, D2, I2, tol: float, tie_tol: float) -> float:
+    """Two top-k lists of one series: distances within tol, and where an
+    index differs both neighbors lie at distances within tie_tol."""
+    fin = np.isfinite(D2)
+    require(bool((np.isfinite(D) == fin).all()), "top-k: missing neighbors differ")
+    err = float(np.abs(D[fin] - D2[fin]).max(initial=0.0))
+    require(err <= tol, f"top-k lists differ by {err} (tol {tol})")
+    r, j = np.nonzero(I != I2)
+    gap = np.abs(pair_distances64(T, m, r, I[r, j]) - pair_distances64(T, m, r, I2[r, j]))
+    require(bool((gap <= tie_tol).all()),
+            f"{int((gap > tie_tol).sum())} top-k indices differ and are not equidistant")
+    return err
+
+
+def phase_topk_hybrid(torch, p21: dict) -> int:
+    """The float64 top-k hybrid at ``topk-f64-1048576-k4``'s full shape
+    (n=2^20, m=256, k=4, band 4096, chunk 32768): one K1 float32 launch per
+    job (pass A) and no plain sweep, 32 sampled rows against the exact
+    scan; then phase 21's n=2^19 series, held to phase 21's strict tile
+    within 1e-10, with the strict tile's time beside.  Returns the K1
+    launches of the full-size run."""
+    from mpx_torch.config import make_job_grid
+
+    n, m, k, tol = 1 << 20, 256, 4, DIST_TOL["float64"]
+    shape = dict(kernel="hybrid", band=4096, chunk=32768)
+    T = random_walk(n, SEED + 15)
+    w = n - m + 1
+    jobs = len(make_job_grid(w, 4096, 32768).r0)
+    D, I, wall, phases, cnt, card, peak, launched = run_topk(torch, T, m, k, **shape)
+    launches = require_only(launched, "k1", "top-k hybrid n=2^20 (pass A)", jobs)
+    rows = sample_rows(w, SEED + 15)[::2]
+    err = check_topk_rows(D, I, rows, row_scan64(T, m, rows), k, tol)
+    pairs = w * (w - 1) / 2
+    say("24 top-k f64 hybrid", n=n, m=m, k=k, band=4096, chunk=32768, jobs=jobs,
+        k1_launches=launches, plain_calls=0, wall_s=wall, pairs_per_s=pairs / wall,
+        split_s=topk_split(phases), counts=cnt, peak_device_bytes=peak, card=card,
+        max_err_vs_exact_32_rows=err, tol=tol)
+    T2, w2 = p21["T"], p21["T"].shape[0] - m + 1
+    D2, I2, wall2, phases2, cnt2, card2, peak2, launched2 = run_topk(torch, T2, m, k, **shape)
+    require_only(launched2, "k1", "top-k hybrid n=2^19 (pass A)",
+                 len(make_job_grid(w2, 4096, 32768).r0))
+    vs_strict = check_topk_agree(T2, m, D2, I2, p21["D"], p21["I"], 1e-10, tol)
+    say("24 top-k f64 hybrid vs strict", n=T2.shape[0], m=m, k=k, wall_s=wall2,
+        pairs_per_s=w2 * (w2 - 1) / 2 / wall2, strict_wall_s_phase_21=p21["wall_s"],
+        split_s=topk_split(phases2), counts=cnt2, peak_device_bytes=peak2, card=card2,
+        max_err_vs_strict=vs_strict, index_differs_vs_strict=int((I2 != p21["I"]).sum()),
+        tol=1e-10)
+    return launches
+
+
+def phase_topk_ties(torch):
+    """Phase 13's tie-heavy series (80 repeats of a motif, n=65520, m=64)
+    through the top-k hybrid at k=4 and k=8, against the strict float64
+    tile on the card.  Every window has 78 or 79 near-equal neighbors: with
+    the defaults pass C (64 slots) certifies none and the wide pass C (512)
+    all, so the runs set a knob between the two counts: k=4 with TOPK_K1 =
+    79 (pass C settles the 78-neighbor rows, the wide pass the rest), k=8
+    with TOPK_K2 = 79 (the wide pass settles the 78-neighbor rows, the exact
+    row scan the rest)."""
+    from mpx_torch import hybrid
+
+    repeats, L, m = 80, 819, 64
+    rng = np.random.default_rng(SEED + 6)
+    motif = np.cumsum(rng.standard_normal(L))
+    T = np.tile(motif, repeats) + rng.standard_normal(L * repeats) * 1e-3
+    out, stages = {}, set()
+    for k, knob in ((4, "TOPK_K1"), (8, "TOPK_K2")):
+        default = getattr(hybrid, knob)
+        setattr(hybrid, knob, 79)
+        try:
+            D, I, wall, phases, cnt, _, peak, launched = run_topk(torch, T, m, k,
+                                                                  kernel="hybrid")
+        finally:
+            setattr(hybrid, knob, default)
+        require_only(launched, "k1", f"top-k hybrid ties k={k} (pass A)")
+        Ds, Is, wall_s, _, _, _, _, _ = run_topk(torch, T, m, k)
+        err = check_topk_agree(T, m, D, I, Ds, Is, 1e-10, DIST_TOL["float64"])
+        resolved = {key[9:]: v for key, v in cnt.items() if key.startswith("resolved_")}
+        stages |= {name for name, v in resolved.items() if sum(v)}
+        out[f"k={k}"] = {"knob": f"{knob} {default} -> 79", "wall_s": wall,
+                         "strict_wall_s": wall_s, "rounds": cnt["rounds"],
+                         "resolved": resolved, "split_s": topk_split(phases),
+                         "peak_device_bytes": peak, "max_err_vs_strict": err,
+                         "index_differs_vs_strict": int((I != Is).sum())}
+    require({"pass_c", "pass_c_wide", "row_scan"} <= stages,
+            f"tie-heavy top-k: stages reached {sorted(stages)}")
+    say("25 top-k hybrid ties", n=T.shape[0], m=m, repeats=repeats, tol=1e-10, **out)
+
+
+def raw_row_scan64(T, m: int, rows, target=None) -> np.ndarray:
+    """Exact float64 raw Euclidean distances (len(rows), wt) of the sampled
+    windows of ``T`` to every window of ``target`` (default ``T``: the
+    self-join, +inf inside the exclusion zone), each window centered on its
+    own two-pass mean: D^2 = |a - mu_a|^2 + |b - mu_b|^2 - 2 (a - mu_a).(b -
+    mu_b) + m (mu_a - mu_b)^2; blockwise."""
+    Tt = T if target is None else target
+    wq = np.lib.stride_tricks.sliding_window_view(T, m)[rows]
+    mq = wq.mean(axis=1)
+    cq = wq - mq[:, None]
+    sq = np.einsum("ij,ij->i", cq, cq)
+    wt = np.lib.stride_tricks.sliding_window_view(Tt, m)
+    D2 = np.empty((len(rows), wt.shape[0]))
+    blk = max(1, (128 << 20) // (8 * m))
+    for o in range(0, wt.shape[0], blk):
+        v = wt[o : o + blk]
+        mt = v.mean(axis=1)
+        ct = v - mt[:, None]
+        D2[:, o : o + v.shape[0]] = (sq[:, None] + np.einsum("ij,ij->i", ct, ct)[None, :]
+                                     - 2.0 * cq @ ct.T + m * (mq[:, None] - mt[None, :]) ** 2)
+    D = np.sqrt(np.maximum(D2, 0.0))
+    if target is None:
+        cols = np.arange(D.shape[1])
+        D[np.abs(cols[None, :] - np.asarray(rows)[:, None]) < m // 4] = np.inf
+    return D
+
+
+def check_raw_rows(D, I, rows, Dx, rel: float) -> tuple:
+    """A raw profile on the sampled rows against the exact scan ``Dx``:
+    distances within rel x the largest exact distance of these rows, and
+    each index at its row's exact distance within the same.  Returns (worst
+    error, the tolerance)."""
+    best = Dx.min(axis=1)
+    tol = rel * float(best.max())
+    err = np.abs(D[rows] - best)
+    require(bool((err <= tol).all()), f"raw profile off by {err.max()} (tol {tol})")
+    at = Dx[np.arange(len(rows)), I[rows]]
+    require(bool((I[rows] >= 0).all() and (np.abs(at - best) <= tol).all()),
+            "raw profile: an index is not at its row's nearest distance")
+    return float(err.max()), tol
+
+
+def global_centered_f32_errors(torch, T, m: int, rows, Dx) -> float:
+    """mpx's float32 form on the card for the sampled rows: the series
+    centered once, raw windows and squared norms cast to float32, score 2
+    dot - ssq_c, D^2 = ssq_r - score; the worst distance error against the
+    exact scan (what the port's per-window centering avoids)."""
+    from mpx_torch.dtypes import full_precision_matmul
+
+    T0 = T - T.mean()
+    wins = np.lib.stride_tricks.sliding_window_view(T0, m)
+    ssq = torch.tensor(np.einsum("ij,ij->i", wins, wins), device="cuda").float()
+    U = torch.tensor(T0, device="cuda").unfold(0, m, 1).float()
+    with full_precision_matmul():
+        score = 2.0 * (U[torch.as_tensor(rows, device="cuda")] @ U.T) - ssq[None, :]
+    cols = torch.arange(U.shape[0], device="cuda")
+    r = torch.as_tensor(rows, device="cuda")
+    score.masked_fill_((cols[None, :] - r[:, None]).abs() < m // 4, -torch.inf)
+    D = torch.sqrt(torch.clamp(ssq[r] - score.max(dim=1).values, min=0.0)).double()
+    return float(np.abs(D.cpu().numpy() - Dx.min(axis=1)).max())
+
+
+def phase_aamp(torch):
+    """The raw-Euclidean profiles on the card: the self-join in float32 at
+    n=2^20 (m=256, band 4096, chunk 32768) and in float64 at n=2^18, the
+    AB-join in float32 (A = 2^19, B = 2^18), and a large-amplitude series
+    (a walk x 1e6 + 1e7, float64, n=2^16); 64 sampled rows of each against
+    an exact float64 raw scan, within mpx's tolerances (2e-4 float32, 1e-10
+    float64) of the largest exact distance of those rows.  Beside the
+    float32 self-join, mpx's globally centered float32 form on the same
+    rows."""
+    from mpx_torch import MatrixProfileConfig, compute_aamp_ab_join, compute_aamp_profile
+    from mpx_torch.abjoin import ab_jobs
+    from mpx_torch.config import make_job_grid
+
+    m, S, W = 256, 4096, 32768
+    rel = {"float32": 2e-4, "float64": 1e-10}
+    out = {}
+
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [x.cpu().numpy() for x in fn()]
+        wall = time.perf_counter() - t0
+        require(not any(counts().values()), f"AAMP launched a band sweep: {counts()}")
+        return res, wall
+
+    for name, n, dtype, scale, seed in (("self f32", 1 << 20, "float32", None, 16),
+                                         ("self f64", 1 << 18, "float64", None, 17),
+                                         ("large amplitude f64", 1 << 16, "float64", 1e6, 18)):
+        T = random_walk(n, SEED + seed)
+        if scale:
+            T = T * scale + 1e7
+        w = n - m + 1
+        cfg = MatrixProfileConfig(m=m, dtype=dtype, band=S, chunk=W, device="cuda")
+        (D, I), wall = timed(lambda: compute_aamp_profile(T, config=cfg))
+        require(D.shape == I.shape == (w,) and np.isfinite(D).all(), f"AAMP {name} outputs")
+        rows = sample_rows(w, SEED + seed)
+        Dx = raw_row_scan64(T, m, rows)
+        err, tol = check_raw_rows(D, I, rows, Dx, rel[dtype])
+        out[name] = {"n": n, "dtype": dtype, "jobs": len(make_job_grid(w, S, W).r0),
+                     "wall_s": wall, "pairs_per_s": w * (w - 1) / 2 / wall,
+                     "max_err_64_rows": err, "tol": tol}
+        if name == "self f32":
+            out[name]["mpx_form_max_err_64_rows"] = global_centered_f32_errors(
+                torch, T, m, rows, Dx)
+        del D, I, Dx
+    A, B = random_walk(1 << 19, SEED + 19), random_walk(1 << 18, SEED + 20)
+    wa, wb = A.shape[0] - m + 1, B.shape[0] - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=S, chunk=W, device="cuda")
+    (Da, Ia, Db, Ib), wall = timed(lambda: compute_aamp_ab_join(A, B, config=cfg))
+    ab = {"na": A.shape[0], "nb": B.shape[0], "dtype": "float32",
+          "jobs": len(ab_jobs(wa, wb, S, W)[0]), "wall_s": wall, "pairs_per_s": wa * wb / wall}
+    for side, X, Y, D, I, seed in (("a", A, B, Da, Ia, 21), ("b", B, A, Db, Ib, 22)):
+        rows = sample_rows(X.shape[0] - m + 1, SEED + seed)
+        ab[f"max_err_64_rows_{side}"], ab[f"tol_{side}"] = check_raw_rows(
+            D, I, rows, raw_row_scan64(X, m, rows, target=Y), rel["float32"])
+    out["ab f32"] = ab
+    say("26 aamp", m=m, band=S, chunk=W, **out)
+
+
+def exact_cell(torch, T, m: int, i: int, j: int, ph: int, pw: int) -> float:
+    """The exact float64 largest correlation of pooled cell (i, j) of the
+    self-join (|c - r| >= m // 4, zero-variance windows excluded), on the
+    card from the exact unit windows; -1 when the cell has no valid pair."""
+    w = T.shape[0] - m + 1
+    r0, r1, c0, c1 = i * ph, min((i + 1) * ph, w), j * pw, min((j + 1) * pw, w)
+    Zr, dr = unit_windows64(T, m, r0, r1)
+    Zr = torch.tensor(Zr, device="cuda")
+    best = -2.0
+    for o in range(c0, c1, 4096):
+        Zc, dc = unit_windows64(T, m, o, min(o + 4096, c1))
+        P = Zr @ torch.tensor(Zc, device="cuda").T
+        rr = torch.arange(r0, r1, device="cuda")[:, None]
+        cc = torch.arange(o, o + Zc.shape[0], device="cuda")[None, :]
+        bad = ((cc - rr).abs() < m // 4) | torch.tensor(dr, device="cuda")[:, None] \
+            | torch.tensor(dc, device="cuda")[None, :]
+        best = max(best, float(P.masked_fill_(bad, -2.0).max()))
+    return max(best, -1.0)
+
+
+def phase_pooled_matrix(torch):
+    """The pooled summary at ``matrix-f32-1048576``'s shape (n=2^20, m=256,
+    64 x 64, band = chunk = 4096) on the card: 8 cells (two on the
+    diagonal, the ragged last row and column) recomputed exactly in float64
+    within mpx's 2e-3, and the summary symmetric within 2e-3; an AB summary
+    (n_a = n_b = 8192, m=64) against ``brute_force_pooled_matrix``."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid, pooled_matrix
+    from mpx_torch.distmatrix import brute_force_pooled_matrix
+
+    n, m, cells, S, tol = 1 << 20, 256, 64, 4096, 2e-3
+    T = random_walk(n, SEED + 23)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, band=S, chunk=S, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        M = pooled_matrix(T, m, mwidth=cells, mheight=cells, config=cfg)
+        wall = time.perf_counter() - t0
+    require(not any(counts().values()), f"pooled matrix launched a band sweep: {counts()}")
+    require(M.shape == (cells, cells) and np.isfinite(M).all(), f"pooled matrix {M.shape}")
+    ph = -(-w // cells)
+    picks = [(0, 0), (31, 31), (0, 63), (63, 0), (63, 63), (63, 17), (40, 63), (12, 50)]
+    worst = 0.0
+    for i, j in picks:
+        exact = np.sqrt(max(2.0 * m * (1.0 - exact_cell(torch, T, m, i, j, ph, ph)), 0.0))
+        worst = max(worst, abs(M[i, j] - exact))
+        require(abs(M[i, j] - exact) <= tol, f"cell ({i}, {j}): {M[i, j]} vs exact {exact}")
+    asym = float(np.abs(M - M.T).max())
+    require(asym <= tol, f"pooled self-join matrix not symmetric: {asym}")
+    A, B = random_walk(8192, SEED + 24), random_walk(8192, SEED + 25)
+    t0 = time.perf_counter()
+    Mab = pooled_matrix(A, 64, B=B, config=MatrixProfileConfig(m=64, device="cuda"))
+    wall_ab = time.perf_counter() - t0
+    ab_err = float(np.abs(Mab - brute_force_pooled_matrix(A, 64, B=B)).max())
+    require(ab_err <= tol, f"AB pooled matrix vs brute force: {ab_err}")
+    say("27 pooled matrix", n=n, m=m, cells=[cells, cells], band=S, chunk=S,
+        jobs=len(make_job_grid(w, S, S).r0), wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall,
+        card=card.summary, exact_cells=picks, max_err_exact_cells=worst,
+        max_asymmetry=asym, tol=tol,
+        ab={"na": 8192, "nb": 8192, "m": 64, "wall_s": wall_ab, "max_err_vs_brute": ab_err})
+
+
+def phase_new_cli(torch):
+    """``compute --raw``, ``matrix`` (the self-join, and with ``-b`` the
+    AB-join of the halves) and ``topk --dtype float64`` on
+    data/binary/16384.tsb (m=256) on the card: each file equal to the API's
+    result on the card."""
+    from mpx_torch import MatrixProfileConfig, compute_aamp_profile, pooled_matrix
+    from mpx_torch.io.tsb import read_binary, read_series, write_binary
+    from mpx_torch.topk import compute_topk_profile
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T, m = read_series(src), 256
+    A, B = T[: T.shape[0] // 2], T[T.shape[0] // 2 :]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, base = (os.path.join(tmp, x) for x in ("a.tsb", "b.tsb", "out"))
+        write_binary(a, A)
+        write_binary(b, B)
+        t0 = time.perf_counter()
+        run_cli("compute", "-i", src, "-m", str(m), "--raw", "-o", base)
+        D, I = (read_binary(base + e, k) for e, k in ((".mpb", "double"), (".mpib", "int")))
+        api = compute_aamp_profile(T, config=MatrixProfileConfig(m=m, device="cuda"))
+        require(np.array_equal(D, api[0].cpu().numpy()) and np.array_equal(I, api[1].cpu().numpy()),
+                "compute --raw's files differ from compute_aamp_profile on the card")
+        out["compute_raw"] = {"seconds": time.perf_counter() - t0, "w": int(D.shape[0])}
+        for name, args, X, kw in (("matrix", ["-i", src], T, {}),
+                                  ("matrix_b", ["-i", a, "-b", b], A, {"B": B})):
+            t0 = time.perf_counter()
+            run_cli("matrix", *args, "-m", str(m), "-o", base)
+            got = np.load(base + ".dm.npy")
+            want = pooled_matrix(X, m, config=MatrixProfileConfig(m=m, band=4096, chunk=4096,
+                                                                  device="cuda"), **kw)
+            require(np.array_equal(got, want), f"{name}'s file differs from pooled_matrix")
+            out[name] = {"seconds": time.perf_counter() - t0, "shape": list(got.shape)}
+        t0 = time.perf_counter()
+        run_cli("topk", "-i", src, "-m", str(m), "-k", "4", "--dtype", "float64", "-o", base)
+        got = np.load(base + ".topk.npz")
+        D, I = compute_topk_profile(T, k=4, config=MatrixProfileConfig(
+            m=m, dtype="float64", band=4096, chunk=4096, device="cuda"))
+        require(np.array_equal(got["distances"], D.cpu().numpy())
+                and np.array_equal(got["indices"], I.cpu().numpy()),
+                "topk --dtype float64's file differs from compute_topk_profile")
+        out["topk_f64"] = {"seconds": time.perf_counter() - t0, "shape": list(D.shape)}
+    say("28 new commands", input="data/binary/16384.tsb", m=m, **out)
+
+
 def main() -> int:
     import torch
 
@@ -1604,12 +1993,23 @@ def main() -> int:
     for dt in ("float32", "float64"):
         launches["mxu_fused"][dt] += p19[dt]["launches"]
     del p19
-    phase_topk(torch)
+    p21 = phase_topk(torch)
     tf32_kept("21")
     phase_thresh(torch)
     tf32_kept("22")
     phase_epilogue_cli(torch)
     tf32_kept("23")
+    launches["mxu_fused"]["float32"] += phase_topk_hybrid(torch, p21)
+    tf32_kept("24")
+    del p21
+    phase_topk_ties(torch)
+    tf32_kept("25")
+    phase_aamp(torch)
+    tf32_kept("26")
+    phase_pooled_matrix(torch)
+    tf32_kept("27")
+    phase_new_cli(torch)
+    tf32_kept("28")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after)
     kernels = [

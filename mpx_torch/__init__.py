@@ -11,13 +11,18 @@ profiles) through the fused tile-sweep kernel K1 (``kernels/mxu_fused.py``,
 ``kernel='hybrid'``); the fixed-point input tier (``io/apfixed.py``,
 ``dtype='ap16'`` .. ``'ap64'``); ``io/`` and ``bench.py``; the AB-join
 (``abjoin.py``, K1 with a second operand, and its hybrid), the top-k
-profiles (``topk.py``) and the sum-threshold profiles (``thresh.py``); and
-the ``compute``, ``abjoin``, ``topk``, ``thresh``, ``tsbin``, ``golden``,
-``datasets`` and ``bench`` command lines (``python -m mpx_torch ...``).
+profiles (``topk.py``, float64 also through the hybrid), the
+sum-threshold profiles (``thresh.py``), the raw-Euclidean profiles
+(``aamp.py``) and the pooled distance-matrix summary (``distmatrix.py``);
+and the ``compute`` (``--raw``), ``abjoin``, ``topk``, ``thresh``,
+``matrix``, ``tsbin``, ``golden``, ``datasets`` and ``bench`` command lines
+(``python -m mpx_torch ...``).
 """
 
+from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
 from mpx_torch.abjoin import compute_ab_join
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.distmatrix import pooled_matrix
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
 from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
@@ -35,6 +40,9 @@ __all__ = [
     "compute_topk_profile",
     "compute_sum_thresh",
     "compute_sum_thresh_ab",
+    "compute_aamp_profile",
+    "compute_aamp_ab_join",
+    "pooled_matrix",
     "Aggregates",
     "JobGrid",
     "Stats",

@@ -2,12 +2,13 @@
 
 * ``compute``  — a self-join matrix profile (``--left-right`` for the
   left/right profiles, ``--dtype ap16|ap24|ap32|ap64`` for the
-  fixed-point input tier);
+  fixed-point input tier, ``--raw`` for the raw-Euclidean AAMP profile);
 * ``abjoin``   — the AB-join of two series (``<o>.a``/``<o>.b``
   ``.mpb``/``.mpib``);
 * ``topk``     — the k nearest neighbors of every window (``<o>.topk.npz``);
 * ``thresh``   — the sum-threshold and frequency profile
   (``<o>.thresh.npz``);
+* ``matrix``   — the pooled distance-matrix summary (``<o>.dm.npy``);
 * ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
   MPXQ fixed-point containers);
 * ``golden``   — golden MP/MPI through the numpy oracle
@@ -48,6 +49,8 @@ def _add_compute(sub):
     p.add_argument("--chunk", type=int, default=16384, help="diagonals per job")
     p.add_argument("--left-right", action="store_true",
                    help="emit left/right profiles (<o>.left/.right .mpb/.mpib)")
+    p.add_argument("--raw", action="store_true",
+                   help="raw Euclidean (non-normalized, AAMP) profile")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -59,6 +62,10 @@ def _cmd_compute(args) -> int:
     from mpx_torch.io.tsb import read_series, write_results
     from mpx_torch.utils.profile import BenchmarkProfile
 
+    # mpx's refusal; its other single-device-only flags (--checkpoint,
+    # --shards, --approx) are not ported, and the parser refuses them.
+    if args.raw and args.left_right:
+        raise SystemExit("--raw is a single-device full-profile mode")
     Logger.verbose = args.verbose
     T = read_series(args.input)
     Logger.verbose_log(f"read {T.shape[0]} values from {args.input}")
@@ -67,8 +74,13 @@ def _cmd_compute(args) -> int:
         chunk=args.chunk, device=args.device,
     )
     prof = BenchmarkProfile()
-    out = compute_matrix_profile(T, config=cfg, profile=prof,
-                                 left_right=args.left_right)
+    if args.raw:
+        from mpx_torch.aamp import compute_aamp_profile
+
+        out = compute_aamp_profile(T, config=cfg)
+    else:
+        out = compute_matrix_profile(T, config=cfg, profile=prof,
+                                     left_right=args.left_right)
     out = [o.cpu().numpy() for o in out]
     if args.left_right:
         named = [(".left", out[0], out[1]), (".right", out[2], out[3])]
@@ -205,6 +217,48 @@ def _cmd_thresh(args) -> int:
     return 0
 
 
+def _add_matrix(sub):
+    p = sub.add_parser("matrix",
+                       help="pooled distance-matrix summary (heatmap of the whole join)")
+    p.add_argument("-i", "--input", required=True,
+                   help=".tsb/.txt[.gz] time series (rows)")
+    p.add_argument("-b", "--b-input", default=None,
+                   help="second series (AB-join columns); omit: self-join")
+    p.add_argument("-m", type=int, default=32, help="subsequence length")
+    p.add_argument("--mwidth", type=int, default=50, help="summary columns")
+    p.add_argument("--mheight", type=int, default=50, help="summary rows")
+    p.add_argument("--pearson", action="store_true",
+                   help="emit max correlations instead of min distances")
+    p.add_argument("-o", "--output", help="writes <o>.dm.npy (float64 mheight x mwidth)")
+    p.add_argument("--band", type=int, default=4096)
+    p.add_argument("--chunk", type=int, default=4096)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_matrix(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.distmatrix import pooled_matrix
+    from mpx_torch.io.tsb import read_series
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    B = read_series(args.b_input) if args.b_input else None
+    cfg = MatrixProfileConfig(m=args.m, band=args.band, chunk=args.chunk,
+                              device=args.device)
+    M = pooled_matrix(T, args.m, mwidth=args.mwidth, mheight=args.mheight, B=B,
+                      pearson=args.pearson, config=cfg)
+    kind = "max correlation" if args.pearson else "min distance"
+    print(f"pooled {M.shape[0]} x {M.shape[1]} summary ({kind})")
+    r, c = divmod(int(np.argmax(M) if args.pearson else np.argmin(M)), M.shape[1])
+    print(f"  best cell: ({r}, {c}) value {M[r, c]:.6f}")
+    if args.output:
+        np.save(args.output + ".dm.npy", M)
+        Logger.info(f"wrote {args.output}.dm.npy")
+    return 0
+
+
 def _add_tsbin(sub):
     p = sub.add_parser("tsbin", help="encode/decode binary time series files")
     g = p.add_mutually_exclusive_group(required=True)
@@ -310,6 +364,7 @@ def main(argv=None) -> int:
     _add_abjoin(sub)
     _add_topk(sub)
     _add_thresh(sub)
+    _add_matrix(sub)
     _add_tsbin(sub)
     _add_golden(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
@@ -320,7 +375,8 @@ def main(argv=None) -> int:
         return 2
     try:
         return {"compute": _cmd_compute, "abjoin": _cmd_abjoin, "topk": _cmd_topk,
-                "thresh": _cmd_thresh, "tsbin": _cmd_tsbin, "golden": _cmd_golden,
+                "thresh": _cmd_thresh, "matrix": _cmd_matrix, "tsbin": _cmd_tsbin,
+                "golden": _cmd_golden,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -2,9 +2,11 @@
 
 Counterpart of ``mpx/hybrid.py`` (``kernel='hybrid'``): the self-join
 (:func:`compute_matrix_profile_f64_hybrid`), the left/right profiles
-(:func:`compute_left_right_f64_hybrid`) and the AB-join
+(:func:`compute_left_right_f64_hybrid`), the AB-join
 (:func:`compute_ab_join_f64_hybrid`: rows from one series, columns from
-the other, no exclusion zone; each series is one side).  All O(n^2) work
+the other, no exclusion zone; each series is one side) and the k nearest
+neighbors (:func:`compute_topk_profile_f64_hybrid`: the same passes in
+rounds of per-row threshold descent, see there).  All O(n^2) work
 runs in float32; only the few suspects of each subsequence are scored in
 float64:
 
@@ -55,7 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul
 from mpx_torch.kernels.common import NO_EXCL, band_geometry
 from mpx_torch.kernels.mxu import (
@@ -96,6 +98,22 @@ _ROW_BLOCK = 2048
 _SCAN_COLS = 65536
 # Bytes of the window operands of one rescoring block.
 _RESCORE_BYTES = 256 << 20
+# The top-k hybrid's knobs, mpx's defaults (mpx reads them from
+# MPX_TOPK_CAP, MPX_TOPK_K1, MPX_TOPK_K2 and MPX_TOPK_RUNCAP; the port reads
+# no environment variable).  TOPK_CAP: how far below the 1-NN threshold the
+# seeded k-NN threshold may start; TOPK_K1 / TOPK_K2: pass C's slots on a
+# row's first and its wide scan; TOPK_RUNCAP: the widest plateau bracket
+# that is rescored whole.  They move rows between stages, never results.
+TOPK_CAP = 8e-3
+TOPK_K1 = 64
+TOPK_K2 = 512
+TOPK_RUNCAP = 512
+# Rounds of threshold descent before the rows left take the exact scan.
+TOPK_MAX_IT = 8
+# Rows of one plateau-bracket rescore of the top-k hybrid.
+_TOPK_ROW_CHUNK = 16384
+# Jobs whose captures one step of _job_kth_max folds in.
+_KTH_GROUP = 256
 # Widths from which pass A keeps no captures and pass B sweeps every job
 # densely: mpx's gate (``_sparse_ok``), whose captures cost (S + W) x 4
 # bytes a job (38.8 GB at w = 2^23, band 4096, chunk 32768).
@@ -371,16 +389,17 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
 
 
 def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0,
-                      stats_t=None):
+                      stats_t=None, K: Optional[int] = None):
     """Pass C: for each flagged subsequence, recompute its full float32
-    correlation row in PASS_C_COLS columns at a time, keep the top
-    PASS_C_K by a streaming merge, and count the pairs at or above ``thr``:
-    a count <= PASS_C_K proves the top-K holds every suspect.  ``side``
-    keeps the neighbors of one side (:func:`_side_zone`: +1 later, -1
-    earlier, 0 both).  ``stats_t`` is the target series (an AB-join's
-    other one; default ``stats``) and ``w`` its width.  Returns (values
-    (F, K), indices (F, K), -1 where empty; counts (F,))."""
-    K, CW = PASS_C_K, PASS_C_COLS
+    correlation row in PASS_C_COLS columns at a time, keep the top K
+    (default PASS_C_K; the top-k hybrid's wide scan takes more) by a
+    streaming merge, and count the pairs at or above ``thr``: a count <= K
+    proves the top-K holds every suspect.  ``side`` keeps the neighbors of
+    one side (:func:`_side_zone`: +1 later, -1 earlier, 0 both).
+    ``stats_t`` is the target series (an AB-join's other one; default
+    ``stats``) and ``w`` its width.  Returns (values (F, K), indices (F,
+    K), -1 where empty; counts (F,))."""
+    K, CW = PASS_C_K if K is None else K, PASS_C_COLS
     stats_t = stats if stats_t is None else stats_t
     U = stats_t.windows
     dev = U.device
@@ -445,6 +464,30 @@ def _rescore_pairs(T64, mu, inv, m: int, rows, cols) -> torch.Tensor:
     return _rescore_pairs_ab(T64, mu, inv, T64, mu, inv, m, rows, cols)
 
 
+def _exact_row_blocks(Tq, muq, invq, Tt, mut, invt, m: int, wt: int, rows, *,
+                      excl: int, side: int):
+    """Exact float64 correlations of the given query rows with ALL ``wt``
+    target windows, in blocks: yields (offset into ``rows``, the block's
+    rows, first column, P (rows, columns)), P = AGGREGATE_INIT outside the
+    exclusion zone on the given side (:func:`_side_zone`) and for windows
+    of infinite inverse norm.  The columns of a row arrive in ascending
+    blocks."""
+    dev = Tq.device
+    win_q, win_t = Tq.unfold(0, m, 1), Tt.unfold(0, m, 1)[:wt]
+    fin_q, fin_t = torch.isfinite(invq), torch.isfinite(invt)
+    for o in range(0, rows.shape[0], _ROW_BLOCK):
+        rr = rows[o : o + _ROW_BLOCK]
+        Q = win_q[rr] - muq[rr][:, None]
+        for c0 in range(0, wt, _SCAN_COLS):
+            c1 = min(c0 + _SCAN_COLS, wt)
+            qt = Q @ (win_t[c0:c1] - mut[c0:c1][:, None]).T
+            P = qt * invt[c0:c1][None, :] * invq[rr][:, None]
+            cols = torch.arange(c0, c1, device=dev)
+            bad = (~_side_zone(cols[None, :] - rr[:, None], excl, side)
+                   | ~fin_t[c0:c1][None, :] | ~fin_q[rr][:, None])
+            yield o, rr, c0, P.masked_fill_(bad, AGGREGATE_INIT)
+
+
 def _row_scan_ab(Tq, muq, invq, Tt, mut, invt, m: int, wt: int, rows, *,
                  excl: int = NO_EXCL, side: int = 0):
     """Exact float64 best target neighbor of each given query row over ALL
@@ -454,25 +497,15 @@ def _row_scan_ab(Tq, muq, invq, Tt, mut, invt, m: int, wt: int, rows, *,
     int32)."""
     dev = Tq.device
     rows = torch.as_tensor(rows, device=dev).long()
-    win_q, win_t = Tq.unfold(0, m, 1), Tt.unfold(0, m, 1)[:wt]
-    fin_q, fin_t = torch.isfinite(invq), torch.isfinite(invt)
     bestP = torch.full(rows.shape, AGGREGATE_INIT, dtype=torch.float64, device=dev)
     bestI = torch.full(rows.shape, INDEX_INIT, dtype=torch.int64, device=dev)
-    for o in range(0, rows.shape[0], _ROW_BLOCK):
-        rr = rows[o : o + _ROW_BLOCK]
-        Q = win_q[rr] - muq[rr][:, None]
-        bp, bi = bestP[o : o + _ROW_BLOCK], bestI[o : o + _ROW_BLOCK]
-        for c0 in range(0, wt, _SCAN_COLS):
-            c1 = min(c0 + _SCAN_COLS, wt)
-            qt = Q @ (win_t[c0:c1] - mut[c0:c1][:, None]).T
-            P = qt * invt[c0:c1][None, :] * invq[rr][:, None]
-            cols = torch.arange(c0, c1, device=dev)
-            bad = (~_side_zone(cols[None, :] - rr[:, None], excl, side)
-                   | ~fin_t[c0:c1][None, :] | ~fin_q[rr][:, None])
-            v, i = P.masked_fill_(bad, AGGREGATE_INIT).max(dim=1)
-            upd = v > bp  # strictly: an earlier block keeps a tie
-            bp.copy_(torch.where(upd, v, bp))
-            bi.copy_(torch.where(upd, i + c0, bi))
+    for o, rr, c0, P in _exact_row_blocks(Tq, muq, invq, Tt, mut, invt, m, wt, rows,
+                                          excl=excl, side=side):
+        bp, bi = bestP[o : o + rr.shape[0]], bestI[o : o + rr.shape[0]]
+        v, i = P.max(dim=1)
+        upd = v > bp  # strictly: an earlier block keeps a tie
+        bp.copy_(torch.where(upd, v, bp))
+        bi.copy_(torch.where(upd, i + c0, bi))
     bestI = torch.where(bestP > AGGREGATE_INIT, bestI, INDEX_INIT).to(torch.int32)
     return bestP, bestI
 
@@ -754,3 +787,302 @@ def compute_left_right_f64_hybrid(T, config: MatrixProfileConfig, *,
     ``profile`` as for :func:`compute_matrix_profile_f64_hybrid`, with the
     escalation counts and resolve phases named by side."""
     return _run(T, config, margin=margin, profile=profile, left_right=True)
+
+
+# ---------------------------------------------------------------- top-k
+
+
+def _job_kth_max(cap, k: int, L: int) -> torch.Tensor:
+    """Fold pass A's captures into each position's k largest job maxima,
+    (L, k) float32, descending (port of mpx's ``_job_kth_max_group``).
+
+    The k-th largest lower-bounds the position's k-th best pair: only the
+    k - 1 pairs above it can lift a job's maximum above it, so at most
+    k - 1 job maxima exceed it.  ``cap`` is (r0s, k0s, jrow (J, S), jcol
+    (J, W)); a job's row maxima land at r0.., its column maxima at r0 +
+    k0...  Each step sorts the (position, value) pairs of a group of jobs
+    together with the running top-k by value and then, stably, by
+    position, and keeps each position's first k."""
+    r0s, k0s, jrow, jcol = cap
+    dev = jrow.device
+    S, W = jrow.shape[1], jcol.shape[1]
+    r0 = torch.as_tensor(r0s, dtype=torch.int64, device=dev)
+    c0 = r0 + torch.as_tensor(k0s, dtype=torch.int64, device=dev)
+    iS, iW = torch.arange(S, device=dev), torch.arange(W, device=dev)
+    own = torch.arange(L, device=dev).repeat_interleave(k)
+    gv = torch.full((L * k,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+    for o in range(0, r0.shape[0], _KTH_GROUP):
+        g = slice(o, o + _KTH_GROUP)
+        pos = torch.cat([own, (r0[g, None] + iS).flatten(), (c0[g, None] + iW).flatten()])
+        val, by_val = torch.cat([gv, jrow[g].flatten(), jcol[g].flatten()]).sort(
+            descending=True)
+        pos, by_pos = pos[by_val].sort(stable=True)
+        val = val[by_pos]
+        rank = torch.arange(pos.shape[0], device=dev) - torch.searchsorted(pos, pos)
+        # Each position holds at least its own k entries: every slot is
+        # written; the rest go to a dropped slot.
+        slot = torch.where(rank < k, pos * k + rank, L * k)
+        gv = gv.new_empty(L * k + 1).scatter_(0, slot, val)[: L * k]
+    return gv.view(L, k)
+
+
+def _row_topk_scan(T64, mu, inv, m: int, w: int, excl: int, rows, k: int):
+    """Exact float64 top-k of each given row over ALL its valid pairs (both
+    sides, outside the exclusion zone; the last resort of the top-k
+    hybrid): descending, the smaller index first among equal values.
+    Returns (values (R, k) float64, AGGREGATE_INIT where missing; indices
+    (R, k) int32, -1 where missing)."""
+    from mpx_torch.topk import _topk_desc
+
+    dev = T64.device
+    rows = torch.as_tensor(rows, device=dev).long()
+    R = rows.shape[0]
+    topv = torch.full((R, k), AGGREGATE_INIT, dtype=torch.float64, device=dev)
+    topi = torch.full((R, k), INDEX_INIT, dtype=torch.int64, device=dev)
+    for o, rr, c0, P in _exact_row_blocks(T64, mu, inv, T64, mu, inv, m, w, rows,
+                                          excl=excl, side=0):
+        cols = torch.arange(c0, c0 + P.shape[1], device=dev)
+        v, i = _topk_desc(P, cols, min(k, P.shape[1]))
+        bv, bi = topv[o : o + rr.shape[0]], topi[o : o + rr.shape[0]]
+        # The incumbents come first: their columns are the smaller.
+        v, i = _topk_desc(torch.cat([bv, v], dim=1), torch.cat([bi, i], dim=1), k)
+        bv.copy_(v)
+        bi.copy_(i)
+    return topv, torch.where(topv > AGGREGATE_INIT, topi, INDEX_INIT).to(torch.int32)
+
+
+def _best_k(P: torch.Tensor, cand: torch.Tensor, k: int):
+    """Each row's rescored candidates in descending exact score, the
+    smaller index first among equal scores (mpx's ``best_of``).  Returns
+    (values (R, k), indices (R, k) int32 (-1 where invalid), the count of
+    valid candidates, the k-th value or -inf where fewer than k)."""
+    key = torch.where(cand >= 0, cand.long(), 2**31)
+    by_idx = key.argsort(dim=1, stable=True)
+    P, cand = P.gather(1, by_idx), cand.gather(1, by_idx)
+    by_val = P.argsort(dim=1, descending=True, stable=True)
+    P, cand = P.gather(1, by_val), cand.gather(1, by_val)
+    if P.shape[1] < k:
+        P = torch.nn.functional.pad(P, (0, k - P.shape[1]), value=AGGREGATE_INIT)
+        cand = torch.nn.functional.pad(cand, (0, k - cand.shape[1]), value=INDEX_INIT)
+    nreal = (P > AGGREGATE_INIT).sum(dim=1)
+    vk = torch.where(nreal >= k, P[:, k - 1], -torch.inf)
+    idx = torch.where(P > AGGREGATE_INIT, cand, INDEX_INIT).to(torch.int32)
+    return P[:, :k], idx[:, :k], nreal, vk
+
+
+def compute_topk_profile_f64_hybrid(T, k: int = 4, config: Optional[MatrixProfileConfig] = None,
+                                    *, m: Optional[int] = None,
+                                    margin: Optional[float] = None, profile=None):
+    """Exact double-precision k-NN profile through the hybrid tier (port of
+    mpx's ``compute_topk_profile_f64_hybrid``).
+
+    The 1-NN hybrid's passes with a per-row threshold descent.  Pass A
+    (K1's float32 launch) gives the 1-NN thresholds and, with captures,
+    each row's k-th largest job maximum, which seeds the k-NN threshold
+    (:func:`_job_kth_max`; clamped to TOPK_CAP below the 1-NN threshold).
+    Each round, pass B captures the suspects at the current thresholds
+    and every row not yet certified is resolved by the cheapest stage that
+    holds all its suspects: its capture slots (at most 2 SUSPECT_K
+    suspects), its plateau bracket (at most TOPK_RUNCAP wide), pass C's
+    top-TOPK_K1, the wide pass C's top-TOPK_K2, else the exact row scan.
+    A row is certified when its k-th rescored candidate clears ``thr +
+    margin`` (every other pair has P32 < thr, so P64 < thr + margin), or
+    pass C's K-th float32 value plus the margin; certified rows get thr =
+    +inf, so the next sparse pass B skips them, and the others descend by
+    doubling steps.  After TOPK_MAX_IT rounds the rows left take the exact
+    row scan.  The thresholds move work, never results.
+
+    Requires ``1 <= k <= 2 * SUSPECT_K`` (the capture width).  Returns
+    (distances (w, k) float64, indices (w, k) int32) on ``config.device``,
+    each row ascending, ties in index order; missing neighbors are (inf,
+    -1).  ``profile`` takes the phase times and, in ``profile.counts``,
+    pass B's route, the rounds taken and the rows each stage resolved per
+    round."""
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    if k < 1 or k > 2 * SUSPECT_K:
+        raise ValueError(f"hybrid top-k requires 1 <= k <= {2 * SUSPECT_K}, got {k}")
+    config = config_for(m, config)
+    m = config.m
+    T64 = _host_f64(T)
+    n = T64.shape[0]
+    config.validate_series(n, T64)
+    w = n - m + 1
+    config = config.shrink_to(w)
+    S, W = config.band, config.chunk
+    excl = m // 4
+    margin = default_margin(m) if margin is None else float(margin)
+    dev = torch.device(config.device)
+
+    with phase(profile, "1. Pre-Computation [host f64]"):
+        s64 = precompute_statistics_numpy(T64, m)
+    with phase(profile, "1. Pre-Computation [device]", device=dev):
+        stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
+    grid = make_job_grid(w, S, W)
+    pw = stats.mu.shape[0]
+    nbytes = capture_bytes(len(grid.r0), S, W)
+    sparse = _sparse_ok(w, nbytes, dev)
+    kw = dict(S=S, W=W, m=m, w=w)
+    with phase(profile, "2. Compute [pass A]", device=dev):
+        thr, cap = run_max_jobs(stats, grid.r0, grid.k0, margin, pw=pw, capture=sparse, **kw)
+    if sparse:
+        with phase(profile, "2. Compute [topk thr estimate]", device=dev):
+            est = _job_kth_max(cap, k, w + S + W)[:w, k - 1]
+            # The captures are the exact float32 job maxima (mpx's are
+            # u16-encoded and subtract their quantum here): nothing to undo.
+            seeded = torch.where(est > AGGREGATE_INIT / 2, est - 2.0 * margin, -torch.inf)
+            # The k-th job maximum COLLAPSES on plateau data: a row's top-k
+            # pairs are usually consecutive columns of ONE job, so the k-th
+            # largest job maximum is the maximum of the k-th best job, far
+            # below v_k.  Unclamped, that seeded thresholds so low that
+            # mpx's round-4 hardware sent 98% of all rows to the full-width
+            # pass C.  So the descent starts at most TOPK_CAP below the 1-NN
+            # threshold: raising thr is always sound (certification checks
+            # itself; rows that fail descend), and the cap is sized from the
+            # suspect-band density mpx measured (19.5 suspects a row at 8e-3
+            # on random walks) so the band stays within the capture slots
+            # and the plateau bracket.
+            thr[:w] = torch.maximum(seeded, thr[:w] - TOPK_CAP)
+
+    ex = (exact.T, exact.mu[:w], exact.inv[:w])
+
+    def rescore(rows, cols):
+        return _rescore_pairs(*ex, m, rows, cols)
+
+    nslots = 2 * SUSPECT_K
+    topv = torch.full((w, k), AGGREGATE_INIT, dtype=torch.float64, device=dev)
+    topi = torch.full((w, k), INDEX_INIT, dtype=torch.int32, device=dev)
+    certified = torch.zeros(w, dtype=torch.bool, device=dev)
+    delta = torch.zeros(w, dtype=torch.float32, device=dev)
+    stages = ("small", "narrow", "pass_c", "pass_c_wide", "row_scan")
+    resolved = {name: [] for name in stages}
+    flags = []
+
+    def settle(rows, cand, P, bar, free):
+        """Commit the rows whose k-th candidate clears ``bar`` (or that
+        ``free`` certifies); returns the mask of those rows."""
+        vals, idxs, nreal, vk = _best_k(P, cand, k)
+        ok = ((nreal >= k) & (vk >= bar)) | free
+        topv[rows] = torch.where(ok[:, None], vals, topv[rows])
+        topi[rows] = torch.where(ok[:, None], idxs, topi[rows])
+        certified[rows] |= ok
+        return ok
+
+    def pass_c(rows, K, name):
+        """Pass C at K slots over ``rows``; the mask of the rows settled."""
+        with phase(profile, f"2. Compute [topk {name}]", device=dev):
+            bv, bi, _ = scan_flagged_rows(stats, thr, rows, w=w, excl=excl, K=K)
+        with phase(profile, f"3. Rescore [f64 topk {name}]", device=dev):
+            P = rescore(rows.repeat_interleave(K), bi.reshape(-1)).reshape(-1, K)
+            # Slots pass C filled with init (a row with fewer than K valid
+            # pairs) carry no pair.
+            P.masked_fill_((bi < 0) | (bv <= torch.tensor(AGGREGATE_INIT, dtype=torch.float32)),
+                           AGGREGATE_INIT)
+            # Any pair outside the top-K has P32 <= bv[K-1], so P64 <=
+            # bv[K-1] + margin: a k-th rescored candidate at or above that
+            # cannot be displaced.  bv[K-1] = init: every valid pair is a
+            # candidate.
+            last = bv[:, K - 1].double()
+            return settle(rows, bi, P, last + margin, last <= AGGREGATE_INIT)
+
+    for it in range(TOPK_MAX_IT):
+        counted = BenchmarkProfile() if profile is not None else None
+        with phase(profile, f"2. Compute [topk pass B, round {it}]", device=dev):
+            if sparse:
+                sus = run_suspect_jobs_sparse(stats, thr, cap, profile=counted, **kw)
+            else:
+                sus = run_suspect_jobs(stats, thr, grid.r0, grid.k0, **kw)
+        if counted is not None and sparse:
+            flags.append({key: counted.counts[key] for key in
+                          ("flags_per_job_mean", "flags_per_job_max", "dense_jobs",
+                           "jobs_without_flags")})
+        done = {name: torch.zeros((), dtype=torch.int64, device=dev) for name in stages}
+        cnt = sus.cnt[:w]
+        # All 2K capture slots: the K smallest, then the K largest.
+        cand = torch.cat([sus.mn[:w], sus.mx[:w].flip(1)], dim=1)
+        cand = torch.where(cand == SUSPECT_MIN_INIT, -1, cand)
+        todo = ~certified
+        thr_w = thr[:w].double()
+        # Every pair is a suspect: the threshold is below any correlation.
+        allin = thr_w <= -1.0
+
+        small = torch.nonzero(todo & (cnt <= nslots)).flatten()
+        if small.numel():
+            with phase(profile, "3. Rescore [f64 topk slots]", device=dev):
+                sl = cand[small]
+                # A count <= 2K repeats indices in both halves.
+                for j in range(1, nslots):
+                    dup = (sl[:, :j] == sl[:, j : j + 1]).any(dim=1)
+                    sl[:, j] = torch.where(dup, -1, sl[:, j])
+                P = rescore(small.repeat_interleave(nslots), sl.reshape(-1)).reshape(-1, nslots)
+                done["small"] += settle(small, sl, P, thr_w[small] + margin, allin[small]).sum()
+
+        over = todo & (cnt > nslots)
+        # Narrow plateau rows: every suspect lies in the captured bracket
+        # [mn1, mx1]; when it is at most TOPK_RUNCAP wide, rescoring it
+        # whole enumerates every suspect without pass C.  Rows go in
+        # chunks sorted by spread, each rescored at its own widest.
+        mn1, mx1 = sus.mn[:w, 0], sus.mx[:w, 0]
+        spread = mx1.long() - mn1.long() + 1
+        narrow = over & (mn1 != SUSPECT_MIN_INIT) & (spread <= TOPK_RUNCAP)
+        nrows_all = torch.nonzero(narrow).flatten()
+        if nrows_all.numel():
+            with phase(profile, "3. Rescore [f64 topk plateau runs]", device=dev):
+                nrows_all = nrows_all[spread[nrows_all].argsort(stable=True)]
+                for o in range(0, nrows_all.numel(), _TOPK_ROW_CHUNK):
+                    nrows = nrows_all[o : o + _TOPK_ROW_CHUNK]
+                    rc = max(8, (int(spread[nrows].max()) + 7) // 8 * 8)
+                    runs = mn1[nrows][:, None] + torch.arange(rc, dtype=torch.int32, device=dev)
+                    runs = torch.where(runs <= mx1[nrows][:, None], runs, -1)
+                    runs = torch.where(_side_zone(runs - nrows[:, None], excl, 0), runs, -1)
+                    P = rescore(nrows.repeat_interleave(rc), runs.reshape(-1)).reshape(-1, rc)
+                    done["narrow"] += settle(nrows, runs, P, thr_w[nrows] + margin,
+                                             allin[nrows]).sum()
+
+        big = torch.nonzero(over & ~narrow).flatten()
+        if big.numel():
+            ok = pass_c(big, TOPK_K1, "pass C")
+            done["pass_c"] += ok.sum()
+            # The k-th within the margin of the K1-th (a tie plateau wider
+            # than K1): one more pass C at the wide K2, whose proof is the
+            # same, before the exact scan.
+            wild = big[~ok]
+            if wild.numel() and TOPK_K2 > TOPK_K1:
+                ok = pass_c(wild, min(TOPK_K2, pw), "pass C wide")
+                done["pass_c_wide"] += ok.sum()
+                wild = wild[~ok]
+            if wild.numel():
+                with phase(profile, "3. Rescore [f64 topk row scan]", device=dev):
+                    topv[wild], topi[wild] = _row_topk_scan(*ex, m, w, excl, wild, k)
+                    certified[wild] = True
+                done["row_scan"] += wild.numel()
+        for name, value in zip(stages, torch.stack(list(done.values())).tolist()):
+            resolved[name].append(value)
+        rem = ~certified
+        left = int(rem.sum())
+        Logger.verbose_log(f"hybrid top-k round {it}: "
+                           + " ".join(f"{name}={resolved[name][-1]}" for name in stages)
+                           + f" left={left}/{w}")
+        if not left:
+            break
+        # The rows left descend by doubling steps; certified rows leave
+        # the next sparse pass B.
+        delta = torch.where(rem, torch.clamp(2 * delta, min=4 * margin), delta)
+        thr[:w] = torch.where(rem, thr[:w] - delta, torch.inf)
+    else:
+        left_rows = torch.nonzero(~certified).flatten()
+        Logger.warning(f"hybrid top-k: {left_rows.numel()} row(s) did not converge in "
+                       f"{TOPK_MAX_IT} rounds; exact row scans")
+        with phase(profile, "3. Rescore [f64 topk row scan]", device=dev):
+            topv[left_rows], topi[left_rows] = _row_topk_scan(*ex, m, w, excl, left_rows, k)
+        resolved["row_scan"].append(left_rows.numel())
+    del cap
+    if profile is not None:
+        profile.counts.update({"pass_b": "sparse" if sparse else "dense",
+                               "capture_bytes": nbytes if sparse else 0,
+                               "jobs": len(grid.r0), "rounds": it + 1,
+                               **{f"resolved_{name}": resolved[name] for name in stages},
+                               "pass_b_flags_per_round": flags})
+    with phase(profile, "4. Post-Computation", device=dev):
+        D = torch.where(topi >= 0, _distances(topv, m), torch.inf)
+    return D, topi

@@ -75,11 +75,12 @@ def _columns(stats: Stats, stats_c: Stats | None) -> Stats:
 
 
 def job_correlations(stats: Stats, r0: int, c0: int, geom: BandGeometry, dtype,
-                     stats_c: Stats | None = None) -> torch.Tensor:
+                     stats_c: Stats | None = None, two_sided: bool = False) -> torch.Tensor:
     """The shared (S, W) correlation tile of rows ``r0..`` and columns
     ``c0..`` (of ``stats_c`` when given: the AB-join), masked: every pair
-    that :func:`pair_mask` rejects holds AGGREGATE_INIT.  Counterpart of
-    mpx's ``_job_correlations``; the float32 product runs in full FP32."""
+    that :func:`pair_mask` rejects (with its ``two_sided`` exclusion zone)
+    holds AGGREGATE_INIT.  Counterpart of mpx's ``_job_correlations``; the
+    float32 product runs in full FP32."""
     U, Uc = stats.windows, _columns(stats, stats_c).windows
     if U is None or Uc is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
@@ -89,17 +90,18 @@ def job_correlations(stats: Stats, r0: int, c0: int, geom: BandGeometry, dtype,
     r0, c0 = int(r0), int(c0)
     with full_precision_matmul():
         P = U[r0 : r0 + geom.S] @ Uc[c0 : c0 + geom.W].T
-    return _mask(P, stats, r0, c0, geom, stats_c)
+    return _mask(P, stats, r0, c0, geom, stats_c, two_sided)
 
 
 def _mask(P: torch.Tensor, stats: Stats, r0: int, c0: int, geom: BandGeometry,
-          stats_c: Stats | None = None) -> torch.Tensor:
+          stats_c: Stats | None = None, two_sided: bool = False) -> torch.Tensor:
     """``P`` (rows r0.., columns c0..) with its invalid pairs set to
     AGGREGATE_INIT, in place."""
     S, W = P.shape
     rows = torch.arange(r0, r0 + S, dtype=torch.int32, device=P.device)
     cols = torch.arange(c0, c0 + W, dtype=torch.int32, device=P.device)
-    return P.masked_fill_(~pair_mask(stats, rows, cols, geom, stats_c), AGGREGATE_INIT)
+    valid = pair_mask(stats, rows, cols, geom, stats_c, two_sided)
+    return P.masked_fill_(~valid, AGGREGATE_INIT)
 
 
 def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
@@ -140,16 +142,20 @@ def _reduce(Pm: torch.Tensor, r0: int, c0: int) -> BandOut:
 
 
 def pair_mask(stats: Stats, rows: torch.Tensor, cols: torch.Tensor,
-              geom: BandGeometry, stats_c: Stats | None = None) -> torch.Tensor:
+              geom: BandGeometry, stats_c: Stats | None = None,
+              two_sided: bool = False) -> torch.Tensor:
     """(len(rows), len(cols)) mask of the valid pairs: ``c - r >= excl``
     (the upper triangle of a self-join; an AB-join's excl lets every pair
-    pass), ``r <= w - 1``, ``c <= wc - 1``, both windows of finite inverse
-    norm (the columns' from ``stats_c`` when given).  ``rows``/``cols`` are
-    global int32 window indices."""
+    pass) or, ``two_sided``, ``|c - r| >= excl`` (a tile that straddles the
+    diagonal keeps its pairs below it: mpx's ``two_sided``), ``r <= w - 1``,
+    ``c <= wc - 1``, both windows of finite inverse norm (the columns'
+    from ``stats_c`` when given).  ``rows``/``cols`` are global int32
+    window indices."""
     fin_r = torch.isfinite(stats.inv.index_select(0, rows))[:, None]
     fin_c = torch.isfinite(_columns(stats, stats_c).inv.index_select(0, cols))[None, :]
     r, c = rows[:, None], cols[None, :]
-    return (c - r >= geom.excl) & (r <= geom.w - 1) & (c <= geom.wc - 1) & fin_r & fin_c
+    zone = (c - r).abs() >= geom.excl if two_sided else c - r >= geom.excl
+    return zone & (r <= geom.w - 1) & (c <= geom.wc - 1) & fin_r & fin_c
 
 
 def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry,

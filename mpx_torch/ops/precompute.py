@@ -145,7 +145,7 @@ def stats_from_numpy(arrays: dict, dtype, device, windows: bool = True) -> Stats
 
 
 def precompute_statistics(T, m: int, *, band: int, chunk: int,
-                          dtype="float32", device="cpu", windows: bool = True,
+                          dtype="float32", device="cuda", windows: bool = True,
                           host_stats: dict | None = None) -> Stats:
     """Device-resident, padded statistics in the compute dtype, with the
     unit-window matrix when ``windows`` (the (padded_w, m) matrix only the
@@ -153,7 +153,9 @@ def precompute_statistics(T, m: int, *, band: int, chunk: int,
     (:func:`precompute_statistics_numpy`, or ``host_stats``, its result
     for the same series when the caller already has it); the pad region
     is zero so out-of-range lanes behave like the reference's
-    ``InputDataPack(0)``."""
+    ``InputDataPack(0)``.  ``device`` defaults to the card, as
+    :class:`~mpx_torch.config.MatrixProfileConfig` does; pass ``"cpu"``
+    for the plain path."""
     T64 = np.asarray(T, dtype=np.float64)
     w = T64.shape[0] - m + 1
     pw = _padded_width(w, band, chunk)

@@ -11,9 +11,13 @@ earlier ones.
 
 mpx computes this tier in XLA, not Pallas, so it runs as torch ops here:
 ``torch.matmul`` for the product, on the card unless ``device="cpu"``.
-float64 takes the strict tile on every kernel name but ``hybrid``: it is
-exact on a card with float64 (mpx sends k <= 8 to its top-k hybrid, which
-is not ported: ROADMAP queue 1 item 10).
+float64 with ``kernel="hybrid"`` and k <= 2 * SUSPECT_K runs the top-k
+hybrid (:func:`mpx_torch.hybrid.compute_topk_profile_f64_hybrid`: K1's
+float32 pass A, then an exact float64 rescore of each row's suspects);
+every other request takes the strict tile, which is exact on a card with
+float64.  mpx's ``auto`` sends float64 with k <= 8 to its hybrid, because
+the TPU has no float64; the port's ``auto`` keeps the strict tile
+(ROADMAP queue 2 item 5 decides it on measurement).
 
 **Tie order.** mpx's ``lax.top_k`` puts the lower position first among
 equal values, and the merges concatenate the incumbent before the job's
@@ -34,9 +38,9 @@ from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, torch_dtype
 from mpx_torch.kernels.common import NO_EXCL, band_geometry
 from mpx_torch.kernels.mxu import job_correlations
+from mpx_torch.kernels.mxu import SUSPECT_K
 from mpx_torch.ops.precompute import precompute_statistics
-
-TOPK_HYBRID_ITEM = "ROADMAP.md queue 1 item 10 (the top-k hybrid)"
+from mpx_torch.utils.profile import phase
 
 
 def _topk_desc(values: torch.Tensor, indices: torch.Tensor, k: int):
@@ -91,10 +95,11 @@ def _init_topk(L: int, k: int, dt, device):
 
 
 def compute_topk_profile(T, m: Optional[int] = None, k: int = 4,
-                         config: Optional[MatrixProfileConfig] = None):
+                         config: Optional[MatrixProfileConfig] = None, *, profile=None):
     """k-NN matrix profile: (distances (w, k), indices (w, k)) on
     ``config.device``, each row ascending by distance; missing neighbors
-    are (inf, -1)."""
+    are (inf, -1).  ``profile`` (a BenchmarkProfile) takes the phase
+    times (and the hybrid's counts)."""
     config = config_for(m, config)
     m = config.m
     if k < 1:
@@ -106,24 +111,26 @@ def compute_topk_profile(T, m: Optional[int] = None, k: int = 4,
     if k > min(S, W):
         raise ValueError(f"k={k} exceeds the job extent min(band, chunk)")
     dt = torch_dtype(config.dtype)
-    if dt == torch.float64 and config.kernel == "hybrid":
-        raise NotImplementedError(f"the float64 top-k hybrid is not ported to mpx_torch "
-                                  f"yet: {TOPK_HYBRID_ITEM}; kernel='auto' runs the exact "
-                                  f"float64 tile")
+    if dt == torch.float64 and config.kernel == "hybrid" and k <= 2 * SUSPECT_K:
+        from mpx_torch.hybrid import compute_topk_profile_f64_hybrid
+
+        return compute_topk_profile_f64_hybrid(T, k, config, profile=profile)
     device = torch.device(config.device)
-    stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device)
+    with phase(profile, "1. Pre-Computation", device=device):
+        stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device)
     geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
     grid = make_job_grid(w, S, W)
     rows_v, rows_i = _init_topk(w + S + W, k, dt, device)
     cols_v, cols_i = _init_topk(w + S + W, k, dt, device)
     iS = torch.arange(S, dtype=torch.int32, device=device)
     iW = torch.arange(W, dtype=torch.int32, device=device)
-    for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
-        c0 = r0 + k0
-        Pm = job_correlations(stats, r0, c0, geom, dt)
-        _merge_topk(rows_v, rows_i, *_topk_desc(Pm, c0 + iW, k), r0, k)
-        _merge_topk(cols_v, cols_i, *_topk_desc(Pm.T.contiguous(), r0 + iS, k), c0, k)
-        del Pm
+    with phase(profile, "2. Compute [topk tile]", device=device):
+        for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
+            c0 = r0 + k0
+            Pm = job_correlations(stats, r0, c0, geom, dt)
+            _merge_topk(rows_v, rows_i, *_topk_desc(Pm, c0 + iW, k), r0, k)
+            _merge_topk(cols_v, cols_i, *_topk_desc(Pm.T.contiguous(), r0 + iS, k), c0, k)
+            del Pm
     # Row side (later neighbors) before column side (earlier ones), as mpx.
     v, i = _topk_desc(torch.cat([rows_v[:w], cols_v[:w]], dim=1),
                       torch.cat([rows_i[:w], cols_i[:w]], dim=1), k)

@@ -148,7 +148,8 @@ def test_sweep_masks_bounds_and_zero_variance_of_each_series():
     A, B = _with_constant_runs(900, 700)
     m, S, W = 16, 128, 256
     wa, wb = 900 - m + 1, 700 - m + 1
-    sa, sb = (precompute_statistics(X, m, band=S, chunk=W, dtype="float64") for X in (A, B))
+    sa, sb = (precompute_statistics(X, m, band=S, chunk=W, dtype="float64", device="cpu")
+              for X in (A, B))
     geom = band_geometry(S, W, m, wa, wc=wb, excl=NO_EXCL)
     out = mxu.sweep_band_mxu(sa, 768, 512 - 768, geom, "float64", stats_c=sb)  # both edges
     rows, cols = 768 + np.arange(S), 512 + np.arange(W)

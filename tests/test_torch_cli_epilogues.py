@@ -1,8 +1,9 @@
-"""The ``abjoin``, ``topk`` and ``thresh`` subcommands of ``python -m
-mpx_torch`` (``--device cpu``) against ``python -m mpx``'s with the same
-arguments: the same files, distances within 1e-8 (float64) / 2e-3
-(float32), indices equal but between equidistant neighbors, counts equal
-(float64) or apart only by pairs within 1e-5 of the threshold (float32).
+"""The ``abjoin``, ``topk``, ``thresh``, ``compute --raw`` and ``matrix``
+subcommands of ``python -m mpx_torch`` (``--device cpu``) against ``python
+-m mpx``'s with the same arguments: the same files, distances within 1e-8
+(float64) / 2e-3 (float32; the pooled matrix, whose tiles are float32),
+indices equal but between equidistant neighbors, counts equal (float64) or
+apart only by pairs within 1e-5 of the threshold (float32).
 """
 
 import argparse
@@ -12,7 +13,7 @@ import pytest
 
 from mpx.cli import main as mpx_main
 from mpx_torch.abjoin import unit_windows
-from mpx_torch.cli import _add_abjoin, _add_thresh, _add_topk
+from mpx_torch.cli import _add_abjoin, _add_matrix, _add_thresh, _add_topk
 from mpx_torch.cli import main as port_main
 from mpx_torch.io.tsb import read_binary, write_binary
 from tests.conftest import random_walk
@@ -83,12 +84,60 @@ def test_abjoin_mpdist_is_not_ported(tmp_path):
         port_main(["abjoin", "-a", a, "-b", b, "-m", "16", "--mpdist", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("command", ["abjoin", "topk", "thresh"])
+@pytest.mark.parametrize("command", ["abjoin", "topk", "thresh", "matrix"])
 def test_epilogue_commands_default_to_the_card(command):
     """Like ``compute``, the new subcommands run on ``cuda`` unless asked
     for the CPU."""
     sub = argparse.ArgumentParser().add_subparsers()
-    add = {"abjoin": _add_abjoin, "topk": _add_topk, "thresh": _add_thresh}[command]
+    add = {"abjoin": _add_abjoin, "topk": _add_topk, "thresh": _add_thresh,
+           "matrix": _add_matrix}[command]
     p = add(sub)
     req = (["-a", "x", "-b", "y"] if command == "abjoin" else ["-i", "x", "-m", "8"])
     assert p.parse_args(req).device == "cuda"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_compute_raw_writes_mpxs_files(tmp_path, dtype):
+    """``compute --raw``: the raw-Euclidean profile, mpx's files within its
+    AAMP tolerance (2e-4 / 1e-10 of the largest distance)."""
+    from tests.test_torch_aamp import RTOL, assert_raw_close
+
+    T, path = _series(tmp_path, "t", 500, 7)
+    m = 24
+    ours, ref = _both(tmp_path, ["compute", "-i", path, "-m", str(m), "--raw", "--dtype",
+                                 dtype, "--band", "32", "--chunk", "64"])
+    D, I, eD, eI = (read_binary(base + ext, kind) for base in (ours, ref)
+                    for ext, kind in ((".mpb", "double"), (".mpib", "int")))
+    assert D.shape == (500 - m + 1,)
+    assert_raw_close(T, m, D, I.astype(np.int32), eD, eI, RTOL[dtype] * eD.max())
+
+
+def test_compute_raw_refuses_what_mpx_refuses(tmp_path):
+    """mpx's ``--raw`` is a single-device full-profile mode: with
+    ``--left-right`` it exits; its other such flags (``--checkpoint``,
+    ``--shards``, ``--approx``) are not ported, so the parser exits on
+    them."""
+    _, path = _series(tmp_path, "t", 300, 8)
+    base = ["compute", "-i", path, "-m", "16", "--raw", "--device", "cpu"]
+    for extra in (["--left-right"], ["--checkpoint", "c"], ["--shards", "2"],
+                  ["--approx", "0.5"]):
+        with pytest.raises(SystemExit):
+            port_main(base + extra)
+        with pytest.raises(SystemExit):
+            mpx_main(base[:-2] + extra)
+
+
+@pytest.mark.parametrize("with_b", [False, True])
+def test_matrix_writes_mpxs_file(tmp_path, capsys, with_b):
+    """``matrix``, the self-join and with ``-b`` the AB-join: ``<o>.dm.npy``
+    within 2e-3 of mpx's, and the best cell printed."""
+    _, path = _series(tmp_path, "t", 700, 9)
+    args = ["matrix", "-i", path, "-m", "24", "--mwidth", "9", "--mheight", "11",
+            "--band", "128", "--chunk", "128"]
+    if with_b:
+        args += ["-b", _series(tmp_path, "b", 500, 10)[1], "--pearson"]
+    ours, ref = _both(tmp_path, args)
+    assert "best cell" in capsys.readouterr().out
+    got, exp = np.load(ours + ".dm.npy"), np.load(ref + ".dm.npy")
+    assert got.shape == exp.shape == (11, 9) and got.dtype == np.float64
+    np.testing.assert_allclose(got, exp, rtol=0, atol=EPS["float32"])

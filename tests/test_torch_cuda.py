@@ -548,3 +548,75 @@ def test_tf32_setting_is_left_as_found_by_the_epilogues(card, tf32):
             assert flag.allow_tf32 is tf32, i
     finally:
         flag.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 8])
+def test_topk_hybrid_on_card_matches_strict_tile(card, k):
+    """The float64 top-k hybrid on the card (pass A through K1, one launch
+    a job) on a tie-heavy series, against the strict float64 tile on the
+    card: distances within 1e-10, an index differing only between
+    neighbors equidistant within 1e-8; pass C resolves rows."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.topk import compute_topk_profile
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n, m, band, chunk = 8192, 64, 1024, 4096
+    T = _tie_heavy(n, 60, 9)
+    prof = BenchmarkProfile()
+    launches = mxu_fused.LAUNCHES
+    D, I = (o.cpu().numpy() for o in compute_topk_profile(T, k=k, config=MatrixProfileConfig(
+        m=m, dtype="float64", kernel="hybrid", band=band, chunk=chunk, device="cuda"),
+        profile=prof))
+    assert mxu_fused.LAUNCHES - launches == len(make_job_grid(T.shape[0] - m + 1, band,
+                                                              chunk).r0)
+    assert sum(prof.counts["resolved_pass_c"]) + sum(prof.counts["resolved_narrow"]) > 0
+    Ds, Is = (o.cpu().numpy() for o in compute_topk_profile(T, k=k, config=MatrixProfileConfig(
+        m=m, dtype="float64", band=band, chunk=chunk, device="cuda")))
+    np.testing.assert_allclose(D, Ds, rtol=0, atol=1e-10)
+    for r, j in zip(*np.nonzero(I != Is)):
+        gap = _znorm_distance(T, m, r, I[r, j]) - _znorm_distance(T, m, r, Is[r, j])
+        assert abs(gap) <= DIST_TOL["float64"], (r, j)
+    print(f"\ntop-k hybrid k={k}: {dict(prof.counts)}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_aamp_on_card_matches_cpu(card, dtype):
+    """The raw-Euclidean self-join and AB-join on the card against the same
+    code on the CPU: distances within mpx's tolerance of the largest (2e-4
+    float32, 1e-10 float64), indices equal or equidistant."""
+    from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
+
+    A, B = _ab_series()
+    tol = {"float32": 2e-4, "float64": 1e-10}[dtype]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg = MatrixProfileConfig(m=32, dtype=dtype, band=256, chunk=512, device=dev)
+        runs[dev] = [o.cpu().numpy() for o in (*compute_aamp_profile(A, config=cfg),
+                                               *compute_aamp_ab_join(A, B, config=cfg))]
+    for (D, I), (Dc, Ic), X, Y in zip(zip(runs["cuda"][::2], runs["cuda"][1::2]),
+                                      zip(runs["cpu"][::2], runs["cpu"][1::2]),
+                                      (A, A, B), (A, B, A)):
+        np.testing.assert_allclose(D, Dc, rtol=0, atol=tol * Dc.max())
+        for i in np.nonzero(I != Ic)[0]:
+            a = X[i : i + 32]
+            gap = (np.linalg.norm(a - Y[I[i] : I[i] + 32])
+                   - np.linalg.norm(a - Y[Ic[i] : Ic[i] + 32]))
+            assert abs(gap) <= tol * Dc.max(), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_b", [False, True])
+def test_pooled_matrix_on_card_matches_cpu(card, with_b):
+    """The pooled summary on the card against the same code on the CPU,
+    within 2e-3 (float32 tiles): the self-join (tiles merged transposed)
+    and the AB-join."""
+    from mpx_torch.distmatrix import pooled_matrix
+
+    A, B = _ab_series()
+    out = {dev: pooled_matrix(A, 32, mwidth=13, mheight=11, B=B if with_b else None,
+                              config=MatrixProfileConfig(m=32, band=256, chunk=256,
+                                                         device=dev))
+           for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=2e-3)

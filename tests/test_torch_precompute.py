@@ -134,3 +134,17 @@ def test_build_windows_matches_definition():
         * s["inv"][:, None]
     np.testing.assert_allclose(U[:w], expect, rtol=0, atol=1e-12)
     np.testing.assert_allclose(np.linalg.norm(U[:w], axis=1), 1.0, atol=1e-12)
+
+
+def test_precompute_statistics_defaults_to_the_card():
+    """Like every entry point of the port, the statistics run on the card
+    unless the caller asks for the CPU: the default device is CUDA, and
+    without a card a call that names no device fails instead of staging
+    on the CPU."""
+    import inspect
+
+    default = inspect.signature(precompute_statistics).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            precompute_statistics(random_walk(200, seed=3), 16, band=64, chunk=64)

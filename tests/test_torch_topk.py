@@ -20,7 +20,6 @@ from mpx.topk import compute_topk_profile as mpx_topk
 from mpx_torch import MatrixProfileConfig, compute_matrix_profile
 from mpx_torch.abjoin import unit_windows
 from mpx_torch.topk import (
-    TOPK_HYBRID_ITEM,
     _topk_desc,
     brute_force_topk_ab,
     compute_topk_ab,
@@ -148,10 +147,14 @@ def test_topk_fixed_point_input():
 
 
 def test_topk_hybrid_is_not_ported():
+    """Once a refusal, now the routing of kernel='hybrid': float64 runs the
+    top-k hybrid (tests/test_torch_topk_hybrid.py), which gives the strict
+    tile's lists; float32 ignores the kernel name, as mpx's does."""
     T = random_walk(300, seed=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        compute_topk_profile(T, k=4, config=_cfg(16, "float64", "hybrid"))
-    assert "top-k hybrid" in TOPK_HYBRID_ITEM
+    Z = unit_windows(T, 16)
+    D, I = _np(*compute_topk_profile(T, k=4, config=_cfg(16, "float64", "hybrid")))
+    Dr, Ir = _np(*compute_topk_profile(T, k=4, config=_cfg(16, "float64")))
+    assert_topk_close(Z, Z, 16, D, I, Dr, Ir, EPS["float64"])
     # mpx's float32 top-k ignores the kernel name: the tile runs.
     D, _ = compute_topk_profile(T, k=2, config=_cfg(16, "float32", "hybrid"))
     assert D.shape == (285, 2)
