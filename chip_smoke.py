@@ -97,12 +97,13 @@ script exits nonzero without the final line):
     sums and counts;
 23. the ``abjoin``, ``topk`` and ``thresh`` command lines on
     data/binary/16384.tsb, each file equal to the API's result;
-24. the float64 top-k hybrid at ``topk-f64-1048576-k4``'s full shape
-    (n=2^20, m=256, k=4, band 4096, chunk 32768): 4,224 K1 float32 launches
-    (pass A) and no plain sweep, 32 rows against the exact scan; then
-    phase 21's n=2^19 series, equal to phase 21's strict tile within
-    1e-10, the strict tile's time beside; phase split, rows resolved per
-    stage and round, rounds, peak memory, clock and power;
+24. the float64 top-k hybrid (m=256, k=4, band 4096, chunk 32768) on
+    phase 21's n=2^19 series (``topk-f64-1048576-k4`` cut from n=2^20 to
+    keep the script under 600 s once phases 29-32 came): one K1 float32
+    launch per job (pass A) and no plain sweep, 32 rows against the exact scan,
+    equal to phase 21's strict tile within 1e-10, the strict tile's time
+    beside; phase split, rows resolved per stage and round, rounds, peak
+    memory, clock and power;
 25. the top-k hybrid on phase 13's tie-heavy series at k=4 and k=8 against
     the strict float64 tile, pass C, the wide pass C and the exact row
     scan each resolving rows (a knob set between the series' tie counts);
@@ -116,16 +117,35 @@ script exits nonzero without the final line):
     f64, symmetry, and an AB summary against ``brute_force_pooled_matrix``;
 28. the ``compute --raw``, ``matrix`` (with and without ``-b``) and ``topk
     --dtype float64`` command lines, each file equal to the API's result;
+29. mSTAMP at ``mstamp-f32-d4-131072``'s shape (n=2^17, m=256, d=4, f32,
+    band 2048, chunk 4096), 8 rows across all k against an exact f64
+    oracle within 2e-3; f64 at n=2^15 with a flat segment, plain,
+    ``include=(1,)`` and ``discords=True``, 8 rows each within 1e-8; wall,
+    dimension-pairs/s, ms a job, peak memory;
+30. the pan surface, n=2^16, ``pan_m_range(64, 8192, 8)``: the fused f32
+    sweep (torch ops) and the exact f64 surface (K1 up to m = 4096, K3 at
+    8192, no plain sweep), the fused rows within 2e-3 of the exact rows,
+    16 exact windows within 1e-8 of an exact f64 row scan on the card; ms
+    per level per job of the fused sweep;
+31. MERLIN at ``merlin-f32-524288-16``'s full shape (n=2^19, lengths
+    256..271): the suite runner's validation, the discords at 256 and 271
+    equal to the full f64 profile's maximum (K1) within 1e-9, the survey
+    and refine times, candidates and observed survey error per length
+    beside eps; motifs at n=2^16, lengths 64..71, each within 1e-9 of the
+    exact f64 profile's minimum;
+32. the ``mstamp``, ``pan --motifs --discords`` and ``merlin`` command
+    lines, each file and table equal to the API's result;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path runs: K1 in
-phases 10 and 4, the AB-joins of phase 19 and (f32) the top-k hybrid's
-pass A of phase 24, K3 in phases 7 and 8; the bound and the library
+phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
+pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
+pan of phase 30; K3 in phases 7, 8 and (f64) 30; the bound and the library
 call's time at the band-level shape; the 1-NN hybrids' K1 launches are in
-phase 12's, 14's and 20's lines; top-k, sum-threshold, AAMP and the pooled
-matrix are otherwise torch ops); the line before the last is
+phase 12's, 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
+matrix, mSTAMP and the fused pan are otherwise torch ops); the line before the last is
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
 """
@@ -1628,38 +1648,29 @@ def check_topk_agree(T, m, D, I, D2, I2, tol: float, tie_tol: float) -> float:
 
 
 def phase_topk_hybrid(torch, p21: dict) -> int:
-    """The float64 top-k hybrid at ``topk-f64-1048576-k4``'s full shape
-    (n=2^20, m=256, k=4, band 4096, chunk 32768): one K1 float32 launch per
-    job (pass A) and no plain sweep, 32 sampled rows against the exact
-    scan; then phase 21's n=2^19 series, held to phase 21's strict tile
-    within 1e-10, with the strict tile's time beside.  Returns the K1
-    launches of the full-size run."""
+    """The float64 top-k hybrid (m=256, k=4, band 4096, chunk 32768) on
+    phase 21's n=2^19 series (``topk-f64-1048576-k4`` cut from n=2^20 to
+    keep the script under 600 s once phases 29-32 came): one K1 float32
+    launch per job (pass A) and no plain sweep, 32 sampled rows against
+    the exact scan, and the profile held to phase 21's strict tile within
+    1e-10, with the strict tile's time beside.  Returns the K1 launches."""
     from mpx_torch.config import make_job_grid
 
-    n, m, k, tol = 1 << 20, 256, 4, DIST_TOL["float64"]
+    m, k, tol = 256, 4, DIST_TOL["float64"]
     shape = dict(kernel="hybrid", band=4096, chunk=32768)
-    T = random_walk(n, SEED + 15)
-    w = n - m + 1
+    T, w = p21["T"], p21["T"].shape[0] - m + 1
     jobs = len(make_job_grid(w, 4096, 32768).r0)
     D, I, wall, phases, cnt, card, peak, launched = run_topk(torch, T, m, k, **shape)
-    launches = require_only(launched, "k1", "top-k hybrid n=2^20 (pass A)", jobs)
+    launches = require_only(launched, "k1", "top-k hybrid n=2^19 (pass A)", jobs)
     rows = sample_rows(w, SEED + 15)[::2]
     err = check_topk_rows(D, I, rows, row_scan64(T, m, rows), k, tol)
-    pairs = w * (w - 1) / 2
-    say("24 top-k f64 hybrid", n=n, m=m, k=k, band=4096, chunk=32768, jobs=jobs,
-        k1_launches=launches, plain_calls=0, wall_s=wall, pairs_per_s=pairs / wall,
+    vs_strict = check_topk_agree(T, m, D, I, p21["D"], p21["I"], 1e-10, tol)
+    say("24 top-k f64 hybrid vs strict", n=T.shape[0], m=m, k=k, band=4096, chunk=32768,
+        jobs=jobs, k1_launches=launches, plain_calls=0, wall_s=wall,
+        pairs_per_s=w * (w - 1) / 2 / wall, strict_wall_s_phase_21=p21["wall_s"],
         split_s=topk_split(phases), counts=cnt, peak_device_bytes=peak, card=card,
-        max_err_vs_exact_32_rows=err, tol=tol)
-    T2, w2 = p21["T"], p21["T"].shape[0] - m + 1
-    D2, I2, wall2, phases2, cnt2, card2, peak2, launched2 = run_topk(torch, T2, m, k, **shape)
-    require_only(launched2, "k1", "top-k hybrid n=2^19 (pass A)",
-                 len(make_job_grid(w2, 4096, 32768).r0))
-    vs_strict = check_topk_agree(T2, m, D2, I2, p21["D"], p21["I"], 1e-10, tol)
-    say("24 top-k f64 hybrid vs strict", n=T2.shape[0], m=m, k=k, wall_s=wall2,
-        pairs_per_s=w2 * (w2 - 1) / 2 / wall2, strict_wall_s_phase_21=p21["wall_s"],
-        split_s=topk_split(phases2), counts=cnt2, peak_device_bytes=peak2, card=card2,
-        max_err_vs_strict=vs_strict, index_differs_vs_strict=int((I2 != p21["I"]).sum()),
-        tol=1e-10)
+        max_err_vs_exact_32_rows=err, max_err_vs_strict=vs_strict,
+        index_differs_vs_strict=int((I != p21["I"]).sum()), tol=1e-10)
     return launches
 
 
@@ -1932,6 +1943,358 @@ def phase_new_cli(torch):
     say("28 new commands", input="data/binary/16384.tsb", m=m, **out)
 
 
+# ---------------------------------------------------------------- slice 9
+
+
+def row_scan64_card(torch, T, m: int, rows) -> np.ndarray:
+    """:func:`row_scan64` computed in float64 on the card (the same
+    two-pass windows, zero-variance rule and exclusion zone), for long
+    windows where the host scan would take minutes."""
+    Tt = torch.tensor(T, dtype=torch.float64, device="cuda")
+    wins = Tt.unfold(0, m, 1)
+    w = wins.shape[0]
+
+    def unit(v):
+        c = v - v.mean(dim=1, keepdim=True)
+        ssq = (c * c).sum(dim=1)
+        deg = ssq <= ZERO_VARIANCE_REL * (v * v).sum(dim=1)
+        return (c / ssq.sqrt()[:, None]).masked_fill_(deg[:, None], 0.0), deg
+
+    r = torch.as_tensor(np.asarray(rows), device="cuda")
+    Zq, deg_q = unit(wins[r])
+    D = torch.empty((len(rows), w), dtype=torch.float64, device="cuda")
+    blk = max(1, (256 << 20) // (8 * m))
+    for o in range(0, w, blk):
+        Z, deg = unit(wins[o : o + blk])
+        P = Zq @ Z.T
+        D[:, o : o + Z.shape[0]] = torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0)) \
+            .masked_fill_(deg[None, :], torch.inf)
+    cols = torch.arange(w, device="cuda")
+    D.masked_fill_((cols[None, :] - r[:, None]).abs() < m // 4, torch.inf)
+    D.masked_fill_(deg_q[:, None], torch.inf)
+    return D.cpu().numpy()
+
+
+def mstamp_rows64(T: np.ndarray, m: int, rows, include=(), discords: bool = False):
+    """The exact float64 k-dimensional distances (len(rows), d, w) of the
+    sampled rows to every window (``run_mstamp_benchmark``'s oracle:
+    per-dimension distances, +inf where either window is flat in that
+    dimension, ordered across dimensions with ``include`` first, prefix
+    means; +inf inside the exclusion zone)."""
+    d, n = T.shape
+    w = n - m + 1
+    dims = [unit_windows64(T[t], m, 0, w) for t in range(d)]
+    inc = list(include)
+    rest = [t for t in range(d) if t not in inc]
+    out = np.empty((len(rows), d, w))
+    cols = np.arange(w)
+    for k, i in enumerate(rows):
+        dist = np.empty((d, w))
+        for t, (Z, deg) in enumerate(dims):
+            dist[t] = np.sqrt(np.maximum(2.0 * m * (1.0 - Z @ Z[i]), 0.0))
+            dist[t][deg] = np.inf
+            if deg[i]:
+                dist[t] = np.inf
+        dist[:, np.abs(cols - i) < m // 4] = np.inf
+
+        def srt(x):
+            x = np.sort(x, axis=0)
+            return x[::-1] if discords else x
+
+        dist = np.concatenate([srt(dist[inc]), srt(dist[rest])] if inc and rest
+                              else [srt(dist)])
+        out[k] = np.cumsum(dist, axis=0) / np.arange(1, d + 1)[:, None]
+    return out
+
+
+def check_mstamp_rows(prof, Dk, rows, tol) -> float:
+    """An mSTAMP profile's sampled rows against the exact ``Dk``: every
+    k-profile within tol, +inf and -1 where no pair is finite, each index
+    at its row's exact k-dim minimum within tol."""
+    worst = 0.0
+    for k, i in enumerate(rows):
+        exp = Dk[k].min(axis=1)
+        got, idx = prof.PMP[:, i].astype(np.float64), prof.PMPI[:, i]
+        fin = np.isfinite(exp)
+        require(bool((np.isinf(got[~fin]).all() and (idx[~fin] == -1).all())),
+                f"row {i}: a k-profile without a finite pair is {got[~fin]} / {idx[~fin]}")
+        err = float(np.abs(got[fin] - exp[fin]).max()) if fin.any() else 0.0
+        worst = max(worst, err)
+        require(err <= tol, f"row {i}: mSTAMP off by {err} (tol {tol})")
+        at = Dk[k][np.nonzero(fin)[0], idx[fin]]
+        require(bool((idx[fin] >= 0).all() and (np.abs(at - exp[fin]) <= tol).all()),
+                f"row {i}: an mSTAMP index is not at its row's exact minimum")
+    return worst
+
+
+def phase_mstamp(torch):
+    """mSTAMP at ``mstamp-f32-d4-131072``'s shape (n=2^17, m=256, d=4, f32,
+    band 2048, chunk 4096; the suite runner's walks from seed 0): 8 rows
+    across all k against the exact float64 oracle within 2e-3; then f64 at
+    n=2^15 with a flat segment in one dimension, plain, ``include=(1,)``
+    and ``discords=True``, 8 rows each within 1e-8.  Torch ops only (no K1
+    or K3 launch)."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.mstamp import compute_multidim_profile
+
+    n, m, d, S, W = 1 << 17, 256, 4, 2048, 4096
+    T = np.cumsum(np.random.default_rng(0).standard_normal((d, n)), axis=1)
+    w = n - m + 1
+    jobs = len(make_job_grid(w, S, W).r0)
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=S, chunk=W, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        prof = compute_multidim_profile(T, config=cfg)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(not any(counts().values()), f"mSTAMP launched a band sweep: {counts()}")
+    require(prof.PMP.shape == (d, w) and np.isfinite(prof.PMP).all(), "mSTAMP f32 outputs")
+    rows = np.sort(np.random.default_rng(1).choice(w, 8, replace=False))
+    err = check_mstamp_rows(prof, mstamp_rows64(T, m, rows), rows, DIST_TOL["float32"])
+    f32 = {"n": n, "m": m, "d": d, "band": S, "chunk": W, "jobs": jobs, "wall_s": wall,
+           "dimension_pairs_per_s": d * w * (w - 1) / 2 / wall, "ms_per_job": wall / jobs * 1e3,
+           "peak_bytes": peak, "card": card.summary, "max_err_8_rows": err,
+           "tol": DIST_TOL["float32"]}
+    del prof
+
+    n64 = 1 << 15
+    T = np.cumsum(np.random.default_rng(SEED + 29).standard_normal((d, n64)), axis=1)
+    T[2, 9000:9600] = T[2, 9000]  # a flat segment in one dimension
+    w = n64 - m + 1
+    rows = np.sort(np.concatenate([[9100], np.random.default_rng(SEED + 30).choice(
+        w, 7, replace=False)]))
+    f64 = {}
+    for name, kw in (("plain", {}), ("include_1", {"include": (1,)}),
+                     ("discords", {"discords": True})):
+        cfg = MatrixProfileConfig(m=m, dtype="float64", band=S, chunk=W, device="cuda")
+        t0 = time.perf_counter()
+        prof = compute_multidim_profile(T, config=cfg, **kw)
+        wall = time.perf_counter() - t0
+        Dk = mstamp_rows64(T, m, rows, include=kw.get("include", ()),
+                           discords=kw.get("discords", False))
+        f64[name] = {"wall_s": wall, "max_err_8_rows": check_mstamp_rows(
+            prof, Dk, rows, DIST_TOL["float64"])}
+    say("29 mstamp", f32=f32, f64={"n": n64, "d": d, "flat": "dim 2, 9000:9600",
+                                   "tol": DIST_TOL["float64"], **f64})
+
+
+def phase_pan(torch) -> dict:
+    """The pan surface on the card, n=2^16, ``ms = pan_m_range(64, 8192,
+    8)`` (the top level above ``MXU_MAX_M``): ``method='fused'`` (f32, torch
+    ops, no K1 or K3 launch) and ``method='exact'`` (f64: K1 launches for
+    the levels up to 4096, K3 above, no plain sweep) on one random walk;
+    the fused rows within 2e-3 of the exact rows (indices only between
+    equidistant windows) and 16 windows of the exact surface (2 a level)
+    within 1e-8 of the exact row scan.  Returns the exact run's K1 and K3
+    launches."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.kernels import MXU_MAX_M
+    from mpx_torch.pan import compute_pan_profile, pan_m_range
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n = 1 << 16
+    ms = pan_m_range(64, 8192, 8)
+    T = random_walk(n, SEED + 30)
+    S, W = 4096, 16384
+    jobs = {int(m): len(make_job_grid(n - int(m) + 1, S, W).r0) for m in ms}
+    runs = {}
+    for method, dtype in (("fused", "float32"), ("exact", "float64")):
+        cfg = MatrixProfileConfig(m=int(ms[0]), dtype=dtype, band=S, chunk=W, device="cuda")
+        prof = BenchmarkProfile()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pan = compute_pan_profile(T, ms, config=cfg, method=method, profile=prof)
+        wall = time.perf_counter() - t0
+        runs[method] = (pan, wall, prof, counts(), torch.cuda.max_memory_allocated())
+    pan_f, wall_f, prof_f, c_f, peak_f = runs["fused"]
+    require(not any(c_f.values()), f"the fused pan launched a band sweep: {c_f}")
+    pan_x, wall_x, _, c_x, peak_x = runs["exact"]
+    k1_want = sum(j for m, j in jobs.items() if m <= MXU_MAX_M)
+    k3_want = sum(j for m, j in jobs.items() if m > MXU_MAX_M)
+    require(c_x == {"k1": k1_want, "mxu": 0, "k3": k3_want, "xla": 0},
+            f"exact pan: counts {c_x}, expected K1 x{k1_want} and K3 x{k3_want} only")
+    worst_fused, worst_exact = 0.0, 0.0
+    for r, m in enumerate(int(x) for x in ms):
+        wm = n - m + 1
+        worst_fused = max(worst_fused, check_profiles_agree(
+            T, m, pan_f.PMP[r, :wm], pan_f.PMPI[r, :wm], pan_x.PMP[r, :wm],
+            pan_x.PMPI[r, :wm], DIST_TOL["float32"]))
+        rows = np.sort(np.random.default_rng(SEED + 31 + r).choice(wm, 2, replace=False))
+        worst_exact = max(worst_exact, check_rows(
+            T, m, pan_x.PMP[r, :wm], pan_x.PMPI[r, :wm], rows, DIST_TOL["float64"],
+            D=row_scan64_card(torch, T, m, rows)))
+    sweep = prof_f.category_totals()[f"2. Compute [pan x{len(ms)} levels]"] / 1e9
+    fused_jobs = jobs[int(ms[0])]
+    say("30 pan", n=n, ms=[int(m) for m in ms], band=S, chunk=W,
+        fused={"wall_s": wall_f, "phases_s": {k: v / 1e9 for k, v in
+                                              prof_f.category_totals().items()},
+               "jobs": fused_jobs, "ms_per_level_per_job": sweep / (len(ms) * fused_jobs) * 1e3,
+               "peak_bytes": peak_f},
+        exact={"wall_s": wall_x, "k1_f64_launches": c_x["k1"], "k3_f64_launches": c_x["k3"],
+               "plain_calls": 0, "peak_bytes": peak_x},
+        max_err_fused_vs_exact=worst_fused, tol_fused=DIST_TOL["float32"],
+        max_err_exact_vs_scan_16_windows=worst_exact, tol_exact=DIST_TOL["float64"])
+    return {"k1": c_x["k1"], "k3": c_x["k3"]}
+
+
+def merlin_split(prof) -> dict:
+    phases = {k: v / 1e9 for k, v in prof.category_totals().items()}
+    refine = sum(v for k, v in phases.items() if k.startswith("4. Refine"))
+    return {"survey_s": sum(v for k, v in phases.items() if "[pan" in k),
+            "refine_s": refine, "phases_s": phases}
+
+
+def phase_merlin(torch) -> int:
+    """MERLIN at ``merlin-f32-524288-16``'s full shape (n=2^19, lengths
+    256..271, the suite runner's walk from seed 0) on the card: the
+    runner's own validation (16 sampled rows at 4 lengths: no exact NN
+    distance exceeds the reported discord), and at lengths 256 and 271 the
+    reported discord equal to the largest value of the full f64 profile
+    through ``auto`` (K1) within 1e-9; then ``multi_length_motifs`` at
+    n=2^16, lengths 64..71, each pair equal to the smallest value of the
+    exact f64 profile within 1e-9.  Returns the K1 f32 launches of the
+    escalations (the hybrid's pass A)."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile, make_job_grid
+    from mpx_torch.merlin import _DEFAULT_EPS, _exact_row_rescore
+    from mpx_torch.merlin import multi_length_discords, multi_length_motifs
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n, lo, hi = 1 << 19, 256, 271
+    T = np.cumsum(np.random.default_rng(0).standard_normal(n))
+    ms = np.arange(lo, hi + 1)
+    pairs = float(sum((n - m + 1) * (n - m) / 2 for m in ms))
+    cfg = MatrixProfileConfig(m=lo, device="cuda")
+    jobs = len(make_job_grid(n - lo + 1, cfg.band, cfg.chunk).r0)
+    prof = BenchmarkProfile()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with CardSampler() as card:
+        t0 = time.perf_counter()
+        res = multi_length_discords(T, lo, hi, config=cfg, profile=prof)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    c = counts()
+    require(not (c["mxu"] or c["k3"] or c["xla"]), f"MERLIN: counts {c}")
+    if not res.escalated_lengths:
+        require(c["k1"] == 0, f"MERLIN launched K1 without an escalation: {c}")
+    require([d.m for d in res.per_length] == list(ms) and res.exact,
+            f"MERLIN per-length entries {[d.m for d in res.per_length]}, exact {res.exact}")
+    rng = np.random.default_rng(1)
+    checked = 0
+    for d in res.per_length[:: max(1, len(res.per_length) // 3)]:
+        w = n - d.m + 1
+        rows = np.sort(rng.choice(w, size=16, replace=False)).astype(np.int32)
+        D, _ = _exact_row_rescore(T, d.m, rows, "cuda")
+        require(D.max() <= d.distance + 1e-9,
+                f"m={d.m}: sampled row NN {D.max()} exceeds the reported discord {d.distance}")
+        checked += rows.shape[0]
+    exact = {}
+    for d in (res.per_length[0], res.per_length[-1]):
+        MP, MPI = (x.cpu().numpy() for x in compute_matrix_profile(T, config=MatrixProfileConfig(
+            m=d.m, dtype="float64", device="cuda")))
+        best = float(MP[MPI >= 0].max())
+        require(abs(best - d.distance) <= 1e-9,
+                f"m={d.m}: discord {d.distance} vs the exact profile's maximum {best}")
+        exact[d.m] = {"discord": d.distance, "exact_max": best, "err": abs(best - d.distance)}
+    per_len = {int(m): {"candidates": prof.counts.get(f"candidates_m{m}"),
+                        "survey_err": prof.counts.get(f"survey_err_m{m}")} for m in ms}
+    split = merlin_split(prof)
+    sweep = split["phases_s"][f"2. Compute [pan x{len(ms)} levels]"]
+    discords = {"n": n, "lengths": [lo, hi], "band": cfg.band, "chunk": cfg.chunk, "jobs": jobs,
+                "wall_s": wall, "pairs": pairs, "pairs_per_s": pairs / wall, **split,
+                "ms_per_level_per_job": sweep / (len(ms) * jobs) * 1e3,
+                "per_length": per_len, "eps": _DEFAULT_EPS,
+                "max_survey_err": max(v["survey_err"] or 0.0 for v in per_len.values()),
+                "escalated": res.escalated_lengths, "truncated": res.truncated_lengths,
+                "k1_f32_launches": c["k1"], "peak_bytes": peak, "card": card.summary,
+                "validation_rows": checked, "exact_check": exact,
+                "top": [d._asdict() for d in res.top]}
+
+    n2, lo2, hi2 = 1 << 16, 64, 71
+    T2 = random_walk(n2, SEED + 32)
+    prof2 = BenchmarkProfile()
+    reset_counts()
+    t0 = time.perf_counter()
+    mot = multi_length_motifs(T2, lo2, hi2, config=MatrixProfileConfig(m=lo2, device="cuda"),
+                              profile=prof2)
+    wall2 = time.perf_counter() - t0
+    c2 = counts()
+    require(not (c2["mxu"] or c2["k3"] or c2["xla"]), f"MERLIN motifs: counts {c2}")
+    require([d.m for d in mot.per_length] == list(range(lo2, hi2 + 1)), "motif lengths")
+    worst = 0.0
+    for d in mot.per_length:
+        MP, MPI = (x.cpu().numpy() for x in compute_matrix_profile(T2, config=MatrixProfileConfig(
+            m=d.m, dtype="float64", device="cuda")))
+        err = abs(float(MP[MPI >= 0].min()) - d.distance)
+        worst = max(worst, err)
+        require(err <= 1e-9, f"motif m={d.m}: {d.distance} vs the exact minimum, off {err}")
+    motifs = {"n": n2, "lengths": [lo2, hi2], "wall_s": wall2, **merlin_split(prof2),
+              "escalated": mot.escalated_lengths, "k1_f32_launches": c2["k1"],
+              "max_err_vs_exact_min": worst}
+    say("31 merlin", discords=discords, motifs=motifs, tol=1e-9)
+    return c["k1"] + c2["k1"]
+
+
+def phase_slice9_cli(torch):
+    """``mstamp`` (two dimensions: the halves of data/binary/16384.tsb in
+    temporary files), ``pan --motifs --discords`` and ``merlin`` on
+    data/binary/16384.tsb on the card: each file and each printed table
+    equal to the API's result on the card."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series, write_binary
+    from mpx_torch.merlin import multi_length_discords
+    from mpx_torch.mstamp import compute_multidim_profile
+    from mpx_torch.pan import compute_pan_profile, pan_discords, pan_m_range, pan_motifs
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T = read_series(src)
+    A, B = T[: T.shape[0] // 2], T[T.shape[0] // 2 :]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, base = (os.path.join(tmp, x) for x in ("a.tsb", "b.tsb", "out"))
+        write_binary(a, A)
+        write_binary(b, B)
+        t0 = time.perf_counter()
+        run_cli("mstamp", "-i", a, "-i", b, "-m", "64", "-o", base)
+        got = np.load(base + ".mstamp.npz")
+        api = compute_multidim_profile(np.stack([A, B]),
+                                       config=MatrixProfileConfig(m=64, device="cuda"))
+        require(np.array_equal(got["PMP"], api.PMP) and np.array_equal(got["PMPI"], api.PMPI),
+                "mstamp's file differs from compute_multidim_profile on the card")
+        out["mstamp"] = {"seconds": time.perf_counter() - t0, "shape": list(api.PMP.shape)}
+
+        t0 = time.perf_counter()
+        printed = run_cli("pan", "-i", src, "--m-lo", "64", "--m-hi", "512", "--count", "4",
+                          "--motifs", "3", "--discords", "3", "-o", base)
+        got = np.load(base + ".pan.npz")
+        ms = pan_m_range(64, 512, 4)
+        pan = compute_pan_profile(T, ms, config=MatrixProfileConfig(m=64, device="cuda"))
+        require(np.array_equal(got["PMP"], pan.PMP) and np.array_equal(got["PMPI"], pan.PMPI),
+                "pan's file differs from compute_pan_profile on the card")
+        lines = [f"  {x.m:6d} {x.a:8d} {x.b:8d} {x.distance:.4f} {x.score:.4f}"
+                 for x in pan_motifs(pan, k=3) + pan_discords(pan, k=3)]
+        table = [ln for ln in printed.splitlines() if ln.startswith("  ")]
+        require(table == lines, f"pan's tables differ from the API's:\n{printed}")
+        out["pan"] = {"seconds": time.perf_counter() - t0, "ms": [int(m) for m in ms]}
+
+        t0 = time.perf_counter()
+        printed = run_cli("merlin", "-i", src, "--lo", "64", "--hi", "71", "-k", "3")
+        res = multi_length_discords(T, 64, 71, k=3, config=MatrixProfileConfig(m=64,
+                                                                               device="cuda"))
+        lines = [f"  m={d.m:5d} idx={d.index:8d} nn={d.nn_index:8d} "
+                 f"dist={d.distance:.6f} score={d.score:.4f}" for d in res.top]
+        table = [ln for ln in printed.splitlines() if ln.startswith("  m=")]
+        require(table == lines, f"merlin's table differs from the API's:\n{printed}")
+        out["merlin"] = {"seconds": time.perf_counter() - t0, "top": len(lines)}
+    say("32 slice-9 commands", input="data/binary/16384.tsb", **out)
+
+
 def main() -> int:
     import torch
 
@@ -2010,6 +2373,16 @@ def main() -> int:
     tf32_kept("27")
     phase_new_cli(torch)
     tf32_kept("28")
+    phase_mstamp(torch)
+    tf32_kept("29")
+    p30 = phase_pan(torch)
+    launches["mxu_fused"]["float64"] += p30["k1"]
+    launches["band_recurrence"]["float64"] += p30["k3"]
+    tf32_kept("30")
+    launches["mxu_fused"]["float32"] += phase_merlin(torch)
+    tf32_kept("31")
+    phase_slice9_cli(torch)
+    tf32_kept("32")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after)
     kernels = [

@@ -14,9 +14,12 @@ profiles) through the fused tile-sweep kernel K1 (``kernels/mxu_fused.py``,
 profiles (``topk.py``, float64 also through the hybrid), the
 sum-threshold profiles (``thresh.py``), the raw-Euclidean profiles
 (``aamp.py``) and the pooled distance-matrix summary (``distmatrix.py``);
-and the ``compute`` (``--raw``), ``abjoin``, ``topk``, ``thresh``,
-``matrix``, ``tsbin``, ``golden``, ``datasets`` and ``bench`` command lines
-(``python -m mpx_torch ...``).
+the multi-dimensional profile (``mstamp.py``), the pan profile across
+window lengths (``pan.py``, its fused sweep ``pan_kernel.py``) and exact
+multi-length discords and motifs (``merlin.py``); and the ``compute``
+(``--raw``), ``abjoin``, ``topk``, ``thresh``, ``matrix``, ``mstamp``,
+``pan``, ``merlin``, ``tsbin``, ``golden``, ``datasets`` and ``bench``
+command lines (``python -m mpx_torch ...``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
@@ -25,6 +28,21 @@ from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.distmatrix import pooled_matrix
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
+from mpx_torch.merlin import (
+    LengthDiscord,
+    MerlinResult,
+    multi_length_discords,
+    multi_length_motifs,
+)
+from mpx_torch.mstamp import (
+    MdlResult,
+    compute_multidim_profile,
+    multidim_discord,
+    multidim_mdl,
+    multidim_motif,
+    multidim_subspace,
+)
+from mpx_torch.pan import compute_pan_profile, pan_discords, pan_m_range, pan_motifs
 from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
 from mpx_torch.topk import compute_topk_profile
 from mpx_torch.types import Aggregates, JobGrid, Stats
@@ -43,6 +61,20 @@ __all__ = [
     "compute_aamp_profile",
     "compute_aamp_ab_join",
     "pooled_matrix",
+    "compute_multidim_profile",
+    "multidim_motif",
+    "multidim_discord",
+    "multidim_subspace",
+    "multidim_mdl",
+    "MdlResult",
+    "compute_pan_profile",
+    "pan_m_range",
+    "pan_motifs",
+    "pan_discords",
+    "multi_length_discords",
+    "multi_length_motifs",
+    "LengthDiscord",
+    "MerlinResult",
     "Aggregates",
     "JobGrid",
     "Stats",

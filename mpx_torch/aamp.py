@@ -38,8 +38,9 @@ import numpy as np
 import torch
 
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
-from mpx_torch.dtypes import INDEX_INIT, full_precision_matmul, torch_dtype
-from mpx_torch.ops.aggregates import init_aggregates, merge_aggregates, merge_window
+from mpx_torch.dtypes import full_precision_matmul, torch_dtype
+from mpx_torch.ops.aggregates import (init_aggregates, merge_aggregates, merge_window,
+                                      reduce_first)
 from mpx_torch.ops.precompute import _padded_width
 from mpx_torch.types import Aggregates
 
@@ -97,12 +98,7 @@ def _scores(a: _Operand, b: _Operand, r0: int, c0: int, S: int, W: int, m: int,
 def _reduce(P: torch.Tensor, r0: int, c0: int):
     """Row and column maxima of a score tile with the first (smallest)
     index of each; -1 where a row or column has no valid pair."""
-    out = []
-    for dim, base in ((1, c0), (0, r0)):
-        v, i = P.max(dim=dim)
-        out.append(Aggregates(v, torch.where(torch.isfinite(v), i.to(torch.int32) + base,
-                                             INDEX_INIT)))
-    return out
+    return reduce_first(P, 1, c0), reduce_first(P, 0, r0)
 
 
 def _distances(agg: Aggregates, w: int):

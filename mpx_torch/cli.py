@@ -9,6 +9,12 @@
 * ``thresh``   — the sum-threshold and frequency profile
   (``<o>.thresh.npz``);
 * ``matrix``   — the pooled distance-matrix summary (``<o>.dm.npy``);
+* ``mstamp``   — the multi-dimensional profile, one ``-i`` a dimension
+  (``<o>.mstamp.npz``);
+* ``pan``      — the pan profile over a range of window sizes
+  (``<o>.pan.npz``);
+* ``merlin``   — the exact discord (``--motifs``: motif pair) at every
+  window length in a range;
 * ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
   MPXQ fixed-point containers);
 * ``golden``   — golden MP/MPI through the numpy oracle
@@ -259,6 +265,173 @@ def _cmd_matrix(args) -> int:
     return 0
 
 
+def _add_mstamp(sub):
+    p = sub.add_parser("mstamp", help="multi-dimensional matrix profile (one -i per dimension)")
+    p.add_argument("-i", "--input", action="append", required=True,
+                   help="one series file per dimension (equal lengths); repeatable")
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("-o", "--output", help="writes <o>.mstamp.npz (PMP, PMPI)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--include", type=int, action="append", default=None,
+                   help="dimension index that must be in every k-subset "
+                        "(repeatable; constrained mSTAMP search)")
+    p.add_argument("--discords", action="store_true",
+                   help="average the k LARGEST per-dim distances "
+                        "(multi-dimensional discord search)")
+    p.add_argument("--mdl", action="store_true",
+                   help="pick the meaningful dimensionality k by minimum description "
+                        "length (motif mode only)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_mstamp(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.mstamp import (
+        compute_multidim_profile,
+        multidim_discord,
+        multidim_mdl,
+        multidim_motif,
+        multidim_subspace,
+    )
+
+    Logger.verbose = args.verbose
+    series = [read_series(p) for p in args.input]
+    lengths = {s.shape[0] for s in series}
+    if len(lengths) != 1:
+        raise ValueError(f"dimension series differ in length: {sorted(lengths)}")
+    T = np.stack(series)
+    prof = compute_multidim_profile(
+        T, config=MatrixProfileConfig(m=args.m, dtype=args.dtype, device=args.device),
+        include=args.include, discords=args.discords)
+    if args.output:
+        np.savez_compressed(args.output + ".mstamp.npz", PMP=prof.PMP, PMPI=prof.PMPI)
+        Logger.info(f"wrote {args.output}.mstamp.npz "
+                    f"({prof.PMP.shape[0]} x {prof.PMP.shape[1]})")
+    if args.discords:
+        print("k, strongest k-dimensional discord (i, distance, dims):")
+    else:
+        print("k, best k-dimensional motif (i, j, distance, dims):")
+    for k in range(1, T.shape[0] + 1):
+        if not np.isfinite(prof.PMP[k - 1]).any():
+            print(f"  {k:3d} (no valid pairs)")
+            continue
+        if args.discords:
+            i, dist = multidim_discord(prof, k)
+            dims = multidim_subspace(T, args.m, i, int(prof.PMPI[k - 1, i]), k,
+                                     include=args.include, discords=True)
+            print(f"  {k:3d} ({i}) d={dist:.4f} dims={dims.tolist()}")
+        else:
+            i, j, dist = multidim_motif(prof, k)
+            dims = multidim_subspace(T, args.m, i, j, k, include=args.include)
+            print(f"  {k:3d} ({i}, {j}) d={dist:.4f} dims={dims.tolist()}")
+    if args.mdl:
+        if args.discords:
+            raise ValueError("--mdl selects motif dimensionality; drop --discords")
+        res = multidim_mdl(T, args.m, profile=prof, include=args.include)
+        print(f"MDL: best k = {res.best_k} "
+              f"(bit saves {np.round(res.bitsaves, 1).tolist()})")
+    return 0
+
+
+def _add_pan(sub):
+    p = sub.add_parser("pan", help="pan matrix profile over a range of window sizes")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("--m-lo", type=int, required=True, help="smallest m")
+    p.add_argument("--m-hi", type=int, required=True, help="largest m")
+    p.add_argument("--count", type=int, default=16, help="number of log-spaced window sizes")
+    p.add_argument("-o", "--output", help="writes <o>.pan.npz (ms, PMP, PMPI)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--kernel", default="auto",
+                   choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
+    p.add_argument("--method", default="auto", choices=("auto", "fused", "exact"),
+                   help="fused = all window sizes in one sweep (f32); "
+                        "exact = one exact run per m")
+    p.add_argument("--motifs", type=int, default=None, metavar="K",
+                   help="also print the K best variable-length motifs")
+    p.add_argument("--discords", type=int, default=None, metavar="K",
+                   help="also print the K strongest variable-length discords")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_pan(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.pan import compute_pan_profile, pan_discords, pan_m_range, pan_motifs
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    ms = pan_m_range(args.m_lo, args.m_hi, args.count)
+    cfg = MatrixProfileConfig(m=int(ms[0]), dtype=args.dtype, kernel=args.kernel,
+                              device=args.device)
+    pan = compute_pan_profile(T, ms, config=cfg, method=args.method)
+    if args.motifs:
+        print("variable-length motifs (m, a, b, dist, score):")
+        for mo in pan_motifs(pan, k=args.motifs):
+            print(f"  {mo.m:6d} {mo.a:8d} {mo.b:8d} {mo.distance:.4f} {mo.score:.4f}")
+    if args.discords:
+        print("variable-length discords (m, index, nn, dist, score):")
+        for di in pan_discords(pan, k=args.discords):
+            print(f"  {di.m:6d} {di.a:8d} {di.b:8d} {di.distance:.4f} {di.score:.4f}")
+    if args.output:
+        np.savez_compressed(args.output + ".pan.npz", ms=pan.ms, PMP=pan.PMP, PMPI=pan.PMPI)
+        Logger.info(f"wrote {args.output}.pan.npz "
+                    f"({pan.ms.size} window sizes x {pan.PMP.shape[1]})")
+    else:
+        norm = pan.normalized
+        print("m, min(normalized distance), argmin:")
+        for r, m in enumerate(pan.ms):
+            row = norm[r]
+            i = int(np.nanargmin(row))
+            print(f"  {int(m):6d} {row[i]:.4f} @ {i}")
+    return 0
+
+
+def _add_merlin(sub):
+    p = sub.add_parser("merlin",
+                       help="exact discord at EVERY window length in a range (MERLIN)")
+    p.add_argument("-i", "--input", required=True, help=".tsb/.txt[.gz] time series")
+    p.add_argument("--lo", type=int, required=True, help="smallest window length (>= 4)")
+    p.add_argument("--hi", type=int, required=True, help="largest window length")
+    p.add_argument("-k", type=int, default=3, help="strongest cross-length discords to report")
+    p.add_argument("--eps", type=float, default=None,
+                   help="survey error allowance (default 5e-3)")
+    p.add_argument("--motifs", action="store_true",
+                   help="exact top MOTIF pair per length instead (the VALMOD question)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_merlin(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.merlin import multi_length_discords, multi_length_motifs
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    kw = {} if args.eps is None else {"eps": args.eps}
+    fn = multi_length_motifs if args.motifs else multi_length_discords
+    res = fn(T, args.lo, args.hi, k=args.k,
+             config=MatrixProfileConfig(m=args.lo, device=args.device), **kw)
+    kind = "motifs" if args.motifs else "discords"
+    print(f"exact {kind} at {len(res.per_length)} lengths [{args.lo}, {args.hi}]:")
+    if res.escalated_lengths:
+        print(f"  ({len(res.escalated_lengths)} length(s) escalated to full exact "
+              f"profiles: {res.escalated_lengths})")
+    for d in res.top:
+        print(f"  m={d.m:5d} idx={d.index:8d} nn={d.nn_index:8d} "
+              f"dist={d.distance:.6f} score={d.score:.4f}")
+    if args.verbose:
+        for d in res.per_length:
+            Logger.info(f"m={d.m} idx={d.index} dist={d.distance:.6f}")
+    return 0
+
+
 def _add_tsbin(sub):
     p = sub.add_parser("tsbin", help="encode/decode binary time series files")
     g = p.add_mutually_exclusive_group(required=True)
@@ -365,6 +538,9 @@ def main(argv=None) -> int:
     _add_topk(sub)
     _add_thresh(sub)
     _add_matrix(sub)
+    _add_mstamp(sub)
+    _add_pan(sub)
+    _add_merlin(sub)
     _add_tsbin(sub)
     _add_golden(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
@@ -375,7 +551,8 @@ def main(argv=None) -> int:
         return 2
     try:
         return {"compute": _cmd_compute, "abjoin": _cmd_abjoin, "topk": _cmd_topk,
-                "thresh": _cmd_thresh, "matrix": _cmd_matrix, "tsbin": _cmd_tsbin,
+                "thresh": _cmd_thresh, "matrix": _cmd_matrix, "mstamp": _cmd_mstamp,
+                "pan": _cmd_pan, "merlin": _cmd_merlin, "tsbin": _cmd_tsbin,
                 "golden": _cmd_golden,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:

@@ -4,7 +4,11 @@
 * ``merge_aggregates`` — strict-greater max-merge; the incumbent wins
   ties, preserving first-seen semantics across jobs.
 * ``merge_window``     — the same merge into a slice of a global
-  aggregate array (how job outputs land in the row/column profiles).
+  aggregate array (how job outputs land in the row/column profiles);
+  ``smaller=True`` is the strict-less min-merge of distance aggregates
+  (mSTAMP);
+* ``reduce_first``     — a tile's max (or min) along one axis with the
+  first, i.e. smallest, index of each;
 * ``postcompute``      — row/column merge + Pearson -> Euclidean.
 """
 
@@ -25,18 +29,31 @@ def merge_aggregates(a: Aggregates, b: Aggregates) -> Aggregates:
     )
 
 
-def merge_window(global_agg: Aggregates, window: Aggregates, offset: int) -> None:
-    """Max-merge ``window`` into ``global_agg[offset : offset + len]``.
+def merge_window(global_agg: Aggregates, window: Aggregates, offset: int,
+                 smaller: bool = False) -> None:
+    """Max-merge ``window`` into ``global_agg[..., offset : offset + len]``
+    (the last axis: a stack of aggregates, one per level or dimension,
+    merges in one call); with ``smaller`` the strict-less min-merge.
 
     Unlike mpx's functional version this updates ``global_agg`` IN PLACE
     (through views of its tensors), so a job merge allocates only the
     (len,) comparison mask."""
-    size = window.value.shape[0]
-    cur_v = global_agg.value[offset : offset + size]
-    cur_i = global_agg.index[offset : offset + size]
-    better = window.value > cur_v
+    size = window.value.shape[-1]
+    cur_v = global_agg.value[..., offset : offset + size]
+    cur_i = global_agg.index[..., offset : offset + size]
+    better = window.value < cur_v if smaller else window.value > cur_v
     cur_v.copy_(torch.where(better, window.value, cur_v))
     cur_i.copy_(torch.where(better, window.index, cur_i))
+
+
+def reduce_first(P: torch.Tensor, dim: int, base: int, largest: bool = True) -> Aggregates:
+    """The max (``largest``) or min of ``P`` along ``dim`` and the first
+    (smallest) index that reaches it, plus ``base``; index -1 where the
+    extremum is not finite (a masked fill of -inf for a max, +inf for a
+    min).  torch's max/min return the first index on a tie on every
+    device: mpx's iota-min tie rule in one pass over the tile."""
+    v, i = P.max(dim=dim) if largest else P.min(dim=dim)
+    return Aggregates(v, torch.where(torch.isfinite(v), i.to(torch.int32) + base, INDEX_INIT))
 
 
 def pearson_to_euclidean(P: torch.Tensor, m: int) -> torch.Tensor:

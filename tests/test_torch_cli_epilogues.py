@@ -1,5 +1,5 @@
-"""The ``abjoin``, ``topk``, ``thresh``, ``compute --raw`` and ``matrix``
-subcommands of ``python -m mpx_torch`` (``--device cpu``) against ``python
+"""The ``abjoin``, ``topk``, ``thresh``, ``compute --raw``, ``matrix``,
+``mstamp``, ``pan`` and ``merlin`` subcommands of ``python -m mpx_torch`` (``--device cpu``) against ``python
 -m mpx``'s with the same arguments: the same files, distances within 1e-8
 (float64) / 2e-3 (float32; the pooled matrix, whose tiles are float32),
 indices equal but between equidistant neighbors, counts equal (float64) or
@@ -13,7 +13,8 @@ import pytest
 
 from mpx.cli import main as mpx_main
 from mpx_torch.abjoin import unit_windows
-from mpx_torch.cli import _add_abjoin, _add_matrix, _add_thresh, _add_topk
+from mpx_torch.cli import (_add_abjoin, _add_matrix, _add_merlin, _add_mstamp, _add_pan,
+                           _add_thresh, _add_topk)
 from mpx_torch.cli import main as port_main
 from mpx_torch.io.tsb import read_binary, write_binary
 from tests.conftest import random_walk
@@ -84,15 +85,18 @@ def test_abjoin_mpdist_is_not_ported(tmp_path):
         port_main(["abjoin", "-a", a, "-b", b, "-m", "16", "--mpdist", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("command", ["abjoin", "topk", "thresh", "matrix"])
+@pytest.mark.parametrize("command", ["abjoin", "topk", "thresh", "matrix", "mstamp", "pan",
+                                     "merlin"])
 def test_epilogue_commands_default_to_the_card(command):
     """Like ``compute``, the new subcommands run on ``cuda`` unless asked
     for the CPU."""
     sub = argparse.ArgumentParser().add_subparsers()
     add = {"abjoin": _add_abjoin, "topk": _add_topk, "thresh": _add_thresh,
-           "matrix": _add_matrix}[command]
+           "matrix": _add_matrix, "mstamp": _add_mstamp, "pan": _add_pan,
+           "merlin": _add_merlin}[command]
     p = add(sub)
-    req = (["-a", "x", "-b", "y"] if command == "abjoin" else ["-i", "x", "-m", "8"])
+    req = {"abjoin": ["-a", "x", "-b", "y"], "pan": ["-i", "x", "--m-lo", "8", "--m-hi", "16"],
+           "merlin": ["-i", "x", "--lo", "8", "--hi", "16"]}.get(command, ["-i", "x", "-m", "8"])
     assert p.parse_args(req).device == "cuda"
 
 
@@ -141,3 +145,59 @@ def test_matrix_writes_mpxs_file(tmp_path, capsys, with_b):
     got, exp = np.load(ours + ".dm.npy"), np.load(ref + ".dm.npy")
     assert got.shape == exp.shape == (11, 9) and got.dtype == np.float64
     np.testing.assert_allclose(got, exp, rtol=0, atol=EPS["float32"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--include", "1", "--mdl"], ["--discords"]])
+def test_mstamp_writes_mpxs_file(tmp_path, capsys, extra):
+    """``mstamp``: ``<o>.mstamp.npz`` within 1e-8 of mpx's, the same table."""
+    (X, a), (Y, b), (Z, c) = (_series(tmp_path, f"d{t}", 300, 11 + t) for t in range(3))
+    args = ["mstamp", "-i", a, "-i", b, "-i", c, "-m", "16", "--dtype", "float64"] + extra
+    ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
+    tables = []
+    for main, base, dev in ((port_main, ours, ["--device", "cpu"]), (mpx_main, ref, [])):
+        assert main(args + ["-o", base] + dev) == 0
+        tables.append([ln for ln in capsys.readouterr().out.splitlines()
+                       if not ln.startswith("[INFO]")])
+    assert tables[0] == tables[1]
+    assert ("MDL: best k" in tables[0][-1]) == ("--mdl" in extra)
+    got, exp = np.load(ours + ".mstamp.npz"), np.load(ref + ".mstamp.npz")
+    assert got["PMP"].shape == (3, 300 - 16 + 1)
+    np.testing.assert_allclose(got["PMP"], exp["PMP"], rtol=0, atol=EPS["float64"])
+    np.testing.assert_array_equal(got["PMPI"], exp["PMPI"])
+
+
+def test_mstamp_refuses_unequal_lengths(tmp_path):
+    (_, a), (_, b) = _series(tmp_path, "a", 300, 14), _series(tmp_path, "b", 200, 15)
+    assert port_main(["mstamp", "-i", a, "-i", b, "-m", "16", "--device", "cpu"]) == 1
+
+
+@pytest.mark.parametrize("method,dtype", [("fused", "float32"), ("exact", "float64")])
+def test_pan_writes_mpxs_file(tmp_path, capsys, method, dtype):
+    """``pan``: ``<o>.pan.npz`` within mpx's tolerance of mpx's file, and the
+    same motif and discord tables."""
+    _, path = _series(tmp_path, "t", 600, 16)
+    args = ["pan", "-i", path, "--m-lo", "8", "--m-hi", "32", "--count", "3", "--method",
+            method, "--dtype", dtype, "--motifs", "2", "--discords", "2"]
+    ours, ref = _both(tmp_path, args)
+    out = capsys.readouterr().out
+    assert out.count("variable-length motifs") == 2 and out.count("variable-length discords") == 2
+    got, exp = np.load(ours + ".pan.npz"), np.load(ref + ".pan.npz")
+    np.testing.assert_array_equal(got["ms"], exp["ms"])
+    fin = np.isfinite(exp["PMP"])
+    np.testing.assert_array_equal(np.isfinite(got["PMP"]), fin)
+    np.testing.assert_allclose(got["PMP"][fin], exp["PMP"][fin], rtol=0, atol=EPS[dtype])
+    assert port_main(args[:9] + ["--device", "cpu"]) == 0
+    assert "min(normalized distance)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [[], ["--motifs"]])
+def test_merlin_prints_mpxs_table(tmp_path, capsys, extra):
+    """``merlin``: the exact per-length extrema, printed as mpx prints them
+    (equal to the printed digits)."""
+    _, path = _series(tmp_path, "t", 700, 17)
+    args = ["merlin", "-i", path, "--lo", "8", "--hi", "12", "-k", "2"] + extra
+    assert port_main(args + ["--device", "cpu"]) == 0
+    ours = capsys.readouterr().out
+    assert mpx_main(args) == 0
+    assert ours == capsys.readouterr().out
+    assert "exact " + ("motifs" if extra else "discords") + " at 5 lengths" in ours

@@ -620,3 +620,62 @@ def test_pooled_matrix_on_card_matches_cpu(card, with_b):
                                                          device=dev))
            for dev in ("cuda", "cpu")}
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("float64", 1e-10)])
+@pytest.mark.parametrize("kwargs", [dict(), dict(include=[1]), dict(discords=True)])
+def test_mstamp_on_card_matches_cpu(card, dtype, tol, kwargs):
+    """The multi-dimensional profile on the card (torch.bmm tiles, sort,
+    prefix means) against the same code on the CPU, with a flat segment
+    in one dimension: distances within tol, indices equal or
+    equidistant."""
+    from mpx_torch.mstamp import compute_multidim_profile
+
+    T = np.stack([_series(2048, 60 + t, constant_run=t == 1) for t in range(3)])
+    out = {dev: compute_multidim_profile(T, config=MatrixProfileConfig(
+        m=64, dtype=dtype, band=256, chunk=512, device=dev), **kwargs)
+        for dev in ("cuda", "cpu")}
+    got, exp = out["cuda"], out["cpu"]
+    fin = np.isfinite(exp.PMP)
+    np.testing.assert_array_equal(np.isfinite(got.PMP), fin)
+    np.testing.assert_allclose(got.PMP[fin], exp.PMP[fin], rtol=0, atol=tol)
+    k, i = np.nonzero(got.PMPI != exp.PMPI)
+    np.testing.assert_allclose(got.PMP[k, i], exp.PMP[k, i], rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_pan_on_card_matches_exact_pan_on_card(card):
+    """The fused float32 pan surface on the card within 2e-3 of the exact
+    float64 surface on the card (K1 per length, K3 above m = 4096 is not
+    reached here); indices equal or equidistant."""
+    from mpx_torch.pan import compute_pan_profile
+
+    T = _series(4096, 70, constant_run=False)
+    ms = [32, 48, 64, 100, 128, 256]
+    cfg = dict(band=512, chunk=1024, device="cuda")
+    fused = compute_pan_profile(T, ms, config=MatrixProfileConfig(m=32, **cfg), method="fused")
+    exact = compute_pan_profile(T, ms, config=MatrixProfileConfig(m=32, dtype="float64", **cfg))
+    for r, m in enumerate(ms):
+        w = T.shape[0] - m + 1
+        np.testing.assert_allclose(fused.PMP[r, :w], exact.PMP[r, :w], rtol=0, atol=2e-3)
+        for i in np.nonzero(fused.PMPI[r, :w] != exact.PMPI[r, :w])[0]:
+            gap = (_znorm_distance(T, m, i, fused.PMPI[r, i])
+                   - _znorm_distance(T, m, i, exact.PMPI[r, i]))
+            assert abs(gap) <= 2e-3, (m, i)
+
+
+@pytest.mark.cuda
+def test_multi_length_discords_on_card_match_the_brute_force(card):
+    """MERLIN on the card (the fused survey, the float64 row scans on the
+    card) against the numpy brute force at n = 2048, within 1e-9."""
+    from mpx_torch.merlin import brute_force_multi_length_discords, multi_length_discords
+
+    T = _series(2048, 71, constant_run=False)
+    T[1200:1232] += np.linspace(0, 12, 32)
+    ms = [24, 32, 40]
+    res = multi_length_discords(T, ms=ms, config=MatrixProfileConfig(m=24, device="cuda"))
+    exp = brute_force_multi_length_discords(T, ms)
+    assert res.exact and [d.m for d in res.per_length] == ms
+    for got, want in zip(res.per_length, exp):
+        assert abs(got.distance - want.distance) <= 1e-9, (got, want)
