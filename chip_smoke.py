@@ -57,12 +57,14 @@ script exits nonzero without the final line):
 13. a tie-heavy series on the card (80 exact repeats of a motif,
     n=65520, m=64) through ``kernel='hybrid'``: pass C and the float64 row
     scans run, against the exact row scan;
-14. the f64 left/right profiles through ``kernel='hybrid'`` on phase 7's
-    series (n=2^20, m=256, band 4096, chunk 32768): one K1 f32 launch per
-    job and no plain call, each side against an exact sided float64 row
-    scan, and the nearer of the two sides against phase 12's profile; its
-    phase split, flags, escalated rows per side, capture bytes, peak
-    device memory, clock and power beside phase 12's;
+14. the f64 left/right profiles through ``kernel='hybrid'`` (n=2^19, cut
+    from the showcase's 2^20 to keep the script under 600 s;
+    m=256, band 4096, chunk 32768): one K1 f32 launch per job and no plain
+    call, each side against an exact sided float64 row scan, and the
+    nearer of the two sides against the self-join through ``auto`` (K1
+    f64) of the same series; its phase split, flags, escalated rows per
+    side, capture bytes, peak device memory, clock and power beside phase
+    12's;
 15. the hybrid's width gate on phase 3's series: with ``SPARSE_MAX_W``
     lowered below w the self-join and the left/right hybrid take the dense
     pass B with no captures, and give the sparse runs' profiles; the peak
@@ -107,7 +109,8 @@ script exits nonzero without the final line):
 25. the top-k hybrid on phase 13's tie-heavy series at k=4 and k=8 against
     the strict float64 tile, pass C, the wide pass C and the exact row
     scan each resolving rows (a knob set between the series' tie counts);
-26. the raw-Euclidean (AAMP) profiles: the self-join f32 at n=2^20 and
+26. the raw-Euclidean (AAMP) profiles: the self-join f32 at n=2^19 (cut
+    from 2^20 to keep the script under 600 s) and
     f64 at n=2^18, the AB-join f32 (A = 2^19, B = 2^18), a large-amplitude
     f64 series (a walk x 1e6 + 1e7, n=2^16), 64 rows each against an exact
     f64 raw scan (mpx's 2e-4 / 1e-10 of the largest distance), and mpx's
@@ -135,6 +138,30 @@ script exits nonzero without the final line):
     exact f64 profile's minimum;
 32. the ``mstamp``, ``pan --motifs --discords`` and ``merlin`` command
     lines, each file and table equal to the API's result;
+33. streaming at ``streaming-f32-262144``'s full shape (n=2^18, m=256,
+    f32, 50 appends of 64): append ms, appended pairs/s, the recompute
+    pairs, elements staged an append, capacity doublings, five appends
+    under ``torch.profiler``, 32 rows against the exact scan; FLOSS and
+    online DAMP (n=2^16, m=128, f64, 64 appends of 256): the right and left
+    states within 1e-8 of the card's batch profiles, the planted burst
+    alerts;
+34. the anytime profile (n=2^19, m=256, f32, band 4096, chunk 16384) in
+    both orders: yields non-increasing, the last equal to
+    ``compute_matrix_profile``; ``approx_matrix_profile(0.25)``'s wall;
+35. checkpoints: K3 (f64, n=2^19, ``kernel='pallas'``) killed after half
+    its groups and resumed, bit-equal, with its overhead; the hybrid (f64,
+    n=2^19) killed in pass A and in pass B, each resume bit-equal;
+36. the fleet at ``batch-f32-256x8192``'s full shape (B=256, n=8192,
+    m=64): wall, ms a series, K1 launches, the device idle share; 8 series
+    bit-equal to single runs, 4 validated on 16 rows;
+37. masked gaps (n=2^19, m=256, ~1 % NaN in runs): K1 f32 and K3 f64 and
+    a f32 left/right run, gap windows at the sentinel, good rows against
+    the exact masked scan;
+38. DAMP at ``damp-f64-524288``'s full shape (n=2^19, m=256, f64, band
+    4096, chunk 32768): wall, pairs/s, 16 rows' left values within 1e-8;
+39. ``compute --checkpoint`` (resuming a killed run), ``--approx``,
+    ``--allow-missing``, ``damp``, ``batch`` and ``floss``, each equal to
+    the library;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
@@ -142,9 +169,11 @@ The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path runs: K1 in
 phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
 pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
-pan of phase 30; K3 in phases 7, 8 and (f64) 30; the bound and the library
-call's time at the band-level shape; the 1-NN hybrids' K1 launches are in
-phase 12's, 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
+pan of phase 30, phases 33–38's runs of the new entry points (the
+checkpointed hybrids' pass A in phase 35 included); K3 in phases 7, 8 and
+(f64) 30, 35 and 37; the bound and the library call's time at the
+band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
+14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
 matrix, mSTAMP and the fused pan are otherwise torch ops); the line before the last is
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or mpx.
@@ -1025,33 +1054,38 @@ def phase_tie_heavy(torch):
 
 
 def phase_left_right_hybrid(torch, p12: dict):
-    """The f64 left/right profiles through kernel='hybrid' on phase 7's
-    series at the showcase shape: one K1 f32 launch per job and no plain
-    call; each side within 1e-8 of the exact sided row scan on 64 sampled
-    rows (indices only between equidistant neighbors); the nearer side
-    within 1e-10 of phase 12's profile; phase 12's numbers beside."""
-    n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
-    T = random_walk(n, SEED + 2)
+    """The f64 left/right profiles through kernel='hybrid' at n=2^19 (the
+    showcase's m, band and chunk; cut from n=2^20): one K1 f32
+    launch per job and no plain call; each side within 1e-8 of the exact
+    sided row scan on 64 sampled rows (indices only between equidistant
+    neighbors); the nearer side within 1e-10 of the self-join through
+    ``auto`` (K1 f64) of the same series; phase 12's numbers beside."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+
+    n, m, tol = 1 << 19, 256, DIST_TOL["float64"]
+    T = random_walk(n, SEED + 14)
     w = n - m + 1
+    jobs = len(make_job_grid(w, 4096, 32768).r0)
     MPl, MPIl, MPr, MPIr, wall, phases, card, cnt, peak = run_hybrid(
         torch, T, m, left_right=True, band=4096, chunk=32768)
-    require(cnt["k1_launches"] == 4224, f"left/right hybrid: {cnt['k1_launches']} K1 launches")
-    rows = sample_rows(w, SEED + 2)
+    require(cnt["k1_launches"] == jobs, f"left/right hybrid: {cnt['k1_launches']} K1 launches")
+    rows = sample_rows(w, SEED + 14)
     D = row_scan64(T, m, rows)
     vs_exact = {side: check_rows(T, m, MP, MPI, rows, tol, sign, D)
                 for side, sign, MP, MPI in (("left", -1, MPl, MPIl), ("right", 1, MPr, MPIr))}
-    MP12, MPI12 = p12["profile"]
+    MPk, MPIk, *_ = run_profile(torch, T, MatrixProfileConfig(
+        m=m, dtype="float64", band=4096, chunk=32768, device="cuda"))
     nearer = np.minimum(MPl, MPr)
-    vs_p12 = float(np.abs(nearer - MP12).max())
-    require(vs_p12 <= 1e-10, f"min(left, right) vs phase 12's profile: {vs_p12}")
+    vs_p12 = float(np.abs(nearer - MPk).max())
+    require(vs_p12 <= 1e-10, f"min(left, right) vs the K1 self-join: {vs_p12}")
     pairs = w * (w - 1) / 2
     split = hybrid_split(phases)
     say("14 left/right f64 hybrid", n=n, m=m, band=4096, chunk=32768,
         k1_launches=cnt["k1_launches"], plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, split_s=split, counts=cnt, peak_device_bytes=peak,
         card=card, phases_s=phases, max_err_vs_exact_sided_64_rows=vs_exact, tol=tol,
-        max_err_min_left_right_vs_phase_12=vs_p12,
-        index_differs_vs_phase_12=int((np.where(MPr < MPl, MPIr, MPIl) != MPI12).sum()),
+        max_err_min_left_right_vs_k1_self_join=vs_p12,
+        index_differs_vs_k1_self_join=int((np.where(MPr < MPl, MPIr, MPIl) != MPIk).sum()),
         phase_12={k: v for k, v in p12.items() if k != "profile"})
 
 
@@ -1777,7 +1811,7 @@ def global_centered_f32_errors(torch, T, m: int, rows, Dx) -> float:
 
 def phase_aamp(torch):
     """The raw-Euclidean profiles on the card: the self-join in float32 at
-    n=2^20 (m=256, band 4096, chunk 32768) and in float64 at n=2^18, the
+    n=2^19 (m=256, band 4096, chunk 32768; cut from n=2^20) and in float64 at n=2^18, the
     AB-join in float32 (A = 2^19, B = 2^18), and a large-amplitude series
     (a walk x 1e6 + 1e7, float64, n=2^16); 64 sampled rows of each against
     an exact float64 raw scan, within mpx's tolerances (2e-4 float32, 1e-10
@@ -1801,7 +1835,7 @@ def phase_aamp(torch):
         require(not any(counts().values()), f"AAMP launched a band sweep: {counts()}")
         return res, wall
 
-    for name, n, dtype, scale, seed in (("self f32", 1 << 20, "float32", None, 16),
+    for name, n, dtype, scale, seed in (("self f32", 1 << 19, "float32", None, 16),
                                          ("self f64", 1 << 18, "float64", None, 17),
                                          ("large amplitude f64", 1 << 16, "float64", 1e6, 18)):
         T = random_walk(n, SEED + seed)
@@ -2295,9 +2329,574 @@ def phase_slice9_cli(torch):
     say("32 slice-9 commands", input="data/binary/16384.tsb", **out)
 
 
+# ---------------------------------------------------------------- slice 10
+
+
+def busy_share(torch, fn) -> dict:
+    """``fn`` traced by torch.profiler: the device's busy share (kernel
+    time over the span from the first kernel's start to the last one's
+    end), the kernels' time and the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    top = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda x: -x[1])[:6]
+    return {"profiled_wall_s": wall, "device_busy_us": busy, "span_us": span,
+            "device_idle_share": 1.0 - busy / span, "launches": launches,
+            "top_ops_device_us": dict(top)}
+
+
+def masked_scan_card(torch, T, m: int, rows, bad) -> np.ndarray:
+    """:func:`row_scan64_card` of the gap-filled series without the gap
+    windows (``bad``) as neighbors: the exact masked scan."""
+    D = row_scan64_card(torch, T, m, rows)
+    D[:, bad] = np.inf
+    return D
+
+
+def planted_stream(n: int, m: int, seed: int, at: int):
+    """A noisy sine of n samples with a burst of m // 2 samples at ``at``
+    (``tests/test_damp.py``'s anomaly, scaled)."""
+    rng = np.random.default_rng(seed)
+    T = np.sin(2 * np.pi * np.arange(n) / 50) + 0.05 * rng.standard_normal(n)
+    T[at : at + m // 2] += rng.normal(0, 1.5, m // 2)
+    return T
+
+
+def phase_streaming(torch) -> dict:
+    """Streaming at ``streaming-f32-262144``'s full shape (n = 2^18, m = 256,
+    f32, 50 appends of 64 points, the suite runner's walk from seed 0):
+    the bootstrap through K1, one warm-up append, 49 timed appends, five
+    more under torch.profiler; 24 sampled rows and 8 of the appended
+    windows against the exact f64 scan within 2e-3.  Then FLOSS (window 2^16, slack 1.2: one trim) and online
+    DAMP at n = 2^16, m = 128, f64, 64 appends of 256 on a noisy sine with
+    a planted burst: the right and left states within 1e-8 of the card's
+    batch right and left profiles (K1) of the retained series, and the
+    burst alerts.  Returns the K1 launches by dtype."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile
+    from mpx_torch.damp import OnlineAnomalyDetector
+    from mpx_torch.floss import Floss
+    from mpx_torch.streaming import StreamingMatrixProfile
+
+    n, m, append, rounds = 1 << 18, 256, 64, 50
+    T = np.cumsum(np.random.default_rng(0).standard_normal(n + append * (rounds + 5)))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp = StreamingMatrixProfile(T[:n], m, "float32", device="cuda")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    smp.append(T[n : n + append])  # warm-up
+    staged0, pos = smp.staged_elements, n + append
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds - 1):
+        smp.append(T[pos : pos + append])
+        pos += append
+    MP, MPI = smp.profile()
+    wall = time.perf_counter() - t0
+    c = counts()
+    k1_f32 = require_only(c, "k1", "streaming bootstrap")
+    staged = (smp.staged_elements - staged0) / (rounds - 1)
+    tail = T[pos : pos + 5 * append]
+
+    def five_appends():
+        for o in range(0, 5 * append, append):
+            smp.append(tail[o : o + append])
+
+    traced = busy_share(torch, five_appends)  # appended after the checked profile
+    done = rounds - 1
+    pairs = sum((append + m - 1) * (n + append * (i + 1)) for i in range(1, rounds))
+    recompute = sum(((n + append * (i + 1)) - m + 1) * ((n + append * (i + 1)) - m) / 2
+                    for i in range(1, rounds))
+    w = pos - m + 1
+    rng = np.random.default_rng(1)
+    rows = np.sort(np.concatenate([rng.choice(n - m, 24, replace=False),
+                                   rng.choice(np.arange(n - m + 1, w), 8, replace=False)]))
+    err = check_rows(T[:pos], m, MP, MPI, rows, DIST_TOL["float32"],
+                     D=row_scan64_card(torch, T[:pos], m, rows))
+    stream = {"n": n, "m": m, "append": append, "appends_timed": done,
+              "bootstrap_s": boot_s, "bootstrap_k1_launches": k1_f32,
+              "append_ms": wall / done * 1e3, "appended_pairs_per_s": pairs / wall,
+              "recompute_pairs": recompute, "recompute_pairs_per_s_equivalent": recompute / wall,
+              "staged_elements_per_append": staged,
+              "capacity": smp._cap, "capacity_doublings": smp.capacity_doublings,
+              "five_appends_profiled": traced,
+              "max_err_32_rows": err, "tol": DIST_TOL["float32"]}
+    require(smp.capacity_doublings == 1, f"expected one capacity doubling: {stream}")
+    del smp
+
+    n2, m2, k2, chunks = 1 << 16, 128, 256, 64
+    at = n2 + 8000
+    T2 = planted_stream(n2 + k2 * chunks, m2, SEED + 33, at)
+    cfg = MatrixProfileConfig(m=m2, dtype="float64", device="cuda")
+    reset_counts()
+    fl = Floss(T2[:n2], m2, window=n2, dtype="float64", slack=1.2, device="cuda")
+    det = OnlineAnomalyDetector(T2[:n2], config=cfg)
+    alerts, t_fl, t_det = [], 0.0, 0.0
+    for o in range(n2, n2 + k2 * chunks, k2):
+        t0 = time.perf_counter()
+        fl.append(T2[o : o + k2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        alerts += det.append(T2[o : o + k2])
+        t_fl, t_det = t_fl + t1 - t0, t_det + time.perf_counter() - t1
+    k1_f64 = require_only(counts(), "k1", "FLOSS/DAMP bootstraps")
+    require(fl.offset > 0, "FLOSS never trimmed")
+    kept = T2[fl.offset :]
+    out = [o.cpu().numpy() for o in compute_matrix_profile(kept, config=cfg, left_right=True)]
+    err_r = check_profiles_agree(kept, m2, *fl.profile(), out[2], out[3], DIST_TOL["float64"])
+    out = [o.cpu().numpy() for o in compute_matrix_profile(T2, config=cfg, left_right=True)]
+    err_l = check_profiles_agree(T2, m2, *det.profile(), out[0], out[1], DIST_TOL["float64"])
+    hit = [a for a in alerts if abs(a.index - at) <= m2]
+    require(hit and abs(det.discord.index - at) <= m2,
+            f"the planted burst at {at} did not alert: {alerts[-3:]}, discord {det.discord}")
+    say("33 streaming", card=torch.cuda.get_device_name(0), stream=stream,
+        floss={"n": n2, "m": m2, "appends": chunks, "append": k2, "window": n2,
+               "offset": fl.offset, "append_ms": t_fl / chunks * 1e3,
+               "max_err_right_vs_batch": err_r, "regimes": fl.regimes(k=1)},
+        damp={"append_ms": t_det / chunks * 1e3, "alerts": len(alerts),
+              "planted_at": at, "discord": list(det.discord),
+              "max_err_left_vs_batch": err_l},
+        bootstrap_k1_f64_launches=k1_f64, tol=DIST_TOL["float64"])
+    return {"float32": k1_f32, "float64": k1_f64}
+
+
+def phase_anytime(torch) -> int:
+    """The anytime profile at n = 2^19, m = 256, f32, band 4096, chunk
+    16384, 16 batches, both orders: every yield non-increasing, the final
+    one equal to ``compute_matrix_profile`` within 2e-3 (indices equal or
+    equidistant); ``approx_matrix_profile(fraction=0.25)``'s wall beside
+    the full run's.  Returns the K1 launches of the anytime runs."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.anytime import anytime_matrix_profile, approx_matrix_profile
+
+    n, m = 1 << 19, 256
+    T = random_walk(n, SEED + 34)
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=4096, chunk=16384, device="cuda")
+    jobs = len(make_job_grid(n - m + 1, 4096, 16384).r0)
+    MPx, MPIx, full_wall, _, _ = run_profile(torch, T, cfg)
+    runs, launches = {}, 0
+    for order in ("shuffled", "diagonal"):
+        reset_counts()
+        prev, yields, first = None, 0, None
+        t0 = time.perf_counter()
+        for MP, MPI, frac in anytime_matrix_profile(T, config=cfg, order=order):
+            if prev is not None:
+                require(bool((MP <= prev).all()), f"{order}: a yield increased")
+            first = first or (time.perf_counter() - t0, frac)
+            prev, yields = MP, yields + 1
+        wall = time.perf_counter() - t0
+        launches += require_only(counts(), "k1", f"anytime {order}", launches=jobs)
+        err = check_profiles_agree(T, m, prev, MPI, MPx, MPIx, DIST_TOL["float32"])
+        runs[order] = {"wall_s": wall, "yields": yields, "first_yield_s": first[0],
+                       "first_fraction": first[1], "max_err_final_vs_full": err}
+    reset_counts()
+    t0 = time.perf_counter()
+    MPa, _, frac = approx_matrix_profile(T, config=cfg, fraction=0.25)
+    approx_wall = time.perf_counter() - t0
+    launches += require_only(counts(), "k1", "approx 0.25", launches=-(-jobs // 4))
+    require(bool((MPa >= MPx - 1e-6).all()), "approx: a distance under the exact one")
+    say("34 anytime", card=torch.cuda.get_device_name(0), n=n, m=m, band=4096, chunk=16384,
+        jobs=jobs, full_wall_s=full_wall, orders=runs,
+        approx={"fraction": frac, "wall_s": approx_wall,
+                "finite_share": float((MPa < 1e5).mean())},
+        k1_f32_launches=launches, tol=DIST_TOL["float32"])
+    return launches
+
+
+class Killed(RuntimeError):
+    pass
+
+
+def phase_checkpoint(torch) -> dict:
+    """Checkpoints on the card.  K3: f64, n = 2^19, m = 256, band 4096,
+    chunk 32768, ``kernel='pallas'``, groups of 64 jobs: killed after half
+    the groups, resumed, bit-equal to an uninterrupted checkpointed run and
+    to the driver; the overhead against the driver's run.  The hybrid (f64,
+    same shape): killed once in pass A and once in pass B, each resumed
+    run bit-equal to an uninterrupted ``kernel='hybrid'`` run; the rows
+    where K3 and the hybrid differ most, against the exact scan (the
+    hybrid held to 1e-8, K3's reading reported).  Returns the K3 f64 and
+    the hybrids' K1 f32 launches."""
+    from mpx_torch import MatrixProfileConfig, checkpoint, hybrid, make_job_grid
+    from mpx_torch.checkpoint import HybridCheckpoint, compute_with_checkpoint
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n, m, S, W = 1 << 19, 256, 4096, 32768
+    T = random_walk(n, SEED + 35)
+    jobs = len(make_job_grid(n - m + 1, S, W).r0)
+    out = {"n": n, "m": m, "band": S, "chunk": W, "jobs": jobs}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k3.npz")
+        cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="pallas", band=S, chunk=W,
+                                  device="cuda")
+        MPd, MPId, plain_wall, _, _ = run_profile(torch, T, cfg)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MP0, MPI0 = compute_with_checkpoint(T, cfg, path)
+        ck_wall = time.perf_counter() - t0
+        k3 = require_only(counts(), "k3", "checkpointed K3 run", launches=jobs)
+        require(np.array_equal(MP0, MPd) and np.array_equal(MPI0, MPId),
+                "the checkpointed K3 run differs from the driver's")
+        groups = -(-jobs // 64)
+        real_save, saves = checkpoint._save, []
+
+        def dying_save(*args):
+            real_save(*args)
+            saves.append(1)
+            if len(saves) == groups // 2:
+                raise Killed
+
+        checkpoint._save = dying_save
+        reset_counts()
+        try:
+            compute_with_checkpoint(T, cfg, path)
+            require(False, "the K3 run was not killed")
+        except Killed:
+            pass
+        finally:
+            checkpoint._save = real_save
+        t0 = time.perf_counter()
+        MP1, MPI1 = compute_with_checkpoint(T, cfg, path)
+        resume_wall = time.perf_counter() - t0
+        k3 += require_only(counts(), "k3", "killed + resumed K3 runs", launches=jobs)
+        require(np.array_equal(MP0, MP1) and np.array_equal(MPI0, MPI1),
+                "the resumed K3 run is not bit-equal")
+        require(not os.listdir(tmp), f"files left: {os.listdir(tmp)}")
+        out["k3"] = {"driver_wall_s": plain_wall, "checkpointed_wall_s": ck_wall,
+                     "overhead": ck_wall / plain_wall - 1.0, "groups": groups,
+                     "killed_after_groups": groups // 2, "resumed_wall_s": resume_wall,
+                     "k3_f64_launches": k3, "bit_equal": True}
+
+        hcfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=S, chunk=W,
+                                   device="cuda")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MPh, MPIh = (o.cpu().numpy() for o in hybrid.compute_matrix_profile_f64_hybrid(T, hcfg))
+        h_wall = time.perf_counter() - t0
+        k1 = require_only(counts(), "k1", "hybrid run", launches=jobs)
+        hpath = os.path.join(tmp, "hy.npz")
+        # The hybrid's exact values beside K3's recurrence: the rows where
+        # they differ most, each held (the hybrid) or read (K3) against the
+        # exact scan.
+        gap = np.abs(MPh - MP0)
+        rows = np.sort(np.argsort(gap)[-8:])
+        D = row_scan64_card(torch, T, m, rows)
+        hy = {"uninterrupted_wall_s": h_wall, "ckpt_jobs": hybrid.CKPT_JOBS,
+              "max_diff_vs_k3": float(gap.max()),
+              "rows_over_tol_vs_k3": int((gap > DIST_TOL["float64"]).sum()),
+              "worst_8_rows": [int(r) for r in rows],
+              "hybrid_max_err_worst_8_rows": check_rows(T, m, MPh, MPIh, rows,
+                                                        DIST_TOL["float64"], D=D),
+              "k3_max_err_worst_8_rows": float(np.abs(MP0[rows] - D.min(axis=1)).max())}
+        # killed after pass A's first group of CKPT_JOBS and pass B's fourth
+        for stage, after in (("A", 1), ("B", 4)):
+
+            class Dying(HybridCheckpoint):
+                saves = 0
+
+                def save_a(self, *a):
+                    super().save_a(*a)
+                    self._maybe("A")
+
+                def mark_done_and_save(self, *a, **kw):
+                    super().mark_done_and_save(*a, **kw)
+                    self._maybe("B")
+
+                def _maybe(self, s):
+                    if s == stage:
+                        Dying.saves += 1
+                        if Dying.saves == after:
+                            raise Killed
+
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                checkpoint.compute_hybrid_with_checkpoint(T, hcfg, hpath, _ckpt_cls=Dying)
+                require(False, f"the hybrid was not killed in pass {stage}")
+            except Killed:
+                pass
+            killed = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof = BenchmarkProfile()
+            MPr, MPIr = compute_with_checkpoint(T, hcfg, hpath, profile=prof)
+            resumed = time.perf_counter() - t0
+            c = counts()
+            # pass A's jobs split between the killed and the resumed run
+            k1 += require_only(c, "k1", f"hybrid killed in {stage} + resumed", launches=jobs)
+            require(np.array_equal(MPr, MPh) and np.array_equal(MPIr, MPIh),
+                    f"the hybrid resumed from pass {stage} is not bit-equal")
+            hy[stage] = {"killed_after_saves": after, "killed_run_s": killed,
+                         "resumed_s": resumed, "k1_launches_both": c["k1"],
+                         "dense_jobs": prof.counts.get("dense_jobs"), "bit_equal": True,
+                         "phases_s": {k: v / 1e9 for k, v in prof.category_totals().items()}}
+        require(not os.listdir(tmp), f"files left: {os.listdir(tmp)}")
+        out["hybrid"] = hy
+    say("35 checkpoint", card=torch.cuda.get_device_name(0), **out)
+    return {"k3_float64": k3, "k1_float32": k1}
+
+
+def phase_batch(torch) -> int:
+    """The fleet at ``batch-f32-256x8192``'s full shape (B = 256, n = 8192,
+    m = 64, band = chunk = 1024, f32, the runner's walks from seed 0): the
+    wall, ms a series, K1 launches, and the device's idle share of the
+    first 16 series' call under torch.profiler; 8 series bit-equal to
+    single runs, 4 series on 16 sampled rows each against the exact f64
+    scan.  Returns the K1 launches."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile, make_job_grid
+    from mpx_torch.batch import compute_batch_profiles
+
+    B, n, m, S = 256, 8192, 64, 1024
+    batch = np.cumsum(np.random.default_rng(0).standard_normal((B, n)), axis=1)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=S, chunk=S, device="cuda")
+    jobs = len(make_job_grid(w, S, S).r0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    MP, MPI = compute_batch_profiles(batch, config=cfg)
+    wall = time.perf_counter() - t0
+    launches = require_only(counts(), "k1", "fleet", launches=B * jobs)
+    # the trace of 16 series (its events of all 256 take about a minute to read)
+    traced = busy_share(torch, lambda: compute_batch_profiles(batch[:16], config=cfg))
+    for b in range(8):
+        one = [o.cpu().numpy() for o in compute_matrix_profile(batch[b], config=cfg)]
+        require(np.array_equal(MP[b], one[0]) and np.array_equal(MPI[b], one[1]),
+                f"fleet row {b} differs from its single run")
+    worst = 0.0
+    picks = np.random.default_rng(1).choice(B, 4, replace=False)
+    for s in picks:
+        rows = np.sort(np.random.default_rng(2).choice(w, 16, replace=False))
+        worst = max(worst, check_rows(batch[s], m, MP[s], MPI[s], rows, DIST_TOL["float32"]))
+    say("36 batch", card=torch.cuda.get_device_name(0), B=B, n=n, m=m, band=S, chunk=S,
+        jobs_per_series=jobs, wall_s=wall, series_ms=wall / B * 1e3,
+        pairs_per_s=B * w * (w - 1) / 2 / wall, k1_f32_launches=launches,
+        k1_us_per_launch_wall=wall / launches * 1e6, profiled=traced,
+        bit_equal_series=8, validated_series=[int(s) for s in picks],
+        max_err_16_rows=worst, tol=DIST_TOL["float32"])
+    return launches
+
+
+def gapped_walk(n: int, seed: int, runs: int = 52, length: int = 100) -> np.ndarray:
+    """A random walk with ``runs`` NaN runs of about ``length`` samples
+    (~1 % of n = 2^19 for the defaults), one +inf sample among them."""
+    rng = np.random.default_rng(seed)
+    T = np.cumsum(rng.standard_normal(n))
+    for s in rng.choice(n - 2 * length, runs, replace=False):
+        T[s : s + int(rng.integers(length // 2, 2 * length))] = np.nan
+    T[int(rng.integers(0, n))] = np.inf
+    return T
+
+
+def phase_masked(torch) -> dict:
+    """Masked gaps at n = 2^19, m = 256 (~1 % of samples NaN in 52 runs):
+    f32 ``auto`` (K1) and f64 ``kernel='pallas'`` (K3), band 4096, chunk
+    16384: gap windows report the sentinel and -1; 32 sampled good rows
+    within 2e-3 / 1e-8 of the exact masked f64 scan; then f32 ``auto``
+    ``left_right``, 16 rows a side against the sided masked scan.  Returns
+    the K1 f32 and K3 f64 launches."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.missing import compute_matrix_profile_masked, missing_window_mask
+
+    n, m = 1 << 19, 256
+    T = gapped_walk(n, SEED + 37)
+    bad = missing_window_mask(T, m)
+    Tf = np.where(np.isfinite(T), T, 0.0)
+    w = n - m + 1
+    jobs = len(make_job_grid(w, 4096, 16384).r0)
+    rows = np.sort(np.random.default_rng(SEED + 38).choice(np.nonzero(~bad)[0], 32,
+                                                            replace=False))
+    D = masked_scan_card(torch, Tf, m, rows, bad)
+    sentinel = np.sqrt(2.0 * m * (1.0 + 1e12))
+    out, launches = {}, {"k1": 0, "k3": 0}
+    for dtype, kernel, counter in (("float32", "auto", "k1"), ("float64", "pallas", "k3")):
+        cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, device="cuda")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile_masked(T, config=cfg))
+        wall = time.perf_counter() - t0
+        launches[counter] += require_only(counts(), counter, f"masked {dtype}", launches=jobs)
+        require(bool((MPI[bad] == -1).all()) and np.allclose(MP[bad], sentinel, rtol=1e-6),
+                f"masked {dtype}: a gap window has a neighbor")
+        require(not np.isin(MPI[MPI >= 0], np.nonzero(bad)[0]).any(),
+                f"masked {dtype}: a gap window is someone's neighbor")
+        err = check_rows(Tf, m, MP, MPI, rows, DIST_TOL[dtype], D=D)
+        out[f"{kernel}_{dtype}"] = {"wall_s": wall, "max_err_32_rows": err,
+                                    "tol": DIST_TOL[dtype]}
+    cfg = MatrixProfileConfig(m=m, dtype="float32", device="cuda")
+    reset_counts()
+    lr = [o.cpu().numpy() for o in compute_matrix_profile_masked(T, config=cfg, left_right=True)]
+    launches["k1"] += require_only(counts(), "k1", "masked left/right", launches=jobs)
+    sides = {}
+    for name, side, (MP, MPI) in (("left", -1, lr[:2]), ("right", 1, lr[2:])):
+        require(bool((MPI[bad] == -1).all()), f"masked {name}: a gap window has a neighbor")
+        sides[name] = check_rows(Tf, m, MP, MPI, rows[:16], DIST_TOL["float32"],
+                                 side=side, D=D[:16])
+    say("37 masked", card=torch.cuda.get_device_name(0), n=n, m=m,
+        nan_samples=int((~np.isfinite(T)).sum()), gap_windows=int(bad.sum()), runs=out,
+        left_right_f32_max_err_16_rows=sides)
+    return launches
+
+
+def phase_damp(torch) -> int:
+    """Batch DAMP at ``damp-f64-524288``'s full shape (n = 2^19, m = 256,
+    f64, band 4096, chunk 32768, k = 3; the runner's walk from seed 0):
+    one left/right run through ``auto`` (K1); wall and pairs/s; 16 sampled
+    rows' left values within 1e-8 of the exact f64 scan of earlier
+    windows.  Returns the K1 launches."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.damp import compute_damp
+
+    n, m = 1 << 19, 256
+    T = np.cumsum(np.random.default_rng(0).standard_normal(n))
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", band=4096, chunk=32768, device="cuda")
+    jobs = len(make_job_grid(w, 4096, 32768).r0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = compute_damp(T, config=cfg, k=3)
+    wall = time.perf_counter() - t0
+    launches = require_only(counts(), "k1", "damp", launches=jobs)
+    rows = np.sort(np.random.default_rng(1).choice(np.arange(m // 4 + 1, w), 16,
+                                                   replace=False))
+    D = row_scan64_card(torch, T, m, rows)
+    exp = np.where(np.arange(w)[None, :] < rows[:, None], D, np.inf).min(axis=1)
+    err = float(np.abs(res.scores[rows] - exp).max())
+    require(err <= DIST_TOL["float64"], f"damp rows off by {err}")
+    say("38 damp", card=torch.cuda.get_device_name(0), n=n, m=m, band=4096, chunk=32768,
+        wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall, k1_f64_launches=launches,
+        discords=[list(a) for a in res.discords], max_err_16_rows=err,
+        tol=DIST_TOL["float64"])
+    return launches
+
+
+def phase_slice10_cli(torch):
+    """The command lines on data/binary/16384.tsb, each equal to the
+    library on the card: ``compute --checkpoint`` resuming a run killed
+    after its first group (band 256, chunk 512), ``--approx 0.25``,
+    ``--allow-missing`` on a copy with two NaN runs, ``damp``, ``batch``
+    (four quarters of the series) and ``floss``."""
+    from mpx_torch import MatrixProfileConfig, checkpoint
+    from mpx_torch.analysis import extract_regimes
+    from mpx_torch.anytime import approx_matrix_profile
+    from mpx_torch.batch import compute_batch_profiles
+    from mpx_torch.checkpoint import compute_with_checkpoint
+    from mpx_torch.damp import compute_damp
+    from mpx_torch.floss import Floss
+    from mpx_torch.io.tsb import read_binary, read_series, write_binary
+    from mpx_torch.missing import compute_matrix_profile_masked
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T, m = read_series(src), 64
+    out = {}
+
+    def files(base):
+        return read_binary(base + ".mpb", "double"), read_binary(base + ".mpib", "int")
+
+    def same(got, want, what):
+        require(all(np.array_equal(a, np.asarray(b)) for a, b in zip(got, want)),
+                f"{what}: the command's files differ from the library's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base, ck = os.path.join(tmp, "out"), os.path.join(tmp, "run.npz")
+        cfg = MatrixProfileConfig(m=m, band=256, chunk=512, device="cuda")
+        want = compute_with_checkpoint(T, cfg, ck)
+        real_save = checkpoint._save
+
+        def dying_save(*args):
+            real_save(*args)
+            raise Killed
+
+        checkpoint._save = dying_save
+        try:
+            compute_with_checkpoint(T, cfg, ck)
+        except Killed:
+            pass
+        finally:
+            checkpoint._save = real_save
+        require(os.path.exists(ck), "no checkpoint after the kill")
+        t0 = time.perf_counter()
+        printed = run_cli("compute", "-i", src, "-m", str(m), "--band", "256", "--chunk",
+                          "512", "--checkpoint", ck, "-o", base)
+        require("resuming from checkpoint: group 1/" in printed, printed)
+        same(files(base), want, "compute --checkpoint")
+        out["checkpoint"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_cli("compute", "-i", src, "-m", str(m), "--approx", "0.25", "-o", base)
+        same(files(base), approx_matrix_profile(T, config=MatrixProfileConfig(
+            m=m, device="cuda"), fraction=0.25)[:2], "compute --approx")
+        out["approx"] = time.perf_counter() - t0
+
+        G = T.copy()
+        G[3000:3100] = np.nan
+        G[9000:9010] = np.nan
+        gap = os.path.join(tmp, "gap.tsb")
+        write_binary(gap, G)
+        t0 = time.perf_counter()
+        run_cli("compute", "-i", gap, "-m", str(m), "--allow-missing", "-o", base)
+        same(files(base), [o.cpu().numpy() for o in compute_matrix_profile_masked(
+            G, config=MatrixProfileConfig(m=m, device="cuda"))], "compute --allow-missing")
+        out["allow_missing"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("damp", "-i", src, "-m", str(m), "--split", "1000", "--dtype",
+                          "float64", "-o", base)
+        res = compute_damp(T, config=MatrixProfileConfig(m=m, dtype="float64", device="cuda"),
+                           split=1000)
+        lines = [f"  {a.index:>8}  distance {a.distance:.6f}" for a in res.discords]
+        require([ln for ln in printed.splitlines() if ln.startswith("  ")] == lines
+                and np.array_equal(np.load(base + ".damp.npy"), res.scores),
+                f"damp differs from compute_damp:\n{printed}")
+        out["damp"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        quarters = T.reshape(4, -1)
+        paths = []
+        for b, q in enumerate(quarters):
+            paths += ["-i", os.path.join(tmp, f"q{b}.tsb")]
+            write_binary(paths[-1], q)
+        run_cli("batch", "-m", str(m), *paths, "-o", base)
+        MP, MPI = compute_batch_profiles(quarters, config=MatrixProfileConfig(m=m,
+                                                                              device="cuda"))
+        for b in range(4):
+            same(files(f"{base}.q{b}"), (MP[b], MPI[b]), "batch")
+        out["batch"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("floss", "-i", src, "-m", str(m), "--step", "512", "--window",
+                          "8192", "-k", "2", "--threshold", "1.0")
+        fl = Floss(T[: 4 * m], m, window=8192, device="cuda")
+        for s in range(4 * m, T.shape[0], 512):
+            fl.append(T[s : s + 512])
+        cac = fl.cac()
+        lines = [f"  {fl.offset + r:8d} {cac[r]:.3f}" for r in extract_regimes(cac, m, k=2)
+                 if cac[r] < 1.0]
+        require([ln for ln in printed.splitlines() if ln.startswith("  ")] == lines
+                and f"window [{fl.offset}, {T.shape[0]})" in printed,
+                f"floss differs from Floss:\n{printed}")
+        out["floss"] = time.perf_counter() - t0
+    say("39 slice-10 commands", card=torch.cuda.get_device_name(0),
+        input="data/binary/16384.tsb", seconds=out)
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     smi = phase_device(torch)
     sys.path.insert(0, REPO)
     # Phase 17: the caller's TF32 setting survives every phase (the port
@@ -2383,8 +2982,28 @@ def main() -> int:
     tf32_kept("31")
     phase_slice9_cli(torch)
     tf32_kept("32")
+    p33 = phase_streaming(torch)
+    for dt in ("float32", "float64"):
+        launches["mxu_fused"][dt] += p33[dt]
+    tf32_kept("33")
+    launches["mxu_fused"]["float32"] += phase_anytime(torch)
+    tf32_kept("34")
+    p35 = phase_checkpoint(torch)
+    launches["band_recurrence"]["float64"] += p35["k3_float64"]
+    launches["mxu_fused"]["float32"] += p35["k1_float32"]
+    tf32_kept("35")
+    launches["mxu_fused"]["float32"] += phase_batch(torch)
+    tf32_kept("36")
+    p37 = phase_masked(torch)
+    launches["mxu_fused"]["float32"] += p37["k1"]
+    launches["band_recurrence"]["float64"] += p37["k3"]
+    tf32_kept("37")
+    launches["mxu_fused"]["float64"] += phase_damp(torch)
+    tf32_kept("38")
+    phase_slice10_cli(torch)
+    tf32_kept("39")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-        unchanged_after_phases=tf32_after)
+        unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)
     kernels = [
         {"name": f"{name}[{dt}]", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][dt], **times[dt]}

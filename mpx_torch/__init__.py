@@ -16,24 +16,41 @@ sum-threshold profiles (``thresh.py``), the raw-Euclidean profiles
 (``aamp.py``) and the pooled distance-matrix summary (``distmatrix.py``);
 the multi-dimensional profile (``mstamp.py``), the pan profile across
 window lengths (``pan.py``, its fused sweep ``pan_kernel.py``) and exact
-multi-length discords and motifs (``merlin.py``); and the ``compute``
-(``--raw``), ``abjoin``, ``topk``, ``thresh``, ``matrix``, ``mstamp``,
-``pan``, ``merlin``, ``tsbin``, ``golden``, ``datasets`` and ``bench``
-command lines (``python -m mpx_torch ...``).
+multi-length discords and motifs (``merlin.py``); the schedule
+variants: streaming appends (``streaming.py``) with FLOSS (``floss.py``,
+``analysis.py``) and online DAMP (``damp.py``, with batch DAMP), the
+anytime profile (``anytime.py``), resumable checkpoints (``checkpoint.py``,
+the strict tiers and the hybrid), the fleet batch (``batch.py``) and
+masked gaps (``missing.py``); and the ``compute`` (``--raw``,
+``--checkpoint``, ``--approx``, ``--allow-missing``), ``abjoin``,
+``topk``, ``thresh``, ``matrix``, ``mstamp``, ``pan``, ``merlin``,
+``damp``, ``batch``, ``floss``, ``tsbin``, ``golden``, ``datasets`` and
+``bench`` command lines (``python -m mpx_torch ...``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
 from mpx_torch.abjoin import compute_ab_join
+from mpx_torch.analysis import (
+    corrected_arc_curve,
+    extract_regimes,
+    one_directional_cac,
+    regimes,
+)
+from mpx_torch.anytime import anytime_matrix_profile, approx_matrix_profile
+from mpx_torch.batch import compute_batch_profiles
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.damp import Anomaly, OnlineAnomalyDetector, compute_damp
 from mpx_torch.distmatrix import pooled_matrix
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
+from mpx_torch.floss import Floss
 from mpx_torch.merlin import (
     LengthDiscord,
     MerlinResult,
     multi_length_discords,
     multi_length_motifs,
 )
+from mpx_torch.missing import compute_matrix_profile_masked, missing_window_mask
 from mpx_torch.mstamp import (
     MdlResult,
     compute_multidim_profile,
@@ -75,6 +92,19 @@ __all__ = [
     "multi_length_motifs",
     "LengthDiscord",
     "MerlinResult",
+    "anytime_matrix_profile",
+    "approx_matrix_profile",
+    "corrected_arc_curve",
+    "extract_regimes",
+    "one_directional_cac",
+    "regimes",
+    "Anomaly",
+    "OnlineAnomalyDetector",
+    "compute_damp",
+    "Floss",
+    "compute_batch_profiles",
+    "compute_matrix_profile_masked",
+    "missing_window_mask",
     "Aggregates",
     "JobGrid",
     "Stats",

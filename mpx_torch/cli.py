@@ -2,7 +2,9 @@
 
 * ``compute``  — a self-join matrix profile (``--left-right`` for the
   left/right profiles, ``--dtype ap16|ap24|ap32|ap64`` for the
-  fixed-point input tier, ``--raw`` for the raw-Euclidean AAMP profile);
+  fixed-point input tier, ``--raw`` for the raw-Euclidean AAMP profile,
+  ``--checkpoint`` for a resumable run, ``--approx`` for the anytime
+  tier's upper bounds, ``--allow-missing`` for masked gaps);
 * ``abjoin``   — the AB-join of two series (``<o>.a``/``<o>.b``
   ``.mpb``/``.mpib``);
 * ``topk``     — the k nearest neighbors of every window (``<o>.topk.npz``);
@@ -15,6 +17,12 @@
   (``<o>.pan.npz``);
 * ``merlin``   — the exact discord (``--motifs``: motif pair) at every
   window length in a range;
+* ``damp``     — DAMP anomalies: the left-profile discords after a split
+  (``<o>.damp.npy``);
+* ``batch``    — the profiles of a fleet of equal-length series, one
+  ``-i`` each (``<o>.<stem>.mpb``/``.mpib``);
+* ``floss``    — online segmentation: the series replayed through FLOSS
+  in ``--step`` chunks;
 * ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
   MPXQ fixed-point containers);
 * ``golden``   — golden MP/MPI through the numpy oracle
@@ -33,6 +41,7 @@ as mpx's.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -57,6 +66,13 @@ def _add_compute(sub):
                    help="emit left/right profiles (<o>.left/.right .mpb/.mpib)")
     p.add_argument("--raw", action="store_true",
                    help="raw Euclidean (non-normalized, AAMP) profile")
+    p.add_argument("--checkpoint", help="checkpoint file for resumable runs")
+    p.add_argument("--approx", type=float, default=None, metavar="FRACTION",
+                   help="anytime tier: sweep only this fraction of the job grid "
+                        "(distances are upper bounds, exact at 1.0)")
+    p.add_argument("--allow-missing", action="store_true",
+                   help="masked gaps: windows overlapping a NaN/inf sample are "
+                        "excluded from both sides of the join")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -68,10 +84,17 @@ def _cmd_compute(args) -> int:
     from mpx_torch.io.tsb import read_series, write_results
     from mpx_torch.utils.profile import BenchmarkProfile
 
-    # mpx's refusal; its other single-device-only flags (--checkpoint,
-    # --shards, --approx) are not ported, and the parser refuses them.
-    if args.raw and args.left_right:
+    # mpx's refusals of flag combinations it would silently ignore (its
+    # --shards is not ported: the parser refuses it).
+    if args.left_right and args.checkpoint:
+        raise SystemExit("--left-right does not support --checkpoint")
+    if args.approx is not None and (args.checkpoint or args.left_right):
+        raise SystemExit("--approx is a single-device full-profile mode")
+    if args.raw and (args.checkpoint or args.left_right or args.approx is not None):
         raise SystemExit("--raw is a single-device full-profile mode")
+    if args.allow_missing and (args.checkpoint or args.approx is not None or args.raw):
+        raise SystemExit("--allow-missing supports the plain and --left-right "
+                         "profile modes only")
     Logger.verbose = args.verbose
     T = read_series(args.input)
     Logger.verbose_log(f"read {T.shape[0]} values from {args.input}")
@@ -80,14 +103,28 @@ def _cmd_compute(args) -> int:
         chunk=args.chunk, device=args.device,
     )
     prof = BenchmarkProfile()
-    if args.raw:
+    if args.allow_missing:
+        from mpx_torch.missing import compute_matrix_profile_masked as _compute
+    else:
+        _compute = compute_matrix_profile
+    if args.checkpoint:
+        from mpx_torch.checkpoint import compute_with_checkpoint
+
+        out = compute_with_checkpoint(T, cfg, args.checkpoint, profile=prof)
+    elif args.approx is not None:
+        from mpx_torch.anytime import approx_matrix_profile
+
+        *out, frac = approx_matrix_profile(T, config=cfg, fraction=args.approx)
+        Logger.info(f"approximate profile from {frac:.0%} of the job grid "
+                    f"(upper-bound distances)")
+    elif args.raw:
         from mpx_torch.aamp import compute_aamp_profile
 
         out = compute_aamp_profile(T, config=cfg)
     else:
-        out = compute_matrix_profile(T, config=cfg, profile=prof,
-                                     left_right=args.left_right)
-    out = [o.cpu().numpy() for o in out]
+        out = _compute(T, config=cfg, profile=prof, left_right=args.left_right)
+    # checkpointed and anytime runs return numpy, the driver tensors
+    out = [o if isinstance(o, np.ndarray) else o.cpu().numpy() for o in out]
     if args.left_right:
         named = [(".left", out[0], out[1]), (".right", out[2], out[3])]
     else:
@@ -493,6 +530,157 @@ def _cmd_tsbin(args) -> int:
     return 0
 
 
+def _add_damp(sub):
+    p = sub.add_parser(
+        "damp", help="DAMP anomaly detection: left-profile discords",
+        description="Score every window by its distance to the nearest EARLIER "
+        "window (the left profile, exact) and report the strongest anomalies "
+        "after --split.  Scores are causal: each one is final when its window "
+        "arrives.")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("--split", type=int, default=0,
+                   help="training prefix: windows before this index are never "
+                        "reported (default 0)")
+    p.add_argument("-k", type=int, default=3, help="anomalies to report (default 3)")
+    p.add_argument("-o", "--output", help="write <out>.damp.npy (float64 scores)")
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_damp(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.damp import compute_damp
+    from mpx_torch.io.tsb import read_series
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    res = compute_damp(T, config=MatrixProfileConfig(m=args.m, dtype=args.dtype,
+                                                     device=args.device),
+                       split=args.split, k=args.k)
+    if args.output:
+        np.save(args.output + ".damp", res.scores)
+        print(f"wrote {args.output}.damp.npy")
+    print(f"anomalies (left-profile discords, split {res.split}):")
+    for a in res.discords:
+        print(f"  {a.index:>8}  distance {a.distance:.6f}")
+    if not res.discords:
+        print("  none (no scorable window after the split)")
+    return 0
+
+
+def _add_batch(sub):
+    p = sub.add_parser(
+        "batch", help="profiles for a fleet of equal-length series (one -i each)",
+        description="The fleet tier: every series' profile, staged in groups; "
+        "writes <out>.<stem>.mpb/.mpib per input.")
+    p.add_argument("-i", "--input", action="append", required=True,
+                   help="series file; repeat for each series (>= 1)")
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("-o", "--output", help="output prefix (default: print per-series minima)")
+    p.add_argument("--group", type=int, default=None,
+                   help="series staged at once (default: as many as fit the budget)")
+    p.add_argument("--shards", type=int, default=None, help="device count (not ported)")
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_batch(args) -> int:
+    from mpx_torch.batch import compute_batch_profiles
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series, write_results
+
+    Logger.verbose = args.verbose
+    series = [read_series(p) for p in args.input]
+    lengths = {s.shape[0] for s in series}
+    if len(lengths) != 1:
+        raise ValueError(f"batch requires equal-length series, got lengths {sorted(lengths)}")
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, num_shards=args.shards,
+                              device=args.device)
+    MP, MPI = compute_batch_profiles(np.stack(series), config=cfg, group=args.group)
+    if args.output:
+        stems = [os.path.splitext(os.path.basename(p))[0] for p in args.input]
+        # same-named inputs from different directories: on any collision every
+        # output gets its index appended
+        if len(set(stems)) != len(stems):
+            stems = [f"{s}.{b}" for b, s in enumerate(stems)]
+        for b, stem in enumerate(stems):
+            mpb, mpib = write_results(f"{args.output}.{stem}", MP[b], MPI[b])
+            Logger.verbose_log(f"wrote {mpb}, {mpib}")
+        print(f"wrote {len(args.input)} profile pairs to {args.output}.*.mpb/.mpib")
+    else:
+        print("series  min-dist  @motif-pair")
+        for b, path in enumerate(args.input):
+            i = int(MP[b].argmin())
+            print(f"  {path}: {MP[b][i]:.6f} @ ({i}, {MPI[b][i]})")
+    return 0
+
+
+def _add_floss(sub):
+    p = sub.add_parser(
+        "floss", help="online semantic segmentation (streaming FLOSS)",
+        description="Stream a series through the FLOSS online segmenter: the "
+        "file is replayed in --step chunks against a --window sliding window, "
+        "printing the strongest regime boundaries seen.")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True, help="subsequence length")
+    p.add_argument("--window", type=int, default=None,
+                   help="retained points (default: whole series)")
+    p.add_argument("--init", type=int, default=None,
+                   help="warmup points before streaming (default 4*m)")
+    p.add_argument("--step", type=int, default=256, help="points per append chunk")
+    p.add_argument("-k", type=int, default=1, help="boundaries to report")
+    p.add_argument("--threshold", type=float, default=0.45,
+                   help="only report boundaries with CAC below this")
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    return p
+
+
+def _cmd_floss(args) -> int:
+    import time
+
+    from mpx_torch.analysis import extract_regimes
+    from mpx_torch.floss import Floss
+    from mpx_torch.io.tsb import read_series
+
+    if args.step < 1:
+        raise ValueError(f"--step must be >= 1 (got {args.step})")
+    T = read_series(args.input)
+    init = args.init if args.init is not None else 4 * args.m
+    if init < args.m + args.m // 4:
+        raise ValueError(f"--init {init} < m + m//4 = {args.m + args.m // 4} "
+                         "(too short for a self-join warmup)")
+    if init >= T.shape[0]:
+        raise ValueError(f"--init {init} consumes the whole series ({T.shape[0]})")
+    # the default window is the whole series (Floss's own default, the
+    # warmup's length, would keep only a tail here)
+    window = args.window if args.window is not None else T.shape[0]
+    fl = Floss(T[:init], m=args.m, window=window, dtype=args.dtype, device=args.device)
+    t0 = time.perf_counter()
+    for start in range(init, T.shape[0], args.step):
+        fl.append(T[start : start + args.step])
+    elapsed = time.perf_counter() - t0
+    streamed = T.shape[0] - init
+    cac = fl.cac()
+    print(f"streamed {streamed} points in {elapsed:.3f}s "
+          f"({streamed / max(elapsed, 1e-9):.0f} points/s), "
+          f"window [{fl.offset}, {fl.offset + fl.series.shape[0]})")
+    found = [(fl.offset + r, cac[r]) for r in extract_regimes(cac, args.m, k=args.k)
+             if cac[r] < args.threshold]
+    if not found:
+        print(f"no boundary below CAC {args.threshold} (min {cac.min():.3f})")
+    else:
+        print("regime boundaries (position, CAC):")
+        for r, c in found:
+            print(f"  {r:8d} {c:.3f}")
+    return 0
+
+
 def _add_golden(sub):
     p = sub.add_parser("golden", help="golden MP/MPI via the numpy oracle")
     p.add_argument("-i", "--input", required=True)
@@ -541,6 +729,9 @@ def main(argv=None) -> int:
     _add_mstamp(sub)
     _add_pan(sub)
     _add_merlin(sub)
+    _add_damp(sub)
+    _add_batch(sub)
+    _add_floss(sub)
     _add_tsbin(sub)
     _add_golden(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
@@ -552,7 +743,8 @@ def main(argv=None) -> int:
     try:
         return {"compute": _cmd_compute, "abjoin": _cmd_abjoin, "topk": _cmd_topk,
                 "thresh": _cmd_thresh, "matrix": _cmd_matrix, "mstamp": _cmd_mstamp,
-                "pan": _cmd_pan, "merlin": _cmd_merlin, "tsbin": _cmd_tsbin,
+                "pan": _cmd_pan, "merlin": _cmd_merlin, "damp": _cmd_damp,
+                "batch": _cmd_batch, "floss": _cmd_floss, "tsbin": _cmd_tsbin,
                 "golden": _cmd_golden,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:

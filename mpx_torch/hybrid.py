@@ -121,6 +121,10 @@ SPARSE_MAX_W = 2**23
 # Device memory left free beside the captures: pass B's dense tile and its
 # masks (~2 GB at S = 4096, W = 32768) and the row scans' blocks (~1.5 GB).
 _CAPTURE_HEADROOM = 4 << 30
+# Jobs between two saves of a checkpointed run (mpx_torch.checkpoint): pass
+# A's groups and pass B's merge groups.  Part of the checkpoint's
+# fingerprint.
+CKPT_JOBS = 256
 
 
 def default_margin(m: int) -> float:
@@ -262,7 +266,7 @@ def _build_thr(rmax, cmax, margin: float, *, w: int, pw: int, combine: bool = Tr
 def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int,
                  pw: int, combine: bool = True, capture: bool = True, stats_c=None,
                  wc: Optional[int] = None, pwc: Optional[int] = None,
-                 excl: Optional[int] = None):
+                 excl: Optional[int] = None, ckpt=None):
     """Pass A: one K1 float32 launch per job (the plain sweep for CPU
     tensors), max-merged into (w + S,) row and (wc + W,) column maxima and
     folded into the thresholds (see :func:`_build_thr`; a pair
@@ -272,7 +276,12 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
     Returns (thresholds, captures): with ``capture`` the captures
     ``(r0s, k0s, jrow (J, S), jcol (J, W))`` are each job's per-row and
     per-column maxima, pass B's skip oracle; without, None and nothing is
-    kept."""
+    kept.
+
+    ``ckpt`` (:class:`mpx_torch.checkpoint.HybridCheckpoint`, self-join
+    only) persists the maxima after every :data:`CKPT_JOBS` jobs and
+    resumes from a saved group; the jobs before it have no captures and are
+    listed in ``ckpt.uncaptured`` for a dense pass B."""
     geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
     dev = stats.windows.device
     r0s, k0s = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
@@ -281,7 +290,15 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
     if capture:
         jrow = torch.empty((len(r0s), S), dtype=torch.float32, device=dev)
         jcol = torch.empty((len(r0s), W), dtype=torch.float32, device=dev)
-    for j, (r0, k0) in enumerate(zip(r0s.tolist(), k0s.tolist())):
+    start = 0
+    if ckpt is not None and (st := ckpt.load_a()) is not None:
+        rmax.copy_(torch.as_tensor(st[0]))
+        cmax.copy_(torch.as_tensor(st[1]))
+        start = min(st[2] * CKPT_JOBS, len(r0s))
+        ckpt.uncaptured = np.arange(start)
+        Logger.info(f"hybrid pass A: resuming at job {start}/{len(r0s)}")
+    for j in range(start, len(r0s)):
+        r0, k0 = int(r0s[j]), int(k0s[j])
         rv, cv = sweep_band_max_fused(stats, r0, k0, geom, stats_c)
         seg_r, seg_c = rmax[r0 : r0 + S], cmax[r0 + k0 : r0 + k0 + W]
         torch.maximum(seg_r, rv, out=seg_r)
@@ -289,6 +306,8 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
         if capture:
             jrow[j].copy_(rv)
             jcol[j].copy_(cv)
+        if ckpt is not None and ((j + 1) % CKPT_JOBS == 0 or j + 1 == len(r0s)):
+            ckpt.save_a(rmax, cmax, -(-(j + 1) // CKPT_JOBS))
     thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine, wc=wc, pwc=pwc)
     return thr, ((r0s, k0s, jrow, jcol) if capture else None)
 
@@ -297,28 +316,33 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
 
 
 def _dense_jobs(stats, thr, r0s, k0s, geom, rows_g: SuspectWindow,
-                cols_g: SuspectWindow, thr_col=None, stats_c=None) -> None:
+                cols_g: SuspectWindow, thr_col=None, stats_c=None, ckpt=None) -> None:
     """Sweep the jobs' whole tiles, merging each job's summaries into the
-    global row-axis and column-axis ones."""
-    for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
+    global row-axis and column-axis ones; with ``ckpt``, the state is saved
+    and the jobs marked done after every :data:`CKPT_JOBS` of them."""
+    r0s, k0s = np.asarray(r0s).tolist(), np.asarray(k0s).tolist()
+    for j, (r0, k0) in enumerate(zip(r0s, k0s)):
         out = sweep_band_suspects(stats, r0, k0, geom, thr, thr_col, stats_c)
         _merge_suspects_at(rows_g, out.row, r0)
         _merge_suspects_at(cols_g, out.col, r0 + k0)
+        if ckpt is not None and ((j + 1) % CKPT_JOBS == 0 or j + 1 == len(r0s)):
+            lo = j // CKPT_JOBS * CKPT_JOBS
+            ckpt.mark_done_and_save(rows_g, cols_g, r0s[lo : j + 1], k0s[lo : j + 1])
 
 
 def run_suspect_jobs(stats, thr, r0s, k0s, *, S: int, W: int, m: int, w: int,
                      thr_col=None, combine: bool = True, stats_c=None,
-                     wc: Optional[int] = None, excl: Optional[int] = None):
+                     wc: Optional[int] = None, excl: Optional[int] = None, ckpt=None):
     """Dense pass B over the given jobs (the reference of the sparse pass
     B, and the route without captures).  ``thr_col`` is the column side's
     threshold (default ``thr``), ``stats_c``/``wc``/``excl`` an AB-join's
     geometry (:func:`run_max_jobs`); returns one summary per subsequence,
     or the row and column sides apart without ``combine``
-    (:func:`_finish_suspects`)."""
+    (:func:`_finish_suspects`).  ``ckpt`` as for :func:`_dense_jobs`."""
     dev = stats.windows.device
     geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
     rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(geom.wc + W, dev)
-    _dense_jobs(stats, thr, r0s, k0s, geom, rows_g, cols_g, thr_col, stats_c)
+    _dense_jobs(stats, thr, r0s, k0s, geom, rows_g, cols_g, thr_col, stats_c, ckpt)
     return _finish_suspects(rows_g, cols_g, w=w, wc=wc, combine=combine)
 
 
@@ -345,36 +369,51 @@ def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, thr_col=None,
 def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
                             thr_col=None, combine: bool = True, profile=None,
                             stats_c=None, wc: Optional[int] = None,
-                            excl: Optional[int] = None):
+                            excl: Optional[int] = None, ckpt=None):
     """Sparse pass B: each job re-examines only the rows and columns its
     pass-A captures flag, at its exact flag counts (fetched once for all
     jobs); a job over the budget takes the dense sweep.  Same result as
-    :func:`run_suspect_jobs` over all jobs (and the same arguments)."""
+    :func:`run_suspect_jobs` over all jobs (and the same arguments).
+
+    With ``ckpt`` the sparse jobs merge and are saved in groups of
+    :data:`CKPT_JOBS` (without it, in one merge); the jobs whose captures
+    a resumed pass A lost (``ckpt.uncaptured``) take the dense sweep, and
+    every dense job stays pending until its own sweep lands."""
     r0s, k0s, jrow, jcol = cap
     geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
     dev = stats.windows.device
     rows_g, cols_g = _init_suspects(w + S, dev), _init_suspects(geom.wc + W, dev)
     with phase(profile, "2. Compute [pass B sparse]", device=dev):
         counts = _flag_counts(thr, r0s, k0s, jrow, jcol, S=S, W=W, thr_col=thr_col)
-        dense = counts.max(axis=1) > _sparse_budget(S, W)
-        found = ([], [])  # (positions, summaries) of the row and column sides
-        for j in np.nonzero(~dense & (counts.max(axis=1) > 0))[0].tolist():
-            for side, got in zip(found, sweep_band_suspects_sparse(
-                    stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
-                    *(int(x) for x in counts[j]), thr_col=thr_col, stats_c=stats_c)):
-                if got is not None:
-                    side.append(got)
-        # One merge for all sparse jobs: their summaries land in one sort.
-        for g, side in zip((rows_g, cols_g), found):
-            if side:
-                pos, wins = zip(*side)
-                _merge_many(g, torch.cat(pos), SuspectWindow(*map(torch.cat, zip(*wins))))
+        lost = np.zeros(len(r0s), bool)
+        if ckpt is not None:
+            lost[ckpt.uncaptured] = True
+            counts[lost] = 0  # their captures were never written
+        dense = lost | (counts.max(axis=1) > _sparse_budget(S, W))
+        sparse = np.nonzero(~dense)[0]
+        step = CKPT_JOBS if ckpt is not None else max(1, len(sparse))
+        for lo in range(0, len(sparse), step):
+            group = sparse[lo : lo + step]
+            found = ([], [])  # (positions, summaries) of the row and column sides
+            for j in group[counts[group].max(axis=1) > 0].tolist():
+                for side, got in zip(found, sweep_band_suspects_sparse(
+                        stats, r0s[j], k0s[j], jrow[j], jcol[j], geom, thr,
+                        *(int(x) for x in counts[j]), thr_col=thr_col, stats_c=stats_c)):
+                    if got is not None:
+                        side.append(got)
+            # One merge for the group's jobs: their summaries land in one sort.
+            for g, side in zip((rows_g, cols_g), found):
+                if side:
+                    pos, wins = zip(*side)
+                    _merge_many(g, torch.cat(pos), SuspectWindow(*map(torch.cat, zip(*wins))))
+            if ckpt is not None:
+                ckpt.mark_done_and_save(rows_g, cols_g, r0s[group], k0s[group])
     if dense.any():
         Logger.verbose_log(f"hybrid sparse pass B: {int(dense.sum())} job(s) over the "
-                           "flag budget to the dense sweep")
+                           "flag budget or without captures to the dense sweep")
     with phase(profile, "2. Compute [pass B dense]", device=dev):
         _dense_jobs(stats, thr, r0s[dense], k0s[dense], geom, rows_g, cols_g, thr_col,
-                    stats_c)
+                    stats_c, ckpt)
     if profile is not None:
         flags = counts.max(axis=1)
         profile.counts.update({
@@ -639,22 +678,38 @@ def _host_f64(T) -> np.ndarray:
 
 def _passes(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: int, pw: int,
             combine: bool, profile, stats_c=None, wc: Optional[int] = None,
-            pwc: Optional[int] = None, excl: Optional[int] = None):
+            pwc: Optional[int] = None, excl: Optional[int] = None, ckpt=None):
     """Passes A and B over the given jobs: the thresholds and the suspect
     summaries (one of each, or the row and column sides' with
     ``combine=False``).  Pass B's route comes from the capture gate on the
     wider axis, and lands in ``profile.counts``; ``stats_c`` .. ``excl``
-    carry an AB-join's geometry (:func:`run_max_jobs`)."""
+    carry an AB-join's geometry (:func:`run_max_jobs`).  ``ckpt``
+    (:class:`mpx_torch.checkpoint.HybridCheckpoint`, the self-join only)
+    persists both passes and resumes them: from a pass-B state, the jobs
+    still pending sweep densely into it."""
     dev = stats.windows.device
+    if ckpt is not None and (state := ckpt.load_b()) is not None:
+        thr = torch.as_tensor(state["thr"], device=dev)
+        rows_g, cols_g = (SuspectWindow(*(torch.as_tensor(state[f"{side}_{f}"], device=dev)
+                                          for f in ("cnt", "mn", "mx")))
+                          for side in ("rows", "cols"))
+        r0p, k0p = ckpt.pending_jobs()
+        Logger.info(f"hybrid pass B: resuming, {len(r0p)} of {ckpt.njobs} jobs pending")
+        with phase(profile, "2. Compute [pass B resume dense]", device=dev):
+            _dense_jobs(stats, thr, r0p, k0p, band_geometry(S, W, m, w), rows_g, cols_g,
+                        ckpt=ckpt)
+        return thr, _finish_suspects(rows_g, cols_g, w=w, combine=True)
     jobs = len(r0s)
     nbytes = capture_bytes(jobs, S, W)
     sparse = _sparse_ok(max(w, w if wc is None else wc), nbytes, dev)
     ab = dict(stats_c=stats_c, wc=wc, excl=excl)
     with phase(profile, "2. Compute [pass A]", device=dev):
         thr, cap = run_max_jobs(stats, r0s, k0s, margin, S=S, W=W, m=m, w=w, pw=pw,
-                                pwc=pwc, combine=combine, capture=sparse, **ab)
+                                pwc=pwc, combine=combine, capture=sparse, ckpt=ckpt, **ab)
     thr_r, thr_c = (thr, None) if combine else thr
-    kw = dict(S=S, W=W, m=m, w=w, thr_col=thr_c, combine=combine, **ab)
+    if ckpt is not None:
+        ckpt.begin_b(thr)
+    kw = dict(S=S, W=W, m=m, w=w, thr_col=thr_c, combine=combine, ckpt=ckpt, **ab)
     if sparse:
         sus = run_suspect_jobs_sparse(stats, thr_r, cap, profile=profile, **kw)
         del cap  # the captured job maxima
@@ -673,10 +728,13 @@ def _distances(P: torch.Tensor, m: int) -> torch.Tensor:
     return torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0))
 
 
-def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool):
+def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool, ckpt=None):
     """The hybrid tier end to end: the self-join's (bestP, bestI) or, with
     ``left_right``, the left and right sides' (bestP, bestI) each, as
     distances (see the public functions)."""
+    if ckpt is not None and left_right:
+        raise ValueError("checkpointed hybrid runs compute the self-join profile only; "
+                         "drop left_right")
     m = config.m
     T64 = _host_f64(T)
     n = T64.shape[0]
@@ -696,7 +754,8 @@ def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool):
 
     grid = make_job_grid(w, S, W)
     thr, sus = _passes(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
-                       pw=stats.mu.shape[0], combine=not left_right, profile=profile)
+                       pw=stats.mu.shape[0], combine=not left_right, profile=profile,
+                       ckpt=ckpt)
     ex = (exact.T, exact.mu[:w], exact.inv[:w])
     resolve = dict(stats_q=stats, stats_t=stats, exact_q=ex, exact_t=ex, excl=excl, wt=w,
                    profile=profile)
@@ -762,7 +821,8 @@ def compute_ab_join_f64_hybrid(A, B, config: MatrixProfileConfig, *,
 
 
 def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
-                                      margin: Optional[float] = None, profile=None):
+                                      margin: Optional[float] = None, profile=None,
+                                      ckpt=None):
     """Exact double-precision self-join profile through the hybrid tier.
 
     Returns (MP float64 distances, MPI int32) tensors on ``config.device``;
@@ -770,8 +830,9 @@ def compute_matrix_profile_f64_hybrid(T, config: MatrixProfileConfig, *,
     ``profile`` (:class:`mpx_torch.utils.profile.BenchmarkProfile`) takes
     the per-phase times and, in ``profile.counts``, pass B's route
     (``pass_b``: sparse or dense) and capture bytes, the flags per job and
-    the escalated rows."""
-    return _run(T, config, margin=margin, profile=profile, left_right=False)
+    the escalated rows.  ``ckpt`` (:class:`mpx_torch.checkpoint.HybridCheckpoint`)
+    makes passes A and B resumable (:func:`mpx_torch.checkpoint.compute_hybrid_with_checkpoint`)."""
+    return _run(T, config, margin=margin, profile=profile, left_right=False, ckpt=ckpt)
 
 
 def compute_left_right_f64_hybrid(T, config: MatrixProfileConfig, *,

@@ -679,3 +679,94 @@ def test_multi_length_discords_on_card_match_the_brute_force(card):
     assert res.exact and [d.m for d in res.per_length] == ms
     for got, want in zip(res.per_length, exp):
         assert abs(got.distance - want.distance) <= 1e-9, (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mode", [("float64", "full"), ("float32", "full"),
+                                        ("float64", "right"), ("float64", "left")])
+def test_streaming_on_card_matches_cpu(card, dtype, mode):
+    """The streaming state on the card (bootstrap through K1, appends as
+    torch ops) against the port's CPU run of the same appends, across a
+    capacity doubling and (right) a trim; 2e-3 / 1e-8, indices equal or
+    equidistant."""
+    from mpx_torch.streaming import StreamingMatrixProfile
+
+    T = _series(4096, 72, constant_run=False)
+    m = 32
+    runs = [StreamingMatrixProfile(T[:1000], m, dtype, mode, device=dev)
+            for dev in ("cuda", "cpu")]
+    for s in range(1000, 4096, 300):
+        for smp in runs:
+            smp.append(T[s : s + 300])
+            if mode == "right" and smp.series.shape[0] > 3000:
+                smp.trim_head(1000)
+    assert runs[0].capacity_doublings == runs[1].capacity_doublings >= 1
+    (MP, MPI), (MPc, MPIc) = (smp.profile() for smp in runs)
+    kept = T[runs[0].offset :]
+    np.testing.assert_array_equal(MPI < 0, MPIc < 0)
+    fin = MPI >= 0
+    np.testing.assert_allclose(MP[fin], MPc[fin], rtol=0, atol=DIST_TOL[dtype])
+    for i in np.nonzero(MPI != MPIc)[0]:
+        gap = _znorm_distance(kept, m, i, MPI[i]) - _znorm_distance(kept, m, i, MPIc[i])
+        assert abs(gap) <= DIST_TOL[dtype], (i, MPI[i], MPIc[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["auto", "hybrid"])
+def test_checkpoint_resume_on_card_is_bit_equal(card, tmp_path, monkeypatch, kernel):
+    """A checkpointed run on the card (K1, or the hybrid with K1's pass A)
+    killed after its second save and resumed equals an uninterrupted run
+    bit for bit."""
+    from mpx_torch import checkpoint, hybrid
+    from mpx_torch.checkpoint import compute_with_checkpoint
+
+    class Killed(RuntimeError):
+        pass
+
+    T = _series(8192, 73)
+    cfg = MatrixProfileConfig(m=64, dtype="float64", kernel=kernel, band=512, chunk=1024,
+                              device="cuda")
+    path = str(tmp_path / "ck.npz")
+    monkeypatch.setattr(hybrid, "CKPT_JOBS", 8)
+    MP0, MPI0 = compute_with_checkpoint(T, cfg, path, group_jobs=8)
+    saves = []
+    real_save, real_save_npz = checkpoint._save, checkpoint._save_npz
+
+    def dying(real):
+        def save(*args, **kwargs):
+            real(*args, **kwargs)
+            saves.append(1)
+            if len(saves) == 2:
+                raise Killed
+        return save
+
+    monkeypatch.setattr(checkpoint, "_save", dying(real_save))
+    monkeypatch.setattr(checkpoint, "_save_npz", dying(real_save_npz))
+    with pytest.raises(Killed):
+        compute_with_checkpoint(T, cfg, path, group_jobs=8)
+    monkeypatch.setattr(checkpoint, "_save", real_save)
+    monkeypatch.setattr(checkpoint, "_save_npz", real_save_npz)
+    MP1, MPI1 = compute_with_checkpoint(T, cfg, path, group_jobs=8)
+    np.testing.assert_array_equal(MP0, MP1)
+    np.testing.assert_array_equal(MPI0, MPI1)
+    MPd, MPId = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+    np.testing.assert_allclose(MP1, MPd, rtol=0, atol=DIST_TOL["float64"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fleet_on_card_equals_single_runs(card, dtype):
+    """``compute_batch_profiles`` on the card: each row bit for bit the
+    single-series profile on the card, and within tolerance of the CPU."""
+    from mpx_torch.batch import compute_batch_profiles
+
+    batch = np.stack([_series(1024, 80 + b, constant_run=b == 1) for b in range(6)])
+    cfg = MatrixProfileConfig(m=32, dtype=dtype, band=256, chunk=256, device="cuda")
+    MP, MPI = compute_batch_profiles(batch, config=cfg, group=4)
+    cpu = compute_batch_profiles(batch, config=MatrixProfileConfig(
+        m=32, dtype=dtype, band=256, chunk=256, device="cpu"))
+    for b in range(6):
+        one = [o.cpu().numpy() for o in compute_matrix_profile(batch[b], config=cfg)]
+        np.testing.assert_array_equal(MP[b], one[0])
+        np.testing.assert_array_equal(MPI[b], one[1])
+        np.testing.assert_allclose(MP[b], cpu[0][b], rtol=0, atol=DIST_TOL[dtype])
