@@ -36,6 +36,9 @@ script exits nonzero without the final line):
    4096, chunk 32768, a random walk from a fixed seed, one K3 launch per
    job and no plain call, against the exact row scan; its sweep time per
    job beside phase 6's K3 times (wrapper, kernels alone) at W = 32768;
+   the same rows read with the running mean's statistics (what the
+   recurrence tier read before its corrected means) beside, and the host
+   statistics timed with and without the correction;
 8. parity: ``kernel='pallas'`` and ``kernel='hybrid'`` in f64 and f32 on
    phase 3's series against phase 3's K1 f64 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
@@ -150,7 +153,9 @@ script exits nonzero without the final line):
     ``compute_matrix_profile``; ``approx_matrix_profile(0.25)``'s wall;
 35. checkpoints: K3 (f64, n=2^19, ``kernel='pallas'``) killed after half
     its groups and resumed, bit-equal, with its overhead; the hybrid (f64,
-    n=2^19) killed in pass A and in pass B, each resume bit-equal;
+    n=2^19) killed in pass A and in pass B, each resume bit-equal; K3 and
+    the hybrid each within 1e-8 of the exact scan on the 8 rows where they
+    differ most;
 36. the fleet at ``batch-f32-256x8192``'s full shape (B=256, n=8192,
     m=64): wall, ms a series, K1 launches, the device idle share; 8 series
     bit-equal to single runs, 4 validated on 16 rows;
@@ -162,6 +167,18 @@ script exits nonzero without the final line):
 39. ``compute --checkpoint`` (resuming a killed run), ``--approx``,
     ``--allow-missing``, ``damp``, ``batch`` and ``floss``, each equal to
     the library;
+40. the contrast profile at ``contrast-f64-524288``'s full shape (n=2^19,
+    m=256, f64, band 4096, chunk 32768) through ``run_contrast_benchmark``:
+    one timed run, the self-join's and the AB-join's K1 f64 launches, 32
+    sampled rows within 1e-8; wall and pairs/s;
+41. the other compositions at moderate sizes: ``compute_chains`` (f32,
+    n=2^18), ``ostinato`` (f64, 3 x 2^16, a planted motif), ``snippets``
+    (f32, n=2^16, L=1024), ``cluster_series`` (f64, 4 x 2^15), ``k_motiflets``
+    (f32, n=2^16, m=128, k=5) and ``aamp_mpdist`` (f64), each against the
+    driver, exact host scans or the CPU run;
+42. the ``analyze``, ``chains``, ``contrast``, ``ostinato``, ``snippets``,
+    ``cluster``, ``motiflets``, ``query`` and ``abjoin --mpdist`` command
+    lines, each printed value and file equal to the API's result;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
@@ -170,7 +187,9 @@ kernel and dtype (launches counted in that kernel's main-path runs: K1 in
 phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
 pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
 pan of phase 30, phases 33–38's runs of the new entry points (the
-checkpointed hybrids' pass A in phase 35 included); K3 in phases 7, 8 and
+checkpointed hybrids' pass A in phase 35 included), the contrast
+profile's joins in phase 40 (f64) and phase 41's compositions (chains and
+snippets f32, ostinato and the clustering's AB-joins f64); K3 in phases 7, 8 and
 (f64) 30, 35 and 37; the bound and the library call's time at the
 band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
@@ -812,9 +831,14 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
     kernel per job and no plain call, against the exact row scan.  With
     ``band_ms_per_job`` (phase 6's times of one such job: the wrapper's
     ``k3_ms`` and the kernels' ``k3_kernels_ms``), the sweep's time per
-    job is printed beside them."""
-    from mpx_torch import MatrixProfileConfig
+    job is printed beside them.  Through K3, the same run is read again
+    with the running mean's statistics (``exact_mean=False``, what the
+    recurrence tier read before it took corrected means) on the same
+    rows, beside the gated reading (that run is not counted), and the
+    host statistics are timed with and without the corrected mean."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile
     from mpx_torch.config import make_job_grid
+    from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
 
     n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
     T = random_walk(n, seed)
@@ -826,13 +850,28 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
     reset_counts()
     MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), counter, f"kernel={kernel!r} f64 showcase", jobs)
-    vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, seed), tol)
+    rows = sample_rows(w, seed)
+    D = row_scan64(T, m, rows)
+    vs_exact = check_rows(T, m, MP, MPI, rows, tol, D=D)
     pairs = w * (w - 1) / 2
     per_job = {}
     if band_ms_per_job is not None:
         sweep = next(v for k, v in phases.items() if k.startswith("2. Compute"))
         per_job = {"sweep_ms_per_job": sweep / jobs * 1e3,
                    "band_level_ms_per_job": band_ms_per_job}
+    if kernel == "pallas":
+        t0 = time.perf_counter()
+        host = precompute_statistics_numpy(T, m)
+        t1 = time.perf_counter()
+        precompute_statistics_numpy(T, m, exact_mean=True)
+        per_job["host_stats_s"] = {"running_mean": t1 - t0,
+                                   "exact_mean": time.perf_counter() - t1}
+        running = precompute_statistics(T, m, band=grid.band, chunk=grid.chunk, dtype="float64",
+                                        device="cuda", windows=False, host_stats=host)
+        MPr = compute_matrix_profile(T, config=cfg, stats=running)[0].cpu().numpy()
+        per_job["max_err_vs_exact_64_rows_running_mean"] = float(
+            np.abs(MPr[rows] - D.min(axis=1)).max())
+        del running, MPr, host
     say(phase, n=n, m=m, kernel=kernel, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
         **{f"{counter}_launches": launches}, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
@@ -2525,9 +2564,8 @@ def phase_checkpoint(torch) -> dict:
     to the driver; the overhead against the driver's run.  The hybrid (f64,
     same shape): killed once in pass A and once in pass B, each resumed
     run bit-equal to an uninterrupted ``kernel='hybrid'`` run; the rows
-    where K3 and the hybrid differ most, against the exact scan (the
-    hybrid held to 1e-8, K3's reading reported).  Returns the K3 f64 and
-    the hybrids' K1 f32 launches."""
+    where K3 and the hybrid differ most, against the exact scan, each held
+    to 1e-8.  Returns the K3 f64 and the hybrids' K1 f32 launches."""
     from mpx_torch import MatrixProfileConfig, checkpoint, hybrid, make_job_grid
     from mpx_torch.checkpoint import HybridCheckpoint, compute_with_checkpoint
     from mpx_torch.utils.profile import BenchmarkProfile
@@ -2601,6 +2639,9 @@ def phase_checkpoint(torch) -> dict:
               "hybrid_max_err_worst_8_rows": check_rows(T, m, MPh, MPIh, rows,
                                                         DIST_TOL["float64"], D=D),
               "k3_max_err_worst_8_rows": float(np.abs(MP0[rows] - D.min(axis=1)).max())}
+        require(hy["k3_max_err_worst_8_rows"] <= DIST_TOL["float64"],
+                f"K3 f64 on the rows farthest from the hybrid: "
+                f"{hy['k3_max_err_worst_8_rows']} (tol {DIST_TOL['float64']})")
         # killed after pass A's first group of CKPT_JOBS and pass B's fourth
         for stage, after in (("A", 1), ("B", 4)):
 
@@ -2893,6 +2934,363 @@ def phase_slice10_cli(torch):
     say("39 slice-10 commands", card=torch.cuda.get_device_name(0),
         input="data/binary/16384.tsb", seconds=out)
 
+# ---------------------------------------------------------------- slice 11
+def phase_contrast(torch) -> int:
+    """The contrast profile at the suite row ``contrast-f64-524288``
+    (n = 2^19, m = 256, f64, band 4096, chunk 32768; the runner's walks
+    from seeds 0 and 7) through ``run_contrast_benchmark``: one timed run
+    (K1 was built in phase 1, so no warm-up), the self-join's and the
+    AB-join's K1 f64 launches and nothing else, its 32 sampled rows within
+    1e-8 of the f64 row scans; wall, pairs/s, clock and power.  Returns
+    the K1 launches."""
+    from mpx_torch import MatrixProfileConfig, make_job_grid
+    from mpx_torch.abjoin import ab_jobs
+    from mpx_torch.bench import run_contrast_benchmark
+
+    n, m, S, W = 1 << 19, 256, 4096, 32768
+    w = n - m + 1
+    g = MatrixProfileConfig(m=m, band=S, chunk=W, device="cuda").shrink_to(w)
+    self_jobs = len(make_job_grid(w, g.band, g.chunk).r0)
+    cross_jobs = len(ab_jobs(w, w, g.band, g.chunk)[0])
+    reset_counts()
+    torch.cuda.synchronize()
+    with CardSampler() as card:
+        res = run_contrast_benchmark(n, m, dtype="double", band=S, chunk=W, seed=0,
+                                     validate=32, warmup=False, device="cuda")
+    launches = require_only(counts(), "k1", "contrast profile",
+                            launches=self_jobs + cross_jobs)
+    val = res["validation"]
+    require(val["rows"] == 32 and val["max_abs_err"] <= DIST_TOL["float64"],
+            f"contrast validation: {val}")
+    say("40 contrast", card_name=torch.cuda.get_device_name(0), suite_row="contrast-f64-524288",
+        n=n, m=m, band=S, chunk=W, wall_s=res["wall_s"], pairs=res["pairs"],
+        pairs_per_s=res["pairs_per_sec"], k1_f64_launches=launches,
+        self_join_jobs=self_jobs, ab_jobs=cross_jobs, card=card.summary,
+        validation=val, cp_head=res["mp_head"])
+    return launches
+
+
+def planted_walk(n: int, seed: int, starts, shape, noise: float) -> np.ndarray:
+    """A random walk with a noisy copy of ``shape`` at each start (a
+    noisy copy: an exact one would sit at distance ~0, where the square
+    root turns any rounding into ~1e-7)."""
+    rng = np.random.default_rng(seed)
+    T = np.cumsum(rng.standard_normal(n))
+    for at in starts:
+        T[at : at + shape.shape[0]] = T[at] + shape + noise * rng.standard_normal(shape.shape[0])
+    return T
+
+
+def phase_compositions(torch) -> dict:
+    """The other compositions on the card, each against the port's CPU
+    run or an exact host check: ``compute_chains`` (f32, n = 2^18, m =
+    256), its left/right indices equal to the driver's; ``ostinato`` (f64,
+    3 walks of 2^16 with a planted motif), the planted motif found and its
+    radius within 1e-8 of exact scans of the other series; ``snippets``
+    (f32, n = 2^16, L = 1024), 32 sampled positions (outside the chosen
+    segments) of the chosen candidates' profiles within 2e-3 of exact
+    scans and the fractions
+    equal to the assignment of those profiles; ``mpdist_matrix`` /
+    ``cluster_series`` (f64, 4 series of 2^15 in two families), the
+    families recovered and one pair's MPdist equal to the plain sweep's
+    (``kernel='mxu'``) within 1e-8; ``k_motiflets`` (f32, n = 2^16, m =
+    128, k = 5), the five planted copies found and the extent equal to
+    the exact pairwise extent; ``aamp_mpdist`` (f64, 2^14 x 2^13) within
+    1e-10 of the largest distance of the CPU run.  K1 launches of each are counted over
+    its own run.  Returns the K1 launches per dtype."""
+    import dataclasses
+
+    from mpx_torch import MatrixProfileConfig, compute_ab_join, compute_matrix_profile
+    from mpx_torch.aamp import aamp_mpdist, compute_aamp_ab_join
+    from mpx_torch.chains import compute_chains
+    from mpx_torch.cluster import cluster_series
+    from mpx_torch.analysis import mpdist, mpdist_from_profiles
+    from mpx_torch.motiflets import k_motiflets, pairwise_extent
+    from mpx_torch.ostinato import ostinato
+    from mpx_torch.snippets import snippets
+
+    out, k1 = {}, {"float32": 0, "float64": 0}
+
+    def timed(dtype, what, fn, expect="k1"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        c = counts()
+        if expect == "k1":
+            k1[dtype] += require_only(c, "k1", what)
+        else:
+            require(not any(c.values()), f"{what}: counts {c}, expected none")
+        return res, sec, c["k1"]
+
+    # chains: f32 left/right through K1, indices equal to the driver's
+    n, m = 1 << 18, 256
+    T = np.cumsum(np.random.default_rng(SEED + 41).standard_normal(n))
+    cfg = MatrixProfileConfig(m=m, device="cuda")
+    res, sec, n1 = timed("float32", "compute_chains", lambda: compute_chains(T, cfg))
+    lr = compute_matrix_profile(T, config=cfg, left_right=True)
+    require(np.array_equal(res.mpi_left, lr[1].cpu().numpy())
+            and np.array_equal(res.mpi_right, lr[3].cpu().numpy()),
+            "compute_chains' left/right indices differ from the driver's")
+    out["chains"] = {"n": n, "m": m, "dtype": "float32", "seconds": sec, "k1_launches": n1,
+                     "longest": res.length, "windows_in_chains": int((res.lengths > 1).sum())}
+
+    # ostinato: f64, three walks with a planted motif
+    n, m = 1 << 16, 256
+    shape = 5 * np.sin(np.linspace(0, 8 * np.pi, 300)) + np.cumsum(
+        np.random.default_rng(SEED + 42).standard_normal(300))
+    starts = (10000, 30000, 50000)
+    series = [planted_walk(n, SEED + 43 + i, [starts[i]], shape, 0.05) for i in range(3)]
+    cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
+    res, sec, n1 = timed("float64", "ostinato", lambda: ostinato(series, config=cfg))
+    at = starts[res.series]
+    require(at <= res.index <= at + 300 - m, f"ostinato found {res.series}@{res.index}")
+    exact = max(row_scan64(series[res.series], m, np.array([res.index]), target=series[j]).min()
+                for j in range(3) if j != res.series)
+    err = abs(res.radius - exact)
+    require(err <= DIST_TOL["float64"], f"ostinato radius {res.radius} vs exact {exact}")
+    out["ostinato"] = {"n": n, "series": 3, "m": m, "dtype": "float64", "seconds": sec,
+                       "k1_launches": n1, "found": [res.series, res.index],
+                       "radius": res.radius, "radius_err_vs_exact": err}
+
+    # snippets: f32, n = 2^16, L = 1024 (m = 512); three regimes
+    n, L = 1 << 16, 1024
+    t = np.arange(n)
+    Ts = np.where(t < n // 3, np.sin(t / 20.0), np.where(t < 2 * n // 3, np.sign(np.sin(
+        t / 37.0)), np.sin(t / 11.0) ** 3)) + 0.05 * np.random.default_rng(SEED + 44) \
+        .standard_normal(n)
+    cfg = MatrixProfileConfig(m=L // 2, device="cuda")
+    res, sec, n1 = timed("float32", "snippets", lambda: snippets(Ts, L, k=3, config=cfg))
+    picks = [s.index for s in res]
+    mS = L // 2
+    Dk = np.stack([compute_ab_join(Ts[j * L : (j + 1) * L], Ts, config=cfg).mp_b.cpu()
+                   .numpy().astype(np.float64) for j in picks])
+    assign = np.argmin(Dk, axis=0)
+    require(all(abs(s.fraction - float(np.mean(assign == r))) < 1e-12
+                for r, s in enumerate(res)), "snippets' fractions differ from the assignment")
+    # A window inside a chosen segment matches itself at distance 0, where
+    # the square root turns any rounding of the correlation into
+    # sqrt(2m eps): the positions are sampled outside them.
+    inside = np.zeros(n - mS + 1, bool)
+    for j in picks:
+        inside[j * L : j * L + L - mS + 1] = True
+    pos = np.sort(np.random.default_rng(SEED + 45).choice(np.nonzero(~inside)[0], 32,
+                                                          replace=False))
+    err = plain_err = 0.0
+    pcfg = dataclasses.replace(cfg, kernel="mxu")
+    for r, j in enumerate(picks):
+        exact = row_scan64(Ts, mS, pos, target=Ts[j * L : (j + 1) * L]).min(axis=1)
+        err = max(err, float(np.abs(Dk[r, pos] - exact).max()))
+        # read, not gated: the plain sweep (FP32 matmul) on the same rows
+        Dp = compute_ab_join(Ts[j * L : (j + 1) * L], Ts, config=pcfg).mp_b.cpu().numpy()
+        plain_err = max(plain_err, float(np.abs(Dp[pos] - exact).max()))
+    require(err <= DIST_TOL["float32"], f"snippets' profiles off by {err}")
+    # read, not gated: 8 self-match positions of the first pick (exact 0)
+    own = np.arange(picks[0] * L, picks[0] * L + L - mS + 1, (L - mS) // 7)[:8]
+    self_err = float(np.abs(Dk[0, own]).max())
+    out["snippets"] = {"n": n, "L": L, "m": mS, "dtype": "float32", "seconds": sec,
+                       "k1_launches": n1, "starts": [s.start for s in res],
+                       "fractions": [s.fraction for s in res],
+                       "max_err_32_positions": err,
+                       "plain_sweep_max_err_32_positions": plain_err,
+                       "self_match_distance_max_8_positions": self_err}
+
+    # cluster: f64, 4 series of 2^15 in two families
+    n, m = 1 << 15, 256
+    bases = [np.cumsum(np.random.default_rng(SEED + 46 + f).standard_normal(4096))
+             for f in range(2)]
+    fam = []
+    for i in range(4):
+        X = np.cumsum(np.random.default_rng(SEED + 50 + i).standard_normal(n))
+        b = bases[i % 2]
+        for at in (2000, 12000, 22000):
+            X[at : at + 4096] = X[at] - b[0] + b + 0.05 * np.random.default_rng(
+                SEED + 60 + i + at).standard_normal(4096)
+        fam.append(X)
+    cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
+    res, sec, n1 = timed("float64", "cluster_series",
+                         lambda: cluster_series(fam, n_clusters=2, threshold=0.05, config=cfg))
+    require(res.labels.tolist() == [0, 1, 0, 1], f"cluster labels {res.labels.tolist()}")
+    reset_counts()
+    plain = mpdist(fam[0], fam[1], m, config=dataclasses.replace(cfg, kernel="mxu"))
+    err = abs(plain - res.distances[0, 1])
+    require(err <= DIST_TOL["float64"], f"mpdist vs the plain sweep: {err}")
+    out["cluster"] = {"series": 4, "n": n, "m": m, "dtype": "float64", "seconds": sec,
+                      "k1_launches": n1, "labels": res.labels.tolist(),
+                      "distances": res.distances.round(6).tolist(),
+                      "mpdist_err_vs_plain": err}
+
+    # motiflets: f32, n = 2^16, m = 128, k = 5 (the strict top-k tile: torch ops)
+    n, m = 1 << 16, 128
+    shape = 4 * np.sin(np.linspace(0, 6 * np.pi, 160)) + np.cumsum(
+        np.random.default_rng(SEED + 47).standard_normal(160))
+    starts = (5000, 18000, 31000, 44000, 57000)
+    Tm = planted_walk(n, SEED + 48, starts, shape, 0.1)
+    res, sec, _ = timed("float32", "k_motiflets", lambda: k_motiflets(
+        Tm, 5, config=MatrixProfileConfig(m=m, device="cuda")), expect=None)
+    require(all(any(a <= i <= a + 160 - m for i in res.indices) for a in starts),
+            f"motiflet {res.indices.tolist()} misses a planted copy")
+    require(res.extent == pairwise_extent(Tm, m, res.indices), "motiflet extent")
+    out["motiflets"] = {"n": n, "m": m, "k": 5, "dtype": "float32", "seconds": sec,
+                        "indices": res.indices.tolist(), "extent": res.extent}
+
+    # aamp_mpdist: f64 raw AB-join (torch ops) against the CPU run
+    A = np.cumsum(np.random.default_rng(SEED + 49).standard_normal(1 << 14))
+    B = np.cumsum(np.random.default_rng(SEED + 50).standard_normal(1 << 13))
+    kw = dict(m=256, dtype="float64")
+    got, sec, _ = timed("float64", "aamp_mpdist", lambda: aamp_mpdist(
+        A, B, 256, config=MatrixProfileConfig(device="cuda", **kw)), expect=None)
+    cpu = compute_aamp_ab_join(A, B, 256, config=MatrixProfileConfig(device="cpu", **kw))
+    exp = mpdist_from_profiles(cpu.mp_a, cpu.mp_b, A.shape[0], B.shape[0])
+    # mpx's float64 AAMP tolerance: 1e-10 of the largest distance
+    rel = abs(got - exp) / float(max(cpu.mp_a.max(), cpu.mp_b.max()))
+    require(rel <= 1e-10, f"aamp_mpdist {got} vs the CPU's {exp}")
+    out["aamp_mpdist"] = {"na": A.shape[0], "nb": B.shape[0], "m": 256, "seconds": sec,
+                          "value": got, "err_vs_cpu_of_largest_distance": rel}
+    say("41 compositions", card=torch.cuda.get_device_name(0), **out,
+        seconds_total=sum(v["seconds"] for v in out.values()))
+    return k1
+
+
+def phase_slice11_cli(torch):
+    """The ``analyze`` (``--regimes --chain --av complexity``, and saved
+    results), ``chains --all``, ``contrast`` (``-o``), ``ostinato``,
+    ``snippets``, ``cluster``, ``motiflets``, ``query`` (``i:j``, ``-o``)
+    and ``abjoin --mpdist`` command lines on data/binary/16384.tsb (its
+    halves or quarters where a command takes several series), each
+    printed value and file equal to the API's result on the card."""
+    from mpx_torch import MatrixProfileConfig, compute_ab_join, compute_matrix_profile
+    from mpx_torch.analysis import (apply_annotation_vector, complexity_annotation, match,
+                                    mpdist_from_profiles, regimes, top_discords, top_motifs,
+                                    unanchored_chain)
+    from mpx_torch.chains import all_chains, compute_chains
+    from mpx_torch.cluster import cluster_series
+    from mpx_torch.contrast import contrast_profile, top_contrast_motifs
+    from mpx_torch.io.tsb import read_binary, read_series, write_binary, write_results
+    from mpx_torch.motiflets import k_motiflets
+    from mpx_torch.ostinato import ostinato
+    from mpx_torch.snippets import snippets
+
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    T, m = read_series(src), 64
+    cfg = MatrixProfileConfig(m=m, device="cuda")
+    out = {}
+
+    def lines(printed, prefix="  "):
+        return [ln for ln in printed.splitlines() if ln.startswith(prefix)]
+
+    def check(name, printed, want, prefix="  "):
+        require(lines(printed, prefix) == want,
+                f"{name}: the command's lines differ from the API's:\n{printed}\n{want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "out")
+        halves = [T[: T.shape[0] // 2], T[T.shape[0] // 2 :]]
+        quarters = list(T.reshape(4, -1))
+        paths = []
+        for i, X in enumerate(halves + quarters):
+            paths.append(os.path.join(tmp, f"s{i}.tsb"))
+            write_binary(paths[-1], X)
+        hp, qp = paths[:2], paths[2:]
+
+        t0 = time.perf_counter()
+        printed = run_cli("analyze", "-i", src, "-m", str(m), "--regimes", "2", "--chain",
+                          "--av", "complexity")
+        MPl, MPIl, MPr, MPIr = (o.cpu().numpy() for o in
+                                compute_matrix_profile(T, config=cfg, left_right=True))
+        lw = MPl <= MPr
+        MP, MPI = np.where(lw, MPl, MPr), np.where(lw, MPIl, MPIr)
+        AV = complexity_annotation(T, m)
+        want = [f"  {x.a:8d} {x.b:8d} {(MP[x.a] if MPI[x.a] == x.b else MP[x.b]):.6f}"
+                for x in top_motifs(apply_annotation_vector(MP, AV, "motif"), MPI, m)]
+        want += [f"  {d.index:8d} {MP[d.index]:.6f}"
+                 for d in top_discords(apply_annotation_vector(MP, AV, "discord"), MPI, m)]
+        want += [f"  {r:8d}" for r in regimes(MPI, m, k=2)]
+        want += ["  " + " -> ".join(str(int(c)) for c in unanchored_chain(MPIl, MPIr))]
+        check("analyze", printed, want)
+        MPs, MPIs = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+        write_results(base, MPs, MPIs)
+        printed = run_cli("analyze", "-i", base, "-m", str(m))
+        want = [f"  {x.a:8d} {x.b:8d} {(MPs[x.a] if MPIs[x.a] == x.b else MPs[x.b]):.6f}"
+                for x in top_motifs(MPs, MPIs, m)]
+        want += [f"  {d.index:8d} {MPs[d.index]:.6f}" for d in top_discords(MPs, MPIs, m)]
+        check("analyze (saved results)", printed, want)
+        out["analyze"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("chains", "-i", src, "-m", str(m), "--all")
+        res = compute_chains(T, cfg)
+        want = [f"chain (longest unanchored): length {res.length}",
+                "  " + " -> ".join(str(int(i)) for i in res.chain)]
+        want += [f"chain {k}: length {len(c)}: " + " -> ".join(str(int(i)) for i in c)
+                 for k, c in enumerate(all_chains(res.mpi_left, res.mpi_right))]
+        require(printed.splitlines() == want, f"chains differ from compute_chains:\n{printed}")
+        out["chains"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("contrast", "-p", hp[0], "-n", hp[1], "-m", str(m), "-o", base)
+        ccfg = MatrixProfileConfig(m=m, band=4096, chunk=4096, device="cuda")
+        cres = contrast_profile(*halves, config=ccfg)
+        require(np.array_equal(np.load(base + ".cp.npy"), cres.cp),
+                "contrast's file differs from contrast_profile")
+        check("contrast", printed,
+              [f"contrast motif @ {x.index}  (in-class neighbor {x.neighbor})  "
+               f"score {x.score:.4f}" for x in top_contrast_motifs(cres, m)], "contrast ")
+        out["contrast"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("ostinato", "-m", str(m), *sum((["-i", p] for p in qp), []))
+        res = ostinato(quarters, config=cfg)
+        check("ostinato", printed, [f"consensus motif: series {res.series} ({qp[res.series]}) "
+                                    f"@ {res.index}, radius {res.radius:.6f}"], "consensus")
+        out["ostinato"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("snippets", "-i", src, "-L", "1024", "-k", "2")
+        res = snippets(T, 1024, k=2, config=MatrixProfileConfig(m=512, device="cuda"))
+        check("snippets", printed, [f"  {s.start:8d} {s.length:6d} {s.fraction:.3f}"
+                                    for s in res])
+        out["snippets"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("cluster", "-m", str(m), *sum((["-i", p] for p in qp), []))
+        res = cluster_series(quarters, n_clusters=2, config=cfg)
+        want = ["  " + " ".join(f"{d:8.4f}" for d in row) for row in res.distances]
+        want += [f"cluster {c.label}: medoid {qp[c.medoid]} radius {c.radius:.4f} :: "
+                 + ", ".join(qp[i] for i in c.members) for c in res.clusters]
+        require(lines(printed) + lines(printed, "cluster ") == want,
+                f"cluster differs from cluster_series:\n{printed}")
+        out["cluster"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("motiflets", "-i", src, "-m", str(m), "-k", "3")
+        res = k_motiflets(T, 3, config=cfg)
+        check("motiflets", printed, [f"  occurrences: {' '.join(str(int(i)) for i in res.indices)}"])
+        require(f"3-motiflet: extent {res.extent:.6f}" in printed, printed)
+        out["motiflets"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("query", "-i", src, "-q", "1000:1064", "-k", "3", "-o", base)
+        ms, D = match(T[1000:1064], T, max_matches=3, return_profile=True)
+        require(np.array_equal(read_binary(base + ".mpb", "double"), D),
+                "query's file differs from match's profile")
+        check("query", printed, [f"match @ {r.index}  distance {r.distance:.6f}" for r in ms],
+              "match ")
+        out["query"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        printed = run_cli("abjoin", "-a", hp[0], "-b", hp[1], "-m", str(m), "--mpdist",
+                          "-o", base)
+        ab = [o.cpu().numpy() for o in compute_ab_join(*halves, config=ccfg)]
+        d = mpdist_from_profiles(ab[0], ab[2], halves[0].shape[0], halves[1].shape[0])
+        check("abjoin --mpdist", printed, [f"MPdist: {d:.6f}"], "MPdist")
+        out["abjoin_mpdist"] = time.perf_counter() - t0
+    say("42 slice-11 commands", card=torch.cuda.get_device_name(0),
+        input="data/binary/16384.tsb", seconds=out)
+
+
 def main() -> int:
     import torch
 
@@ -3002,6 +3400,13 @@ def main() -> int:
     tf32_kept("38")
     phase_slice10_cli(torch)
     tf32_kept("39")
+    launches["mxu_fused"]["float64"] += phase_contrast(torch)
+    tf32_kept("40")
+    for dt, n1 in phase_compositions(torch).items():
+        launches["mxu_fused"][dt] += n1
+    tf32_kept("41")
+    phase_slice11_cli(torch)
+    tf32_kept("42")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)
     kernels = [

@@ -21,24 +21,47 @@ variants: streaming appends (``streaming.py``) with FLOSS (``floss.py``,
 ``analysis.py``) and online DAMP (``damp.py``, with batch DAMP), the
 anytime profile (``anytime.py``), resumable checkpoints (``checkpoint.py``,
 the strict tiers and the hybrid), the fleet batch (``batch.py``) and
-masked gaps (``missing.py``); and the ``compute`` (``--raw``,
+masked gaps (``missing.py``); the compositions: motifs, discords,
+guided search, MPdist and MASS (``analysis.py``), chains (``chains.py``),
+the contrast profile (``contrast.py``), consensus motifs
+(``ostinato.py``), snippets (``snippets.py``), MPdist clustering
+(``cluster.py``) and k-motiflets (``motiflets.py``); and the ``compute`` (``--raw``,
 ``--checkpoint``, ``--approx``, ``--allow-missing``), ``abjoin``,
 ``topk``, ``thresh``, ``matrix``, ``mstamp``, ``pan``, ``merlin``,
-``damp``, ``batch``, ``floss``, ``tsbin``, ``golden``, ``datasets`` and
-``bench`` command lines (``python -m mpx_torch ...``).
+``damp``, ``batch``, ``floss``, ``analyze``, ``chains``, ``contrast``,
+``ostinato``, ``snippets``, ``cluster``, ``motiflets``, ``query``,
+``tsbin``, ``golden``, ``datasets`` and ``bench`` command lines
+(``python -m mpx_torch ...``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
 from mpx_torch.abjoin import compute_ab_join
 from mpx_torch.analysis import (
+    all_chains,
+    apply_annotation_vector,
+    complexity_annotation,
     corrected_arc_curve,
     extract_regimes,
+    mass,
+    match,
+    mpdist,
     one_directional_cac,
     regimes,
+    top_discords,
+    top_motifs,
+    unanchored_chain,
 )
 from mpx_torch.anytime import anytime_matrix_profile, approx_matrix_profile
 from mpx_torch.batch import compute_batch_profiles
+from mpx_torch.chains import ChainsResult, anchored_chain, chain_lengths, compute_chains
+from mpx_torch.cluster import cluster_series, hierarchical_cluster, mpdist_matrix
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
+from mpx_torch.contrast import (
+    best_contrast,
+    contrast_profile,
+    pan_contrast_profile,
+    top_contrast_motifs,
+)
 from mpx_torch.damp import Anomaly, OnlineAnomalyDetector, compute_damp
 from mpx_torch.distmatrix import pooled_matrix
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
@@ -51,6 +74,7 @@ from mpx_torch.merlin import (
     multi_length_motifs,
 )
 from mpx_torch.missing import compute_matrix_profile_masked, missing_window_mask
+from mpx_torch.motiflets import Motiflet, k_motiflets, motiflet_elbows
 from mpx_torch.mstamp import (
     MdlResult,
     compute_multidim_profile,
@@ -59,7 +83,9 @@ from mpx_torch.mstamp import (
     multidim_motif,
     multidim_subspace,
 )
+from mpx_torch.ostinato import ostinato
 from mpx_torch.pan import compute_pan_profile, pan_discords, pan_m_range, pan_motifs
+from mpx_torch.snippets import snippets
 from mpx_torch.thresh import compute_sum_thresh, compute_sum_thresh_ab
 from mpx_torch.topk import compute_topk_profile
 from mpx_torch.types import Aggregates, JobGrid, Stats
@@ -105,6 +131,31 @@ __all__ = [
     "compute_batch_profiles",
     "compute_matrix_profile_masked",
     "missing_window_mask",
+    "top_motifs",
+    "top_discords",
+    "apply_annotation_vector",
+    "complexity_annotation",
+    "all_chains",
+    "unanchored_chain",
+    "mpdist",
+    "mass",
+    "match",
+    "ChainsResult",
+    "anchored_chain",
+    "chain_lengths",
+    "compute_chains",
+    "contrast_profile",
+    "top_contrast_motifs",
+    "pan_contrast_profile",
+    "best_contrast",
+    "ostinato",
+    "snippets",
+    "mpdist_matrix",
+    "hierarchical_cluster",
+    "cluster_series",
+    "Motiflet",
+    "k_motiflets",
+    "motiflet_elbows",
     "Aggregates",
     "JobGrid",
     "Stats",

@@ -187,7 +187,11 @@ def compute_aamp_ab_join(A, B, m: Optional[int] = None, *,
 
 def aamp_mpdist(A, B, m: int, *, threshold: float = 0.05,
                 config: Optional[MatrixProfileConfig] = None) -> float:
-    """Raw-Euclidean MPdist (STUMPY's ``aampdist``) needs
-    ``analysis.mpdist_from_profiles``, which is not ported yet."""
-    raise NotImplementedError("aamp_mpdist is not ported to mpx_torch yet: ROADMAP.md "
-                              "queue 1 item 12 (analysis.mpdist_from_profiles)")
+    """Raw-Euclidean MPdist (STUMPY's ``aampdist``): the k-th smallest
+    value of the concatenated raw ABBA profiles, k = ceil(threshold *
+    (len(A) + len(B)))."""
+    from mpx_torch.analysis import mpdist_from_profiles
+
+    res = compute_aamp_ab_join(A, B, m, config=config)
+    return mpdist_from_profiles(res.mp_a, res.mp_b, np.asarray(A).shape[0],
+                                np.asarray(B).shape[0], threshold=threshold)

@@ -32,7 +32,7 @@ import torch
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.driver import _agg_length, run_jobs
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
-from mpx_torch.kernels import band_geometry, needs_windows, resolve_kernel
+from mpx_torch.kernels import band_geometry, is_recurrence, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import init_aggregates, merge_aggregates, postcompute
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.types import JobGrid
@@ -93,7 +93,8 @@ def anytime_matrix_profile(
         splits = np.array_split(perm, min(batches, num))
 
     stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
-                                  windows=needs_windows(kernel))
+                                  windows=needs_windows(kernel),
+                                  exact_mean=is_recurrence(kernel))
     geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
     L = _agg_length(w, S, W)
     rows_g = init_aggregates(L, dt, AGGREGATE_INIT, device)

@@ -21,7 +21,7 @@ from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.driver import run_jobs
 from mpx_torch.dtypes import canonical_dtype, torch_dtype
 from mpx_torch.io.apfixed import quantize
-from mpx_torch.kernels import band_geometry, needs_windows, resolve_kernel
+from mpx_torch.kernels import band_geometry, is_recurrence, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import postcompute
 from mpx_torch.ops.precompute import _padded_width, precompute_statistics
 
@@ -101,7 +101,8 @@ def compute_batch_profiles(
     for lo in range(0, B, group):
         series = batch[lo : lo + group]
         staged = [precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
-                                        windows=windows) for T in series]
+                                        windows=windows, exact_mean=is_recurrence(kernel))
+                  for T in series]
         outs = [postcompute(*run_jobs(st, grid, geom=geom, dtype=dt, kernel=kernel), m, w)
                 for st in staged]
         MP[lo : lo + len(series)] = torch.stack([o[0] for o in outs]).cpu().numpy()

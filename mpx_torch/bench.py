@@ -190,6 +190,78 @@ def run_benchmark(n: int = 1 << 20, m: int = 256, dtype: str = "float32",
     }
 
 
+def run_contrast_benchmark(n: int, m: int, dtype: str = "double",
+                           band: int = 4096, chunk: int = 16384,
+                           seed: int = 0, validate: int = 32,
+                           verbose: bool = False, warmup: bool = True,
+                           device: str = "cuda"):
+    """Contrast-profile benchmark (the suite's ``contrast-*`` rows): one
+    self-join and one AB-join at the same n (:mod:`mpx_torch.contrast`).
+    The metric is distance pairs swept per second, w(w-1)/2 self pairs
+    plus w*w cross pairs.  ``validate`` sampled rows are recomputed exactly
+    (the self and the AB nearest neighbor through the float64 row scans
+    ``hybrid._row_scan`` / ``_row_scan_ab`` on ``device``), and each CP
+    entry must match to 1e-8 (f64) / 2e-3 (f32).  ``warmup`` runs the
+    profile once first (the kernel builds), as mpx does."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.contrast import contrast_profile
+    from mpx_torch.dtypes import canonical_dtype
+    from mpx_torch.hybrid import _row_scan, _row_scan_ab
+    from mpx_torch.ops.precompute import precompute_statistics_numpy
+
+    rng = np.random.default_rng(seed)
+    Tp = np.cumsum(rng.standard_normal(n))
+    Tm = np.cumsum(np.random.default_rng(seed + 7).standard_normal(n))
+    w = n - m + 1
+    pairs = w * (w - 1) / 2 + float(w) * w
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, band=band, chunk=chunk, device=device)
+    cuda = torch.device(device).type == "cuda"
+
+    def run():
+        t0 = time.perf_counter()
+        res = contrast_profile(Tp, Tm, config=cfg)  # numpy: the copy synchronizes
+        return res, time.perf_counter() - t0
+
+    if warmup:
+        run()
+    res, wall = run()
+    cp = res.cp
+
+    val = None
+    if validate:
+        sp, sm = precompute_statistics_numpy(Tp, m), precompute_statistics_numpy(Tm, m)
+        rows = np.sort(np.random.default_rng(seed + 1).choice(
+            w, size=min(validate, w), replace=False)).astype(np.int32)
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+        aaP, _ = _row_scan(t(Tp), t(sp["mu"]), t(sp["inv"]), m, w, m // 4, rows)
+        abP, _ = _row_scan_ab(t(Tp), t(sp["mu"]), t(sp["inv"]), t(Tm), t(sm["mu"]),
+                              t(sm["inv"]), m, w, rows)
+        aaP, abP = aaP.cpu().numpy(), abP.cpu().numpy()
+        d_aa = np.sqrt(np.maximum(2.0 * m * (1.0 - aaP), 0.0))
+        d_ab = np.sqrt(np.maximum(2.0 * m * (1.0 - abP), 0.0))
+        expect = np.clip((d_ab - d_aa) / np.sqrt(2.0 * m), 0.0, 1.0)
+        tol = 1e-8 if canonical_dtype(dtype) == "float64" else 2e-3
+        err = np.abs(cp[rows] - expect)
+        if err.size and err.max() > tol:
+            raise ValidationError(f"contrast sampled-row validation FAILED: "
+                                  f"max err {err.max():.3e}")
+        val = {"rows": int(rows.shape[0]),
+               "max_abs_err": float(err.max()) if err.size else 0.0, "tol": tol}
+        if verbose:
+            print(f"# validated {val['rows']} contrast rows: "
+                  f"max err {val['max_abs_err']:.2e}", file=sys.stderr)
+
+    return {
+        "validation": val, "n": n, "m": m, "dtype": dtype,
+        "device": torch.cuda.get_device_name(device) if cuda else str(device),
+        "pairs": pairs, "wall_s": wall, "pairs_per_sec": pairs / wall,
+        "mp_head": cp[:4].tolist(),
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="mpx_torch bench")
     p.add_argument("-n", type=int, default=1 << 20)

@@ -39,7 +39,7 @@ from mpx_torch import hybrid
 from mpx_torch.config import MatrixProfileConfig, make_job_grid
 from mpx_torch.driver import _agg_length, run_jobs
 from mpx_torch.dtypes import AGGREGATE_INIT, canonical_dtype, torch_dtype
-from mpx_torch.kernels import band_geometry, needs_windows, resolve_kernel
+from mpx_torch.kernels import band_geometry, is_recurrence, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import init_aggregates, merge_aggregates, postcompute
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.types import Aggregates, JobGrid
@@ -263,7 +263,8 @@ def compute_with_checkpoint(T, cfg: MatrixProfileConfig, checkpoint_path: str, *
 
     with phase(profile, "1. Pre-Computation", device=device):
         stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
-                                      windows=needs_windows(kernel))
+                                      windows=needs_windows(kernel),
+                                      exact_mean=is_recurrence(kernel))
     grid = make_job_grid(w, S, W)
     num_groups = -(-grid.r0.shape[0] // group_jobs)
     geom = band_geometry(S, W, m, w, cfg.tile_rows, cfg.tile_cols)

@@ -23,6 +23,17 @@
   ``-i`` each (``<o>.<stem>.mpb``/``.mpib``);
 * ``floss``    — online segmentation: the series replayed through FLOSS
   in ``--step`` chunks;
+* ``analyze``  — motifs and discords of a series or saved results
+  (``--regimes``, ``--chain``, ``--av complexity``);
+* ``chains``   — the longest (or ``--anchor``) time series chain;
+* ``contrast`` — the contrast profile of two series (``<o>.cp.npy``;
+  ``--pan`` over several window lengths, ``<o>.pancp.npz``);
+* ``ostinato`` — the consensus motif of several series;
+* ``snippets`` — the k most representative L-length segments;
+* ``cluster``  — series clustered by MPdist;
+* ``motiflets`` — the k-motiflet (``--elbows`` for the extent curve);
+* ``query``    — occurrences of a query window (MASS on the host,
+  ``<o>.mpb`` the distance profile);
 * ``tsbin``    — encode/decode binary series files (ascii <-> .tsb / int /
   MPXQ fixed-point containers);
 * ``golden``   — golden MP/MPI through the numpy oracle
@@ -153,7 +164,8 @@ def _add_abjoin(sub):
     p.add_argument("--band", type=int, default=4096)
     p.add_argument("--chunk", type=int, default=4096)
     p.add_argument("--mpdist", action="store_true",
-                   help="also print MPdist(A, B) (not ported yet)")
+                   help="also print MPdist(A, B) (k-th smallest of the "
+                        "ABBA-join profiles, k = 5%% of len(A)+len(B))")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -165,9 +177,6 @@ def _cmd_abjoin(args) -> int:
     from mpx_torch.io.tsb import read_series, write_results
     from mpx_torch.utils.profile import BenchmarkProfile
 
-    if args.mpdist:
-        raise NotImplementedError("abjoin --mpdist is not ported to mpx_torch yet: "
-                                  "ROADMAP.md queue 1 item 12 (analysis)")
     Logger.verbose = args.verbose
     A, B = read_series(args.input_a), read_series(args.input_b)
     cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, band=args.band, chunk=args.chunk,
@@ -181,6 +190,11 @@ def _cmd_abjoin(args) -> int:
     else:
         for d, i in zip(res[0][:10], res[1][:10]):
             print(d, i)
+    if args.mpdist:
+        from mpx_torch.analysis import mpdist_from_profiles
+
+        d = mpdist_from_profiles(res[0], res[2], A.shape[0], B.shape[0])
+        print(f"MPdist: {d:.6f}")
     if args.verbose:
         prof.report(file=sys.stdout)
     return 0
@@ -469,6 +483,396 @@ def _cmd_merlin(args) -> int:
     return 0
 
 
+def _add_analyze(sub):
+    p = sub.add_parser("analyze", help="extract motifs and discords")
+    p.add_argument("-i", "--input", required=True,
+                   help="time series OR base path of .mpb/.mpib results")
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("-k", type=int, default=3, help="top-k motifs/discords")
+    p.add_argument("--regimes", type=int, default=0,
+                   help="also report this many regime changes (FLUSS CAC)")
+    p.add_argument("--chain", action="store_true",
+                   help="also report the unanchored time-series chain "
+                        "(needs the time series input, not saved results)")
+    p.add_argument("--av", default=None, choices=("complexity",),
+                   help="guided search: bias motifs/discords by an "
+                        "annotation vector (needs the time series input)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--kernel", default="auto",
+                   choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    return p
+
+
+def _cmd_analyze(args) -> int:
+    from mpx_torch.analysis import top_discords, top_motifs
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.driver import compute_matrix_profile
+    from mpx_torch.io.tsb import read_binary, read_series
+
+    T = None
+    MPIl = MPIr = None
+    if os.path.exists(args.input + ".mpb"):
+        if args.chain:
+            raise SystemExit(
+                "--chain needs the raw time series input (left/right "
+                "profiles are recomputed), not a saved .mpb/.mpib base path"
+            )
+        MP = read_binary(args.input + ".mpb", "double")
+        MPI = read_binary(args.input + ".mpib", "int")
+    else:
+        T = read_series(args.input)
+        cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, kernel=args.kernel,
+                                  device=args.device)
+        if args.chain:
+            # One left/right run serves both outputs: the profile is the
+            # elementwise min-merge of the two sides.
+            MPl, MPIl, MPr, MPIr = (o.cpu().numpy() for o in
+                                    compute_matrix_profile(T, config=cfg, left_right=True))
+            left_wins = MPl <= MPr
+            MP = np.where(left_wins, MPl, MPr)
+            MPI = np.where(left_wins, MPIl, MPIr)
+        else:
+            MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+
+    MP_motif = MP_discord = MP
+    if args.av:
+        from mpx_torch.analysis import apply_annotation_vector, complexity_annotation
+
+        if T is None:
+            raise SystemExit("--av needs the raw time series input "
+                             "(the annotation vector is computed from it)")
+        AV = complexity_annotation(T, args.m)
+        MP_motif = apply_annotation_vector(MP, AV, mode="motif")
+        MP_discord = apply_annotation_vector(MP, AV, mode="discord")
+        print(f"annotation vector: {args.av} "
+              f"(mean {AV.mean():.3f}, min {AV.min():.3f})")
+    # Rank on the (biased) profile, print the pair's true distance.
+    print("motifs (a, b, distance):")
+    for mo in top_motifs(MP_motif, MPI, args.m, k=args.k):
+        true_d = MP[mo.a] if MPI[mo.a] == mo.b else MP[mo.b]
+        print(f"  {mo.a:8d} {mo.b:8d} {true_d:.6f}")
+    print("discords (index, distance):")
+    for d in top_discords(MP_discord, MPI, args.m, k=args.k):
+        print(f"  {d.index:8d} {MP[d.index]:.6f}")
+    if args.regimes:
+        from mpx_torch.analysis import regimes
+
+        print("regime changes (index):")
+        for r in regimes(MPI, args.m, k=args.regimes):
+            print(f"  {r:8d}")
+    if args.chain:
+        from mpx_torch.analysis import unanchored_chain
+
+        chain = unanchored_chain(MPIl, MPIr)
+        print(f"unanchored chain ({len(chain)} links):")
+        print("  " + " -> ".join(str(int(c)) for c in chain))
+    return 0
+
+
+def _add_chains(sub):
+    p = sub.add_parser(
+        "chains",
+        help="time series chains: drifting patterns (ATSC/ALLC)",
+        description="Extract the longest unanchored time series chain "
+        "(or the chain anchored at --anchor) from the left/right "
+        "matrix profile: temporally ordered subsequences where each "
+        "is the bidirectional nearest neighbor of the previous one "
+        "(Matrix Profile VII).",
+    )
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("--anchor", type=int, default=None,
+                   help="anchor window index (default: longest chain)")
+    p.add_argument("--all", action="store_true", dest="all_chains",
+                   help="print every maximal chain (length >= 2)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--kernel", default="auto",
+                   choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_chains(args) -> int:
+    from mpx_torch.chains import all_chains, compute_chains
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, kernel=args.kernel,
+                              device=args.device)
+    res = compute_chains(T, cfg, anchor=args.anchor)
+    kind = (f"anchored @ {args.anchor}" if args.anchor is not None
+            else "longest unanchored")
+    print(f"chain ({kind}): length {res.length}")
+    print("  " + " -> ".join(str(int(i)) for i in res.chain))
+    if args.all_chains:
+        for k, c in enumerate(all_chains(res.mpi_left, res.mpi_right)):
+            print(f"chain {k}: length {len(c)}: " + " -> ".join(str(int(i)) for i in c))
+    return 0
+
+
+def _add_contrast(sub):
+    p = sub.add_parser(
+        "contrast",
+        help="contrast profile: patterns present in series PLUS and "
+             "absent from series MINUS")
+    p.add_argument("-p", "--plus", required=True,
+                   help="positive series (contains the behavior of interest)")
+    p.add_argument("-n", "--minus", required=True, help="negative series (does not)")
+    p.add_argument("-m", type=int, default=None,
+                   help="window length; omit with --pan to sweep")
+    p.add_argument("--pan", default=None,
+                   help="comma-separated window lengths (pan contrast "
+                        "profile); reports the best (m, index) pattern")
+    p.add_argument("-k", type=int, default=3, help="number of contrast motifs to report")
+    p.add_argument("-o", "--output", help="writes <o>.cp.npy (float64 contrast profile)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--band", type=int, default=4096)
+    p.add_argument("--chunk", type=int, default=4096)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_contrast(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.contrast import (
+        best_contrast,
+        contrast_profile,
+        pan_contrast_profile,
+        top_contrast_motifs,
+    )
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    Logger.verbose = args.verbose
+    Tp, Tm = read_series(args.plus), read_series(args.minus)
+    if args.pan:
+        ms = [int(s) for s in args.pan.split(",") if s.strip()]
+        if not ms:
+            raise ValueError("--pan needs at least one window size, "
+                             "e.g. --pan 64,128,256")
+        cfg = MatrixProfileConfig(m=ms[0], dtype=args.dtype, band=args.band,
+                                  chunk=args.chunk, device=args.device)
+        pan = pan_contrast_profile(Tp, Tm, ms, config=cfg)
+        best_m, best_i, score = best_contrast(pan)
+        print(f"pan contrast over m={sorted(set(ms))}")
+        print(f"best contrast: m={best_m} @ {best_i}  score {score:.4f}")
+        if args.output:
+            np.savez(args.output + ".pancp", **{f"m{mm}": cp for mm, cp in pan})
+            Logger.info(f"wrote {args.output}.pancp.npz")
+        return 0
+    if args.m is None:
+        print("error: -m is required (or pass --pan)", file=sys.stderr)
+        return 1
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, band=args.band,
+                              chunk=args.chunk, device=args.device)
+    prof = BenchmarkProfile()
+    res = contrast_profile(Tp, Tm, config=cfg, profile=prof)
+    for mot in top_contrast_motifs(res, args.m, k=args.k):
+        print(f"contrast motif @ {mot.index}  (in-class neighbor "
+              f"{mot.neighbor})  score {mot.score:.4f}")
+    if args.output:
+        np.save(args.output + ".cp", res.cp)
+        Logger.info(f"wrote {args.output}.cp.npy")
+    if args.verbose:
+        prof.report(file=sys.stdout)
+    return 0
+
+
+def _add_ostinato(sub):
+    p = sub.add_parser("ostinato",
+                       help="consensus motif across several series (one -i each)")
+    p.add_argument("-i", "--input", action="append", required=True,
+                   help="series file; repeat for each series (>= 2)")
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_ostinato(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.ostinato import ostinato
+
+    Logger.verbose = args.verbose
+    series = [read_series(p) for p in args.input]
+    res = ostinato(series, config=MatrixProfileConfig(m=args.m, dtype=args.dtype,
+                                                      device=args.device))
+    print(f"consensus motif: series {res.series} "
+          f"({args.input[res.series]}) @ {res.index}, "
+          f"radius {res.radius:.6f}")
+    return 0
+
+
+def _add_snippets(sub):
+    p = sub.add_parser("snippets", help="k most representative L-length segments")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-L", "--length", type=int, required=True, help="snippet length")
+    p.add_argument("-k", type=int, default=2)
+    p.add_argument("-m", type=int, default=None,
+                   help="comparison subsequence length (default L/2)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    return p
+
+
+def _cmd_snippets(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.snippets import snippets
+
+    T = read_series(args.input)
+    cfg = MatrixProfileConfig(m=args.m if args.m else max(4, args.length // 2),
+                              dtype=args.dtype, device=args.device)
+    print("snippets (start, length, fraction):")
+    for s in snippets(T, args.length, k=args.k, m=args.m, config=cfg):
+        print(f"  {s.start:8d} {s.length:6d} {s.fraction:.3f}")
+    return 0
+
+
+def _add_cluster(sub):
+    p = sub.add_parser(
+        "cluster",
+        help="cluster several series by MPdist (one -i each)",
+        description="Pairwise MPdist matrix from AB-joins, then "
+        "hierarchical agglomerative clustering on the host; prints the "
+        "distance matrix, per-series labels, and each cluster's medoid.",
+    )
+    p.add_argument("-i", "--input", action="append", required=True,
+                   help="series file; repeat for each series (>= 2)")
+    p.add_argument("-m", type=int, required=True, help="subsequence length")
+    p.add_argument("-k", "--clusters", type=int, default=2)
+    p.add_argument("--linkage", default="average",
+                   choices=("single", "complete", "average"))
+    p.add_argument("--threshold", type=float, default=0.05,
+                   help="MPdist quantile threshold")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_cluster(args) -> int:
+    from mpx_torch.cluster import cluster_series
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+
+    Logger.verbose = args.verbose
+    series = [read_series(p) for p in args.input]
+    res = cluster_series(
+        series, n_clusters=args.clusters, linkage=args.linkage, threshold=args.threshold,
+        config=MatrixProfileConfig(m=args.m, dtype=args.dtype, device=args.device))
+    k = len(series)
+    print(f"MPdist matrix ({k}x{k}, m={args.m}, threshold={args.threshold}):")
+    for row in res.distances:
+        print("  " + " ".join(f"{d:8.4f}" for d in row))
+    for c in res.clusters:
+        names = ", ".join(args.input[i] for i in c.members)
+        print(f"cluster {c.label}: medoid {args.input[c.medoid]} "
+              f"radius {c.radius:.4f} :: {names}")
+    return 0
+
+
+def _add_motiflets(sub):
+    p = sub.add_parser(
+        "motiflets",
+        help="k-motiflets: the k most similar motif occurrences",
+        description="Find the set of k non-overlapping windows with "
+        "minimal extent (max pairwise z-norm distance): set-motif "
+        "discovery parameterized by occurrence count instead of a "
+        "radius (Schaefer & Leser 2022). --elbows sweeps k and reports "
+        "the natural occurrence counts.",
+    )
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-m", type=int, required=True)
+    p.add_argument("-k", type=int, default=None, help="occurrence count (omit with --elbows)")
+    p.add_argument("--elbows", type=int, default=None, metavar="KMAX",
+                   help="sweep k=2..KMAX, print extents + elbow k's")
+    p.add_argument("--candidates", type=int, default=64,
+                   help="seeds refined on host (default 64)")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_motiflets(args) -> int:
+    from mpx_torch.config import MatrixProfileConfig
+    from mpx_torch.io.tsb import read_series
+    from mpx_torch.motiflets import k_motiflets, motiflet_elbows
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    cfg = MatrixProfileConfig(m=args.m, dtype=args.dtype, device=args.device)
+    if args.elbows is not None:
+        results, elbows = motiflet_elbows(T, kmax=args.elbows, config=cfg,
+                                          candidates=args.candidates)
+        for r in results:
+            idx = " ".join(str(int(i)) for i in r.indices)
+            print(f"k={r.k}: extent {r.extent:.6f}  [{idx}]")
+        print("elbows (descending significance): "
+              + (" ".join(str(k) for k in elbows) or "none"))
+        return 0
+    if args.k is None:
+        print("error: -k is required (or pass --elbows)", file=sys.stderr)
+        return 1
+    res = k_motiflets(T, k=args.k, config=cfg, candidates=args.candidates)
+    idx = " ".join(str(int(i)) for i in res.indices)
+    print(f"{args.k}-motiflet: extent {res.extent:.6f}")
+    print(f"  occurrences: {idx}")
+    return 0
+
+
+def _add_query(sub):
+    p = sub.add_parser(
+        "query",
+        help="similarity search: find occurrences of a query subsequence "
+             "(MASS distance profile + non-overlapping matches)")
+    p.add_argument("-i", "--input", required=True, help="series to search")
+    p.add_argument("-q", "--query", required=True,
+                   help="query: a .tsb/.txt file, or i:j to slice the "
+                        "input series itself")
+    p.add_argument("-k", "--max-matches", type=int, default=None)
+    p.add_argument("--max-distance", type=float, default=None,
+                   help="report matches at distance <= this "
+                        "(default: max(min(D), mean(D)-2*std(D)))")
+    p.add_argument("-o", "--output", help="also write the full distance profile to <o>.mpb")
+    p.add_argument("--method", default="auto", choices=("auto", "fft", "direct"))
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_query(args) -> int:
+    """MASS is float64 host work (as in mpx), so ``query`` has no
+    ``--device``."""
+    from mpx_torch.analysis import match
+    from mpx_torch.io.tsb import read_series, write_binary
+
+    Logger.verbose = args.verbose
+    T = read_series(args.input)
+    if ":" in args.query and not os.path.exists(args.query):
+        lo, hi = args.query.split(":", 1)
+        Q = T[int(lo):int(hi)]
+    else:
+        Q = read_series(args.query)
+    matches, D = match(Q, T, max_distance=args.max_distance, max_matches=args.max_matches,
+                       method=args.method, return_profile=True)
+    for r in matches:
+        print(f"match @ {r.index}  distance {r.distance:.6f}")
+    if not matches:
+        print("no matches under the distance threshold")
+    if args.output:
+        write_binary(args.output + ".mpb", D, "double")
+        Logger.info(f"wrote {args.output}.mpb ({D.shape[0]} distances)")
+    return 0
+
+
 def _add_tsbin(sub):
     p = sub.add_parser("tsbin", help="encode/decode binary time series files")
     g = p.add_mutually_exclusive_group(required=True)
@@ -732,6 +1136,14 @@ def main(argv=None) -> int:
     _add_damp(sub)
     _add_batch(sub)
     _add_floss(sub)
+    _add_analyze(sub)
+    _add_chains(sub)
+    _add_contrast(sub)
+    _add_ostinato(sub)
+    _add_snippets(sub)
+    _add_cluster(sub)
+    _add_motiflets(sub)
+    _add_query(sub)
     _add_tsbin(sub)
     _add_golden(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
@@ -744,7 +1156,10 @@ def main(argv=None) -> int:
         return {"compute": _cmd_compute, "abjoin": _cmd_abjoin, "topk": _cmd_topk,
                 "thresh": _cmd_thresh, "matrix": _cmd_matrix, "mstamp": _cmd_mstamp,
                 "pan": _cmd_pan, "merlin": _cmd_merlin, "damp": _cmd_damp,
-                "batch": _cmd_batch, "floss": _cmd_floss, "tsbin": _cmd_tsbin,
+                "batch": _cmd_batch, "floss": _cmd_floss, "analyze": _cmd_analyze,
+                "chains": _cmd_chains, "contrast": _cmd_contrast, "ostinato": _cmd_ostinato,
+                "snippets": _cmd_snippets, "cluster": _cmd_cluster,
+                "motiflets": _cmd_motiflets, "query": _cmd_query, "tsbin": _cmd_tsbin,
                 "golden": _cmd_golden,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:

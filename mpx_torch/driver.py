@@ -17,7 +17,13 @@ import torch
 
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
-from mpx_torch.kernels import band_geometry, get_sweep_fn, needs_windows, resolve_kernel
+from mpx_torch.kernels import (
+    band_geometry,
+    get_sweep_fn,
+    is_recurrence,
+    needs_windows,
+    resolve_kernel,
+)
 from mpx_torch.ops.aggregates import (
     init_aggregates,
     merge_window,
@@ -99,7 +105,8 @@ def compute_matrix_profile(
     if stats is None:
         with phase(profile, "1. Pre-Computation", device=device):
             stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt,
-                                          device=device, windows=windows)
+                                          device=device, windows=windows,
+                                          exact_mean=is_recurrence(kernel))
     elif stats.T.dtype != dt or (windows and (stats.windows is None
                                                or stats.windows.dtype != dt)):
         raise ValueError(f"stats must be in the compute dtype"

@@ -46,6 +46,12 @@ def needs_windows(kernel: str) -> bool:
     return kernel in ("mxu", "mxu_fused", "hybrid")
 
 
+def is_recurrence(kernel: str) -> bool:
+    """Whether the sweep is the diagonal recurrence, which reads ``df``/``dg``
+    and so takes statistics with ``exact_mean`` (:mod:`mpx_torch.ops.precompute`)."""
+    return kernel in ("xla", "pallas")
+
+
 def get_sweep_fn(kernel: str):
     if kernel == "mxu":
         from mpx_torch.kernels.mxu import sweep_band_mxu
@@ -67,4 +73,4 @@ def get_sweep_fn(kernel: str):
 
 
 __all__ = ["BandOut", "band_geometry", "resolve_kernel", "needs_windows",
-           "get_sweep_fn", "MXU_MAX_M"]
+           "is_recurrence", "get_sweep_fn", "MXU_MAX_M"]

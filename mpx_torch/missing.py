@@ -26,7 +26,7 @@ import torch
 
 from mpx_torch.config import MatrixProfileConfig, config_for
 from mpx_torch.driver import compute_matrix_profile
-from mpx_torch.kernels import needs_windows, resolve_kernel
+from mpx_torch.kernels import is_recurrence, needs_windows, resolve_kernel
 from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
 
 
@@ -89,10 +89,10 @@ def compute_matrix_profile_masked(
 
     # The driver's schedule shrink, so that the padded widths agree.
     config = config.shrink_to(w)
-    s = precompute_statistics_numpy(T_fill, m)
-    s["inv"] = np.where(bad, np.inf, s["inv"])
     device = torch.device(config.device)
     kernel = resolve_kernel(config.kernel, device, config.dtype, m)
+    s = precompute_statistics_numpy(T_fill, m, exact_mean=is_recurrence(kernel))
+    s["inv"] = np.where(bad, np.inf, s["inv"])
     stats = precompute_statistics(T_fill, m, band=config.band, chunk=config.chunk,
                                   dtype=config.dtype, device=device,
                                   windows=needs_windows(kernel), host_stats=s)

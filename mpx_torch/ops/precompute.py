@@ -8,7 +8,8 @@ compute dtype, zero-padded and staged on the device.  The unit-window
 matrix that the sweep kernels read is then built on the device in the
 compute dtype, exactly as mpx builds it, when the sweep kernel reads it
 (``windows=True``: K1 and its plain version; the recurrence tier reads
-only ``T, mu, df, dg, inv``).
+only ``T, mu, df, dg, inv``, and takes a corrected window mean,
+``exact_mean=True``).
 """
 
 from __future__ import annotations
@@ -38,17 +39,29 @@ def _padded_width(w: int, band: int, chunk: int) -> int:
     return ((pw + _WINDOWS_BLOCK - 1) // _WINDOWS_BLOCK) * _WINDOWS_BLOCK
 
 
-def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
+def precompute_statistics_numpy(T: np.ndarray, m: int, *, exact_mean: bool = False) -> dict:
     """Float64 statistics of an unpadded series (host-side, BLAS).
 
     The window mean is the reference's running mean
     (``mu[i] = mu[i-1] + (T[i+m-1] - T[i-1]) / m``), bit for bit what
-    mpx's default, native backend computes.  The recurrence's update
-    assumes ``mu[i] - mu[i-1] = 2 df[i] / m``; the running mean keeps that
-    to one rounding of ``mu`` per step.  A difference of prefix sums (mpx's
-    numpy backend) rounds with the running sum instead (1.6e-9 on ``mu`` at
-    n = 2^20 of a random walk) and breaks that identity, so the float64
-    recurrence would miss 1e-8 on distances there."""
+    mpx's default, native backend computes; so are ``df``, ``dg``,
+    ``inv`` and ``qt0``.  The windows-matmul tiers read only ``mu`` and
+    ``inv``, and the running mean's drift from the exact window mean
+    (~5e-10 on a unit-step walk at level 1e5) costs them nothing
+    measurable.
+
+    ``exact_mean`` is for the recurrence tier (``xla`` and ``pallas``),
+    whose update ``df[i] dg[j] + df[j] dg[i]`` integrates any error of
+    ``dg`` along a diagonal: a drifting mean there misses 1e-8 on
+    distances.  It corrects each window's mean by one more reduction of
+    the centered block that the sum of squares materializes anyway,
+    ``mu + sum(T[i:i+m] - mu) / m`` (within about one ulp of the exact
+    mean), and builds ``dg`` and ``qt0`` from it.  The recurrence's seed
+    does not read ``qt0`` (:func:`mpx_torch.kernels.common.seed_qt`
+    recomputes it per job); it is rebuilt only so the fields agree.
+    ``inv``, and with it the zero-variance classification, is the same
+    with or without the correction, so every tier masks the same
+    windows."""
     T = np.asarray(T, dtype=np.float64)
     n = T.shape[0]
     if m < 4:
@@ -61,25 +74,30 @@ def precompute_statistics_numpy(T: np.ndarray, m: int) -> dict:
     steps = np.concatenate([[np.cumsum(T[:m])[-1] / m], (T[m:] - T[:w - 1]) / m])
     mu = np.cumsum(steps)
 
-    df = np.zeros(w, dtype=np.float64)
-    dg = np.zeros(w, dtype=np.float64)
-    df[1:] = (T[m:] - T[:w - 1]) / 2
-    dg[1:] = (T[m:] - mu[1:]) + (T[:w - 1] - mu[:w - 1])
-
     # Two-pass centered sum-of-squares: the same estimator as mpx's native
     # and streaming paths, so the zero-variance classification agrees.
     windows = np.lib.stride_tricks.sliding_window_view(T, m)
     ssq = np.empty(w, dtype=np.float64)
     sumsq = np.empty(w, dtype=np.float64)
+    resid = np.empty(w, dtype=np.float64) if exact_mean else None
     blk = max(1, _BLOCK_BYTES // (8 * m))
     for o in range(0, w, blk):
         wv = windows[o : o + blk]
         cent = wv - mu[o : o + blk, None]
         ssq[o : o + blk] = np.einsum("ij,ij->i", cent, cent)
         sumsq[o : o + blk] = np.einsum("ij,ij->i", wv, wv)
+        if exact_mean:
+            resid[o : o + blk] = cent.sum(axis=1)
     ssq = np.where(ssq <= ZERO_VARIANCE_REL * np.abs(sumsq), 0.0, ssq)
     with np.errstate(divide="ignore"):
         inv = 1.0 / np.sqrt(ssq)
+    if exact_mean:
+        mu = mu + resid / m
+
+    df = np.zeros(w, dtype=np.float64)
+    dg = np.zeros(w, dtype=np.float64)
+    df[1:] = (T[m:] - T[:w - 1]) / 2
+    dg[1:] = (T[m:] - mu[1:]) + (T[:w - 1] - mu[:w - 1])
 
     sdp0 = windows @ T[:m]
     qt0 = sdp0 - m * mu[0] * mu
@@ -146,12 +164,14 @@ def stats_from_numpy(arrays: dict, dtype, device, windows: bool = True) -> Stats
 
 def precompute_statistics(T, m: int, *, band: int, chunk: int,
                           dtype="float32", device="cuda", windows: bool = True,
+                          exact_mean: bool = False,
                           host_stats: dict | None = None) -> Stats:
     """Device-resident, padded statistics in the compute dtype, with the
     unit-window matrix when ``windows`` (the (padded_w, m) matrix only the
     windows-matmul kernels read).  Accumulation is float64 on the host
     (:func:`precompute_statistics_numpy`, or ``host_stats``, its result
-    for the same series when the caller already has it); the pad region
+    for the same series and ``exact_mean`` when the caller already has
+    it; ``exact_mean`` for the recurrence tier); the pad region
     is zero so out-of-range lanes behave like the reference's
     ``InputDataPack(0)``.  ``device`` defaults to the card, as
     :class:`~mpx_torch.config.MatrixProfileConfig` does; pass ``"cpu"``
@@ -159,7 +179,8 @@ def precompute_statistics(T, m: int, *, band: int, chunk: int,
     T64 = np.asarray(T, dtype=np.float64)
     w = T64.shape[0] - m + 1
     pw = _padded_width(w, band, chunk)
-    s = precompute_statistics_numpy(T64, m) if host_stats is None else host_stats
+    s = (precompute_statistics_numpy(T64, m, exact_mean=exact_mean)
+         if host_stats is None else host_stats)
     npdt = np.float64 if torch_dtype(dtype) == torch.float64 else np.float32
 
     def padn(x, width):

@@ -134,6 +134,14 @@ def test_aamp_rejects_ignored_knobs():
 
 
 def test_aamp_mpdist_is_not_ported():
-    T = np.random.default_rng(137).standard_normal(200)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        aamp_mpdist(T, T, 16, config=_cfg(16))
+    """Once refused; now mpx's raw MPdist over the port's raw AB-join,
+    within mpx's float64 tolerance of the largest distance."""
+    rng = np.random.default_rng(137)
+    A, B = np.cumsum(rng.standard_normal(300)), np.cumsum(rng.standard_normal(260))
+    for thr in (0.05, 0.2):
+        got = aamp_mpdist(A, B, 16, threshold=thr, config=_cfg(16))
+        exp = mpx.aamp.aamp_mpdist(A, B, 16, threshold=thr,
+                                   config=mpx.MatrixProfileConfig(m=16, dtype="float64",
+                                                                  band=32, chunk=64))
+        scale = _raw(A, 16, np.arange(285)[:, None], np.arange(245)[None, :], B).max()
+        assert abs(got - exp) <= RTOL["float64"] * scale

@@ -79,10 +79,18 @@ def test_thresh_writes_mpxs_file(tmp_path, dtype, capsys):
     assert_thresh_close(got["sums"], got["counts"], exp["sums"], exp["counts"], dtype, near)
 
 
-def test_abjoin_mpdist_is_not_ported(tmp_path):
+def test_abjoin_mpdist_is_not_ported(tmp_path, capsys):
+    """Once refused; now ``abjoin --mpdist`` prints mpx's line, the value
+    within 1e-8 of mpx's (float64)."""
     (_, a), (_, b) = _series(tmp_path, "a", 300, 5), _series(tmp_path, "b", 300, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        port_main(["abjoin", "-a", a, "-b", b, "-m", "16", "--mpdist", "--device", "cpu"])
+    args = ["abjoin", "-a", a, "-b", b, "-m", "16", "--mpdist", "--dtype", "float64"]
+    capsys.readouterr()
+    assert port_main(args + ["--device", "cpu"]) == 0
+    ours = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("MPdist: ")]
+    assert mpx_main(args) == 0
+    ref = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("MPdist: ")]
+    assert len(ours) == len(ref) == 1
+    assert abs(float(ours[0].split()[1]) - float(ref[0].split()[1])) <= EPS["float64"]
 
 
 @pytest.mark.parametrize("command", ["abjoin", "topk", "thresh", "matrix", "mstamp", "pan",

@@ -770,3 +770,65 @@ def test_fleet_on_card_equals_single_runs(card, dtype):
         np.testing.assert_array_equal(MP[b], one[0])
         np.testing.assert_array_equal(MPI[b], one[1])
         np.testing.assert_allclose(MP[b], cpu[0][b], rtol=0, atol=DIST_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [7, 8])
+def test_k3_f64_holds_1e8_on_offset_walks(card, seed):
+    """K3 in float64 (``kernel='pallas'``) on a walk whose level (1e5) is
+    large beside its spread: within 1e-8 of the explicit distance matrix,
+    with the recurrence tier's corrected window means."""
+    from mpx_torch.reference import brute_force_matrix_profile
+
+    T = np.cumsum(np.random.default_rng(seed).standard_normal(4096)) + 1e5
+    cfg = MatrixProfileConfig(m=64, dtype="float64", kernel="pallas", band=512, chunk=1024,
+                              device="cuda")
+    before = recurrence.LAUNCHES
+    MP, _ = compute_matrix_profile(T, config=cfg)
+    assert recurrence.LAUNCHES > before
+    exp, _ = brute_force_matrix_profile(T, 64)
+    err = float(np.abs(MP.cpu().numpy() - exp).max())
+    print(f"K3 f64 offset walk seed {seed}: max err {err:.3e}")
+    assert err <= DIST_TOL["float64"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_contrast_on_card_matches_cpu(card, dtype):
+    """The contrast profile's two joins through K1 on the card, against
+    the same composition on the CPU."""
+    from mpx_torch.contrast import contrast_profile
+
+    plus, minus = _series(3000, 91, constant_run=False), _series(2500, 92)
+    kw = dict(m=64, dtype=dtype, band=512, chunk=1024)
+    before = mxu_fused.LAUNCHES
+    got = contrast_profile(plus, minus, config=MatrixProfileConfig(device="cuda", **kw))
+    assert mxu_fused.LAUNCHES > before
+    exp = contrast_profile(plus, minus, config=MatrixProfileConfig(device="cpu", **kw))
+    for name in ("cp", "mp_aa", "mp_ab"):
+        np.testing.assert_allclose(getattr(got, name), getattr(exp, name), rtol=0,
+                                   atol=DIST_TOL[dtype], err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_chains_on_card_match_cpu(card, dtype):
+    """``compute_chains`` on the card: in float64 the same left/right
+    indices and chain as on the CPU; in either dtype the chain of the
+    card's own left/right profile."""
+    from mpx_torch.chains import anchored_chain, compute_chains
+
+    T = _series(3000, 93, constant_run=False)
+    kw = dict(m=32, dtype=dtype, band=512, chunk=1024)
+    got = compute_chains(T, MatrixProfileConfig(device="cuda", **kw))
+    out = compute_matrix_profile(T, config=MatrixProfileConfig(device="cuda", **kw),
+                                 left_right=True)
+    np.testing.assert_array_equal(got.mpi_left, out[1].cpu().numpy())
+    np.testing.assert_array_equal(got.mpi_right, out[3].cpu().numpy())
+    np.testing.assert_array_equal(got.chain, anchored_chain(
+        got.mpi_left, got.mpi_right, int(got.lengths.argmax())))
+    if dtype == "float64":
+        exp = compute_chains(T, MatrixProfileConfig(device="cpu", **kw))
+        np.testing.assert_array_equal(got.mpi_left, exp.mpi_left)
+        np.testing.assert_array_equal(got.mpi_right, exp.mpi_right)
+        np.testing.assert_array_equal(got.chain, exp.chain)

@@ -210,7 +210,7 @@ def test_recurrence_stages_no_windows(monkeypatch):
                               chunk=256, device="cpu")
     ref = _np(compute_matrix_profile(T, config=cfg))
     stats = pre.precompute_statistics(T, 16, band=128, chunk=256, dtype="float64",
-                                      device="cpu", windows=False)
+                                      device="cpu", windows=False, exact_mean=True)
     assert stats.windows is None
 
     def no_windows(*args, **kwargs):
