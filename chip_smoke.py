@@ -7,7 +7,7 @@ Phases, each printing one line of findings (any failure raises, and the
 script exits nonzero without the final line):
 
 0. device: the card's name and power limit, torch and CUDA versions;
-1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc over both) for
+1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc for each, together) for
    sm_90a, with ptxas's registers and the count of tensor-core
    instructions (DMMA, HMMA) in each of K1's kernels, from
    ``cuobjdump -sass`` of the library, and the registers, spills and
@@ -173,12 +173,31 @@ script exits nonzero without the final line):
     sampled rows within 1e-8; wall and pairs/s;
 41. the other compositions at moderate sizes: ``compute_chains`` (f32,
     n=2^18), ``ostinato`` (f64, 3 x 2^16, a planted motif), ``snippets``
-    (f32, n=2^16, L=1024), ``cluster_series`` (f64, 4 x 2^15), ``k_motiflets``
+    (f32, n=2^15, L=1024), ``cluster_series`` (f64, 4 x 2^15), ``k_motiflets``
     (f32, n=2^16, m=128, k=5) and ``aamp_mpdist`` (f64), each against the
     driver, exact host scans or the CPU run;
 42. the ``analyze``, ``chains``, ``contrast``, ``ostinato``, ``snippets``,
     ``cluster``, ``motiflets``, ``query`` and ``abjoin --mpdist`` command
     lines, each printed value and file equal to the API's result;
+43. K1 f32 through one job of 4096 x 16384 at m = 256, 512, 1024, 2048
+    and 4096 on walks with noisy planted copies: the largest distance error
+    over 64 rows against the exact f64 row scan (self-matches left out),
+    gated at 2e-3, the plain sweep's reading and the exact copy's distance
+    beside, and the readings of the single accumulation chain the per-slab
+    promotion replaced (measured before the repair);
+44. job sharding over 4 virtual shards of cuda:0 (n=2^18, m=256, band
+    4096, chunk 16384): f32 through K1 and f64 through K3, values bit-equal
+    to the single-device run, indices equal or equidistant, both walls;
+45. ``ring-f32-1048576`` at full shape (n=2^20, m=256, f32, shards 1,
+    band 4096, chunk 16384) through ``compute_matrix_profile``'s ring (K1): wall, pairs/s,
+    K1 launches, 64 rows against the exact scan; a 4-virtual-shard ring at
+    n=2^18 equal to the one-shard ring;
+46. ``ring-f64-1048576`` at full shape through the ring hybrid: wall, pass
+    A/B/C split and counts, 64 rows within 1e-8 of the exact scan;
+47. ``distributed_matrix_profile`` in a one-rank NCCL group the phase opens
+    and closes (n=2^18, f32 through K1), equal to the single-device run;
+    ``compute --shards 1 --shard-mode ring`` and ``batch --shards 1`` on
+    data/binary/16384.tsb, each file equal to the API's;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
@@ -189,8 +208,9 @@ pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
 pan of phase 30, phases 33–38's runs of the new entry points (the
 checkpointed hybrids' pass A in phase 35 included), the contrast
 profile's joins in phase 40 (f64) and phase 41's compositions (chains and
-snippets f32, ostinato and the clustering's AB-joins f64); K3 in phases 7, 8 and
-(f64) 30, 35 and 37; the bound and the library call's time at the
+snippets f32, ostinato and the clustering's AB-joins f64), and (f32) the
+sharded runs of phases 44-47 (the ring hybrid's pass A in 46); K3 in
+phases 7, 8 and (f64) 30, 35, 37 and 44; the bound and the library call's time at the
 band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
 matrix, mSTAMP and the fused pan are otherwise torch ops); the line before the last is
@@ -2987,7 +3007,7 @@ def phase_compositions(torch) -> dict:
     256), its left/right indices equal to the driver's; ``ostinato`` (f64,
     3 walks of 2^16 with a planted motif), the planted motif found and its
     radius within 1e-8 of exact scans of the other series; ``snippets``
-    (f32, n = 2^16, L = 1024), 32 sampled positions (outside the chosen
+    (f32, n = 2^15, L = 1024), 32 sampled positions (outside the chosen
     segments) of the chosen candidates' profiles within 2e-3 of exact
     scans and the fractions
     equal to the assignment of those profiles; ``mpdist_matrix`` /
@@ -3055,8 +3075,9 @@ def phase_compositions(torch) -> dict:
                        "k1_launches": n1, "found": [res.series, res.index],
                        "radius": res.radius, "radius_err_vs_exact": err}
 
-    # snippets: f32, n = 2^16, L = 1024 (m = 512); three regimes
-    n, L = 1 << 16, 1024
+    # snippets: f32, n = 2^15 (cut from 2^16 to keep the script under
+    # 570 s), L = 1024 (m = 512); three regimes
+    n, L = 1 << 15, 1024
     t = np.arange(n)
     Ts = np.where(t < n // 3, np.sin(t / 20.0), np.where(t < 2 * n // 3, np.sign(np.sin(
         t / 37.0)), np.sin(t / 11.0) ** 3)) + 0.05 * np.random.default_rng(SEED + 44) \
@@ -3291,6 +3312,270 @@ def phase_slice11_cli(torch):
         input="data/binary/16384.tsb", seconds=out)
 
 
+K1_ACCURACY_MS = (256, 512, 1024, 2048, 4096)
+
+
+def k1_accuracy_series(m: int):
+    """A walk of 16384 + m - 1 samples (one job of S = 4096 rows against
+    all W = 16384 windows) with noisy copies (noise 0.05 of the segment's
+    spread) of segments of the job's rows planted among the later columns,
+    and one exact copy; returns the series, the sources and the exact
+    copy's source row."""
+    n, rng = 16384 + m - 1, np.random.default_rng(SEED + m)
+    T = np.cumsum(rng.standard_normal(n))
+    copies = max(2, min(16, (n - 8192) // m - 1))
+    src = np.sort(rng.choice(4096 - m // 4, copies, replace=False))
+    for k, s in enumerate(src):
+        seg = T[s : s + m]
+        at = 8192 + k * m
+        noise = 0.0 if k == 0 else 0.05 * seg.std()
+        T[at : at + m] = seg - seg[0] + T[at] + noise * rng.standard_normal(m)
+    return T, src, int(src[0])
+
+
+def phase_k1_accuracy(torch) -> dict:
+    """K1 f32 (``sweep_band_mxu_fused``) through one job of 4096 x 16384
+    at m = 256 .. 4096 on :func:`k1_accuracy_series`: the largest |d - d
+    exact| over 64 sampled rows (the planted sources and random rows)
+    against the exact f64 right-side row scan (``hybrid._row_scan``),
+    leaving out self-matches (exact d < 1e-3); the plain sweep's reading
+    on the same rows, and both sweeps' distance at the exact copy."""
+    from mpx_torch.hybrid import _row_scan
+    from mpx_torch.kernels.common import band_geometry
+    from mpx_torch.kernels.mxu import sweep_band_mxu
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+    from mpx_torch.ops.precompute import precompute_statistics
+
+    S, W, out = 4096, 16384, {}
+    for m in K1_ACCURACY_MS:
+        T, src, twin = k1_accuracy_series(m)
+        w = T.shape[0] - m + 1
+        rng = np.random.default_rng(SEED + m + 1)
+        rows = np.unique(np.concatenate([src, rng.choice(S - m // 4, 64 - src.size,
+                                                         replace=False)]))
+        stats = precompute_statistics(T, m, band=S, chunk=W, dtype="float32", device="cuda")
+        ex = precompute_statistics(T, m, band=S, chunk=W, dtype="float64", device="cuda",
+                                   windows=False)
+        geom = band_geometry(S, W, m, w)
+        bestP, _ = _row_scan(ex.T, ex.mu[:w], ex.inv[:w], m, w, m // 4, rows, side=+1)
+        exact = torch.sqrt(torch.clamp(2.0 * m * (1.0 - bestP), min=0.0)).cpu().numpy()
+        reading = {}
+        for name, sweep in (("k1", sweep_band_mxu_fused), ("plain", sweep_band_mxu)):
+            P = sweep(stats, 0, 0, geom, "float32").row.value.double()
+            d = torch.sqrt(torch.clamp(2.0 * m * (1.0 - P), min=0.0)).cpu().numpy()
+            far = exact >= 1e-3
+            reading[name] = float(np.abs(d[rows] - exact)[far].max())
+            reading[f"{name}_self_match_d"] = float(d[twin])
+        del stats, ex
+        out[m] = reading
+    return out
+
+
+# Phase 43's readings of K1 with the single f32 accumulation chain that the
+# per-slab promotion replaced (the parent commit's kernel, measured by
+# scripts/torch_k1_accum.py on an NVIDIA H100 80GB HBM3 at 700 W): the
+# largest |d - d exact| over the sampled rows, and the exact copy's d.
+K1_SINGLE_CHAIN = {256: (1.164e-3, 0.0354), 512: (3.512e-3, 0.0558),
+                   1024: (6.968e-3, 0.1424), 2048: (2.082e-2, 0.2679),
+                   4096: (1.051e-1, 0.5154)}
+
+
+def phase_k1_accuracy_gate(torch):
+    """Phase 43: :func:`phase_k1_accuracy`, gated at 2e-3 at every m."""
+    got = phase_k1_accuracy(torch)
+    for m, r in got.items():
+        require(r["k1"] <= DIST_TOL["float32"],
+                f"K1 f32 at m={m}: {r['k1']} from the exact scan (tol 2e-3)")
+    say("43 K1 f32 accuracy by m", card=torch.cuda.get_device_name(0), job="4096 x 16384",
+        rows=64, readings=got, tol=DIST_TOL["float32"],
+        single_chain_before_repair={m: {"k1": v[0], "k1_self_match_d": v[1]}
+                                    for m, v in K1_SINGLE_CHAIN.items()})
+
+
+def virtual_mesh(torch, k: int) -> tuple:
+    """``k`` virtual shards of the one card."""
+    return (torch.device("cuda", 0),) * k
+
+
+def phase_job_shards(torch) -> dict:
+    """Phase 44: job sharding over 4 virtual shards of cuda:0 at n = 2^18,
+    m = 256, band 4096, chunk 16384: f32 through K1 and f64 through K3
+    (``kernel='pallas'``), each against the single-device run (values
+    bit-equal, indices equal or equidistant), wall times of both.  Returns
+    the sharded runs' launches."""
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile, make_job_grid
+    from mpx_torch.ops.aggregates import postcompute
+    from mpx_torch.ops.precompute import precompute_statistics
+    from mpx_torch.parallel.sharding import run_jobs_sharded
+
+    n, m, S, W = 1 << 18, 256, 4096, 16384
+    T = random_walk(n, SEED + 44)
+    w = n - m + 1
+    out, launches = {}, {}
+    for dtype, kernel, counter in (("float32", "mxu_fused", "k1"), ("float64", "pallas", "k3")):
+        cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=S, chunk=W,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MP1, MPI1 = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+        wall1 = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dtype, device="cuda",
+                                      windows=counter == "k1", exact_mean=counter == "k3")
+        rows, cols = run_jobs_sharded(stats, make_job_grid(w, S, W), num_shards=4, S=S, W=W,
+                                      m=m, w=w, kernel=kernel, dtype=dtype,
+                                      mesh=virtual_mesh(torch, 4))
+        MP4, MPI4 = (o.cpu().numpy() for o in postcompute(rows, cols, m, w))
+        wall4 = time.perf_counter() - t0
+        launches[counter] = require_only(counts(), counter, f"4 virtual shards {dtype}",
+                                         launches=len(make_job_grid(w, S, W).r0))
+        require(np.array_equal(MP1, MP4), f"sharded {dtype} values differ from one device")
+        check_profiles_agree(T, m, MP4, MPI4, MP1, MPI1, DIST_TOL[dtype])
+        out[dtype] = {"kernel": kernel, "launches": launches[counter], "wall_s_d1": wall1,
+                      "wall_s_d4": wall4, "values_bit_equal": True,
+                      "index_differences": int((MPI1 != MPI4).sum())}
+    say("44 job shards x4 virtual", card=torch.cuda.get_device_name(0), n=n, m=m, band=S,
+        chunk=W, mesh="4 x cuda:0", **out)
+    return launches
+
+
+def phase_ring_f32(torch) -> int:
+    """Phase 45: ``ring-f32-1048576`` at the suite row's full shape (n =
+    2^20, m = 256, f32, shards 1, band 4096, chunk 16384) through
+    ``compute_matrix_profile``'s ring route (K1): wall, pairs/s, K1 launches, 64 sampled rows
+    against the exact f64 scan; then a 4-virtual-shard ring at n = 2^18
+    against the one-shard ring there (values bit-equal, indices equal or
+    equidistant).  Returns the K1 launches of the full-shape run."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.parallel.ring import run_ring_sharded
+
+    n, m, S, W = 1 << 20, 256, 4096, 16384
+    T = random_walk(n, SEED + 45)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=S, chunk=W, num_shards=1,
+                              shard_mode="ring", device="cuda")
+    reset_counts()
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
+    launches = require_only(counts(), "k1", "ring f32")
+    rows = sample_rows(w, SEED + 45)
+    err = check_rows(T, m, MP, MPI, rows, DIST_TOL["float32"],
+                     D=row_scan64_card(torch, T, m, rows))
+    T18 = T[: 1 << 18]
+    one = [o.cpu().numpy() for o in run_ring_sharded(T18, m, num_shards=1, band=S, chunk=W,
+                                                     device="cuda")]
+    t0 = time.perf_counter()
+    four = [o.cpu().numpy() for o in run_ring_sharded(T18, m, num_shards=4, band=S, chunk=W,
+                                                      mesh=virtual_mesh(torch, 4))]
+    wall4 = time.perf_counter() - t0
+    require(np.array_equal(one[0], four[0]), "4-shard ring values differ from 1 shard")
+    check_profiles_agree(T18, m, four[0], four[1], one[0], one[1], DIST_TOL["float32"])
+    say("45 ring f32 (ring-f32-1048576)", card=torch.cuda.get_device_name(0), n=n, m=m,
+        band=S, chunk=W, shards=1, wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall,
+        k1_launches=launches, phases_s=phases, card_clock_power=card,
+        max_err_64_rows=err, tol=DIST_TOL["float32"],
+        virtual_ring_n=T18.shape[0], virtual_ring_d4_wall_s=wall4,
+        virtual_ring_values_bit_equal=True,
+        virtual_ring_index_differences=int((one[1] != four[1]).sum()))
+    return launches
+
+
+def phase_ring_f64(torch) -> int:
+    """Phase 46: ``ring-f64-1048576`` at the suite row's full shape (n =
+    2^20, m = 256, f64, shards 1, band 4096, chunk 16384) through
+    ``compute_matrix_profile``'s ring route (the ring hybrid: K1's f32 launch in pass A): wall,
+    the pass A / B / C split and counts, 64 rows against the exact f64
+    scan.  Returns the K1 f32 launches."""
+    from mpx_torch import MatrixProfileConfig
+    from mpx_torch.utils.profile import BenchmarkProfile
+
+    n, m, S, W = 1 << 20, 256, 4096, 16384
+    T = random_walk(n, SEED + 46)
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64", band=S, chunk=W, num_shards=1,
+                              shard_mode="ring", device="cuda")
+    prof = BenchmarkProfile()
+    reset_counts()
+    MP, MPI, wall, phases, card = run_profile(torch, T, cfg, prof)
+    c = counts()
+    require(c["k1"] > 0 and not c["k3"] and not c["xla"],
+            f"ring hybrid: counts {c}, expected K1 (pass A) and plain passes B/C only")
+    rows = sample_rows(w, SEED + 46)
+    err = check_rows(T, m, MP, MPI, rows, DIST_TOL["float64"],
+                     D=row_scan64_card(torch, T, m, rows))
+    say("46 ring f64 hybrid (ring-f64-1048576)", card=torch.cuda.get_device_name(0), n=n,
+        m=m, band=S, chunk=W, shards=1, wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall,
+        k1_f32_launches=c["k1"], plain_calls=c["mxu"], phases_s=phases,
+        counts=dict(prof.counts), card_clock_power=card, max_err_64_rows=err,
+        tol=DIST_TOL["float64"])
+    return c["k1"]
+
+
+def phase_process_group(torch) -> int:
+    """Phase 47: ``distributed_matrix_profile`` inside a one-rank NCCL group
+    that the phase opens and closes (n = 2^18, m = 256, f32 through K1,
+    band 4096, chunk 16384), equal to the single-device run; ``compute
+    --shards 1 --shard-mode ring`` and ``batch --shards 1`` on
+    data/binary/16384.tsb, each file equal to the API's.  Returns the
+    group run's K1 launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mpx_torch import MatrixProfileConfig, compute_batch_profiles, compute_matrix_profile
+    from mpx_torch.io.tsb import read_binary, read_series
+    from mpx_torch.parallel import distributed
+
+    n, m, S, W = 1 << 18, 256, 4096, 16384
+    T = random_walk(n, SEED + 47)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    import datetime
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        MPd, MPId = distributed.distributed_matrix_profile(
+            T, m, dtype="float32", kernel="auto", band=S, chunk=W, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = require_only(counts(), "k1", "one-rank group")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    cfg = MatrixProfileConfig(m=m, dtype="float32", band=S, chunk=W, device="cuda")
+    MP1, MPI1 = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+    require(np.array_equal(MPd, MP1), "the group's profile differs from one device's")
+    check_profiles_agree(T, m, MPd, MPId, MP1, MPI1, DIST_TOL["float32"])
+    src = os.path.join(REPO, "data", "binary", "16384.tsb")
+    Tc = read_series(src)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "out")
+        run_cli("compute", "-i", src, "-m", "256", "--shards", "1", "--shard-mode", "ring",
+                "-o", base)
+        ring = [o.cpu().numpy() for o in compute_matrix_profile(Tc, config=MatrixProfileConfig(
+            m=256, num_shards=1, shard_mode="ring", device="cuda"))]
+        require(np.array_equal(read_binary(base + ".mpb", "double"), ring[0].astype(np.float64))
+                and np.array_equal(read_binary(base + ".mpib", "int"), ring[1]),
+                "compute --shard-mode ring's files differ from the API's")
+        run_cli("batch", "-i", src, "-m", "64", "--shards", "1", "-o", base)
+        MPb, MPIb = compute_batch_profiles(Tc[None], config=MatrixProfileConfig(
+            m=64, num_shards=1, device="cuda"))
+        require(np.array_equal(read_binary(base + ".16384.mpb", "double"),
+                               MPb[0].astype(np.float64))
+                and np.array_equal(read_binary(base + ".16384.mpib", "int"), MPIb[0]),
+                "batch --shards 1's files differ from the API's")
+    say("47 process group and command lines", card=torch.cuda.get_device_name(0), n=n, m=m,
+        backend=backend, world_size=1, wall_s=wall, k1_launches=launches,
+        equal_to_one_device=True, commands=["compute --shards 1 --shard-mode ring",
+                                            "batch --shards 1"],
+        two_rank_nccl="not measured: NCCL refuses two ranks on one card")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3407,6 +3692,18 @@ def main() -> int:
     tf32_kept("41")
     phase_slice11_cli(torch)
     tf32_kept("42")
+    phase_k1_accuracy_gate(torch)
+    tf32_kept("43")
+    p44 = phase_job_shards(torch)
+    launches["mxu_fused"]["float32"] += p44["k1"]
+    launches["band_recurrence"]["float64"] += p44["k3"]
+    tf32_kept("44")
+    launches["mxu_fused"]["float32"] += phase_ring_f32(torch)
+    tf32_kept("45")
+    launches["mxu_fused"]["float32"] += phase_ring_f64(torch)
+    tf32_kept("46")
+    launches["mxu_fused"]["float32"] += phase_process_group(torch)
+    tf32_kept("47")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)
     kernels = [

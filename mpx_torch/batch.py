@@ -7,7 +7,10 @@ runs each series' job grid through :func:`mpx_torch.driver.run_jobs`
 (K1 on the card under ``auto``) with no wait on the host between series,
 and fetches the group's profiles in one copy.  Row b equals
 :func:`mpx_torch.compute_matrix_profile` of ``batch[b]`` bit for bit: the
-same statistics, job order and merges.
+same statistics, job order and merges.  With ``config.num_shards > 1`` a
+group's series are laid out over a mesh of that many devices, in
+contiguous blocks (mpx's batch sharding): data parallelism, no
+collectives.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from mpx_torch.io.apfixed import quantize
 from mpx_torch.kernels import band_geometry, is_recurrence, needs_windows, resolve_kernel
 from mpx_torch.ops.aggregates import postcompute
 from mpx_torch.ops.precompute import _padded_width, precompute_statistics
+from mpx_torch.parallel.mesh import default_mesh
 
 # mpx's width caps of the fleet tier (its small-problem fused tier's):
 # longer series are run one at a time.
@@ -44,7 +48,8 @@ def compute_batch_profiles(
 
     Returns ``(MP, MPI)`` as numpy, (B, n - m + 1): distances in the
     compute dtype and int32 indices.  ``group`` is the number of series
-    staged at once (default: as many as ``WINDOWS_BUDGET`` holds)."""
+    staged at once (default: as many as ``WINDOWS_BUDGET`` holds on each
+    device of the mesh)."""
     config = config_for(m, config)
     m = config.m
     if isinstance(batch, torch.Tensor):
@@ -85,10 +90,12 @@ def compute_batch_profiles(
             f"(run large series individually)"
         )
 
+    shards = config.num_shards or 1
+    mesh = (device,) if shards == 1 else default_mesh(shards, device=device)
     windows = needs_windows(kernel)
     pw = _padded_width(w, S, W)
     per_series = (pw * (m if windows else 0) + 6 * pw + m) * npdt.itemsize
-    budget = max(1, WINDOWS_BUDGET // per_series)
+    budget = max(1, WINDOWS_BUDGET // per_series) * shards
     group = budget if group is None else group
     if group < 1:
         raise ValueError("group must be >= 1")
@@ -100,11 +107,16 @@ def compute_batch_profiles(
     MPI = np.empty((B, w), np.int32)
     for lo in range(0, B, group):
         series = batch[lo : lo + group]
-        staged = [precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
+        # Series b of the group on shard b * shards // len(series): contiguous
+        # blocks, every shard's work queued before the first fetch.
+        on = [mesh[b * shards // len(series)] for b in range(len(series))]
+        staged = [precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=dev,
                                         windows=windows, exact_mean=is_recurrence(kernel))
-                  for T in series]
+                  for T, dev in zip(series, on)]
         outs = [postcompute(*run_jobs(st, grid, geom=geom, dtype=dt, kernel=kernel), m, w)
                 for st in staged]
-        MP[lo : lo + len(series)] = torch.stack([o[0] for o in outs]).cpu().numpy()
-        MPI[lo : lo + len(series)] = torch.stack([o[1] for o in outs]).cpu().numpy()
+        for dev in dict.fromkeys(on):  # one copy of each shard's block
+            b0, b1 = on.index(dev), len(on) - on[::-1].index(dev)
+            for out, k in ((MP, 0), (MPI, 1)):
+                out[lo + b0 : lo + b1] = torch.stack([o[k] for o in outs[b0:b1]]).cpu().numpy()
     return MP, MPI

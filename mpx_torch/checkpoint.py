@@ -221,6 +221,8 @@ def compute_hybrid_with_checkpoint(T, cfg: MatrixProfileConfig, checkpoint_path:
     T = cfg.prepare_series(T)
     w = T.shape[0] - cfg.m + 1
     cfg = cfg.shrink_to(w)
+    if cfg.num_shards and cfg.num_shards > 1:
+        raise ValueError("checkpointed hybrid runs execute single-device")
     margin = hybrid.default_margin(cfg.m)
     fp = _hybrid_fingerprint(T, cfg, w, margin)
     grid = make_job_grid(w, cfg.band, cfg.chunk)

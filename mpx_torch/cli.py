@@ -73,6 +73,10 @@ def _add_compute(sub):
                    choices=("auto", "mxu", "mxu_fused", "xla", "pallas", "hybrid"))
     p.add_argument("--band", type=int, default=4096, help="rows per job (band height)")
     p.add_argument("--chunk", type=int, default=16384, help="diagonals per job")
+    p.add_argument("--shards", type=int, default=None, help="device count")
+    p.add_argument("--shard-mode", default="jobs", choices=("jobs", "ring"),
+                   help="'jobs' replicates stats and shards the job list; "
+                        "'ring' shards the inputs (memory per device O(n / shards))")
     p.add_argument("--left-right", action="store_true",
                    help="emit left/right profiles (<o>.left/.right .mpb/.mpib)")
     p.add_argument("--raw", action="store_true",
@@ -95,23 +99,27 @@ def _cmd_compute(args) -> int:
     from mpx_torch.io.tsb import read_series, write_results
     from mpx_torch.utils.profile import BenchmarkProfile
 
-    # mpx's refusals of flag combinations it would silently ignore (its
-    # --shards is not ported: the parser refuses it).
+    # mpx's refusals of flag combinations it would silently ignore.
     if args.left_right and args.checkpoint:
         raise SystemExit("--left-right does not support --checkpoint")
-    if args.approx is not None and (args.checkpoint or args.left_right):
+    if args.checkpoint and args.shards:
+        raise SystemExit("--checkpoint does not support --shards "
+                         "(checkpointed runs execute single-device)")
+    if args.approx is not None and (args.checkpoint or args.left_right or args.shards):
         raise SystemExit("--approx is a single-device full-profile mode")
-    if args.raw and (args.checkpoint or args.left_right or args.approx is not None):
+    if args.raw and (args.checkpoint or args.left_right or args.shards
+                     or args.approx is not None):
         raise SystemExit("--raw is a single-device full-profile mode")
     if args.allow_missing and (args.checkpoint or args.approx is not None or args.raw):
-        raise SystemExit("--allow-missing supports the plain and --left-right "
+        raise SystemExit("--allow-missing supports the plain and --left-right/--shards "
                          "profile modes only")
     Logger.verbose = args.verbose
     T = read_series(args.input)
     Logger.verbose_log(f"read {T.shape[0]} values from {args.input}")
     cfg = MatrixProfileConfig(
         m=args.m, dtype=args.dtype, kernel=args.kernel, band=args.band,
-        chunk=args.chunk, device=args.device,
+        chunk=args.chunk, num_shards=args.shards, shard_mode=args.shard_mode,
+        device=args.device,
     )
     prof = BenchmarkProfile()
     if args.allow_missing:
@@ -986,7 +994,7 @@ def _add_batch(sub):
     p.add_argument("-o", "--output", help="output prefix (default: print per-series minima)")
     p.add_argument("--group", type=int, default=None,
                    help="series staged at once (default: as many as fit the budget)")
-    p.add_argument("--shards", type=int, default=None, help="device count (not ported)")
+    p.add_argument("--shards", type=int, default=None, help="device count")
     p.add_argument("--dtype", default="float32")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--verbose", action="store_true")

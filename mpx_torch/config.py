@@ -13,7 +13,12 @@
 * ``tile_rows`` / ``tile_cols`` — kept for API parity with mpx: they only
   round ``band``/``chunk`` in ``shrink_to``; the CUDA kernels pick their
   own tiles and mask the ragged edges
-* ``device``     — torch device every tensor of the run lives on
+* ``num_shards`` — device count for the sharded path: the job list is
+  dealt over a mesh of that many devices (:mod:`mpx_torch.parallel`)
+* ``shard_mode`` — 'jobs' (statistics replicated, job list sharded) or
+  'ring' (the inputs sharded, a column shard visits each device)
+* ``device``     — torch device every tensor of the run lives on (with
+  shards: the device type of the default mesh, and where results land)
 
 Options that mpx has and the port does not yet implement are accepted as
 fields so that calls read the same, and raise ``NotImplementedError``
@@ -75,9 +80,6 @@ class MatrixProfileConfig:
             raise ValueError(
                 f"shard_mode must be 'jobs' or 'ring', got {self.shard_mode!r}"
             )
-        if self.shard_mode == "ring" or (self.num_shards or 1) > 1:
-            _unported("multi-device sharding (num_shards > 1, shard_mode='ring')",
-                      "ROADMAP.md queue 1 item 13 (parallel/)")
         if self.dispatch_group is not None:
             _unported("dispatch_group",
                       "ROADMAP.md 'Not to port' (a TPU relay watchdog workaround)")

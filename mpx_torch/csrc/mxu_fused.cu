@@ -18,7 +18,13 @@
 // mantissa) would not: each operand is split into hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi), and every k8 step adds lo.hi + hi.lo, then hi.hi,
 // to an f32 accumulator (the lo.lo term, ~2^-22 relative, is dropped):
-// three TF32 products, so 495 / 3 TFLOP/s.  Device-memory traffic is only
+// three TF32 products, so 495 / 3 TFLOP/s.  The tensor cores add into an
+// f32 accumulator with truncation, not round-to-nearest, so one chain of
+// 3m/8 MMAs along the whole m axis drifts toward zero by up to an ulp a
+// step (a self-match reads d ~ 0.1 at m = 1024).  Each slab's products
+// therefore go into a zeroed register tile, which is folded into the
+// master accumulator with one round-to-nearest FADD per element: the
+// truncated chain is 12 MMAs long at any m.  Device-memory traffic is only
 // the (S + W) * m operand elements (panels are re-read out of L2) plus the
 // per-tile partials.
 //
@@ -48,8 +54,8 @@
 // split as they come out of shared memory, each once per warp that reads
 // it: a split copy in shared memory would double the fragment loads.
 // A block is 128 x 64 pairs: four warps (2 x 2), each owning a 64 x 32
-// sub-tile of m16n8 accumulators.  Two (f64) or three (f32) blocks share an
-// SM, so one block's epilogue and first loads overlap the others' products.
+// sub-tile of m16n8 accumulators.  Two blocks share an SM, so one block's
+// epilogue and first loads overlap the other's products.
 //
 // Epilogue.  An accumulator fragment holds rows g and g + 8 and columns
 // 2t, 2t + 1 of each m16n8 tile (g = lane / 4, t = lane % 4): a row's
@@ -268,13 +274,15 @@ __device__ __forceinline__ void mma_group(float (&acc)[MI][NI][4], const unsigne
   }
 }
 
-// Resident blocks per SM: the registers of f64's accumulators allow two;
-// f32 fits three.  AB = false is the self-join: the columns are read from
+// Resident blocks per SM: two.  f64's accumulators allow no more; f32's
+// master and slab accumulators (128 floats a thread) spilled ~400 bytes a
+// thread at three (168 registers), which ran 20 % slower on an H100 than
+// two without spills.  AB = false is the self-join: the columns are read from
 // (U, inv, w) and the column operand is ignored, so the compiler sees one
 // matrix (with two, ptxas schedules the f64 body otherwise and it runs ~6 %
 // slower on an H100).
 template <typename T, bool AB>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 8 ? 2 : 3)
+__global__ void __launch_bounds__(THREADS, 2)
 k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, const T* __restrict__ Uc,
          const T* __restrict__ inv_c, int m, int r0, int c0, int S, int W, int w, int wc,
          int excl,
@@ -334,8 +342,28 @@ k1_tiles(const T* __restrict__ U, const T* __restrict__ inv, const T* __restrict
       load_slab<T>(sbase + (next % STAGES) * STAGE_BYTES, U, Uc, m, next * BK, r0 + rb,
                    a_rows, c0 + cb, b_rows, vec, tid);
     cp_async_commit();
+    if constexpr (sizeof(T) == 8) {
 #pragma unroll
-    for (int q = 0; q < GROUPS; ++q) mma_group(acc, slab, arow, brow, off[q]);
+      for (int q = 0; q < GROUPS; ++q) mma_group(acc, slab, arow, brow, off[q]);
+    } else {
+      // The slab's 12 truncating MMAs into a zeroed tile, then one
+      // round-to-nearest add into the master accumulator.
+      T slab_acc[MI][NI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) slab_acc[mi][ni][e] = T(0);
+#pragma unroll
+      for (int q = 0; q < GROUPS; ++q) mma_group(slab_acc, slab, arow, brow, off[q]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], slab_acc[mi][ni][e]);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the epilogue reuses it

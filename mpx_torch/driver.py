@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
@@ -40,18 +41,32 @@ def _agg_length(w: int, S: int, W: int) -> int:
     return w + S + W
 
 
+def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
+               rows, cols, stats_c: Optional[Stats] = None):
+    """Sweep the jobs (r0s[j], k0s[j]) one at a time with ``kernel``,
+    max-merging each job's outputs into the ``rows`` and ``cols``
+    aggregates in place; a generator that yields after each job's
+    launches, so a caller can interleave the jobs of several devices.
+    ``stats_c`` is the columns' statistics (a ring's visiting shard)."""
+    sweep = get_sweep_fn(kernel)
+    kw = {} if stats_c is None else {"stats_c": stats_c}
+    for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
+        out = sweep(stats, r0, k0, geom, dtype, **kw)
+        merge_window(rows, out.row, r0)
+        merge_window(cols, out.col, r0 + k0)
+        yield
+
+
 def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
     """Sweep every job of ``grid`` and merge the outputs.  Returns (row
     Aggregates, column Aggregates), each (w + S + W,)."""
-    sweep = get_sweep_fn(kernel)
     L = _agg_length(geom.w, geom.S, geom.W)
     dev = stats.T.device
     rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
     cols = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
-    for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
-        out = sweep(stats, r0, k0, geom, dtype)
-        merge_window(rows, out.row, r0)
-        merge_window(cols, out.col, r0 + k0)
+    for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dtype, kernel=kernel,
+                        rows=rows, cols=cols):
+        pass
     return rows, cols
 
 
@@ -84,6 +99,12 @@ def compute_matrix_profile(
     With ``config.input_quant`` (an ``ap*`` dtype) the series is first
     quantized to that fixed-point grid (:func:`mpx_torch.io.apfixed.quantize`),
     then computed through the tier ``config.kernel`` selects.
+
+    ``config.num_shards > 1`` deals the jobs over a mesh of that many
+    devices (:func:`mpx_torch.parallel.sharding.run_jobs_sharded`; the
+    hybrid's passes A and B too); ``shard_mode='ring'`` shards the inputs
+    instead (:mod:`mpx_torch.parallel.ring`).  The default mesh is the
+    first cards of ``config.device``'s type, or virtual shards of the CPU.
     """
     config = config_for(m, config)
     m = config.m
@@ -94,6 +115,8 @@ def compute_matrix_profile(
     n = T.shape[0]
     if config.kernel == "hybrid":
         return _hybrid(T, config, stats=stats, profile=profile, left_right=left_right)
+    if config.shard_mode == "ring":
+        return _ring(T, config, stats=stats, profile=profile, left_right=left_right)
     w = n - m + 1
     config = config.shrink_to(w)
     S, W = config.band, config.chunk
@@ -113,9 +136,18 @@ def compute_matrix_profile(
                          f"{' and carry windows' if windows else ''} for kernel={kernel!r}")
 
     grid = make_job_grid(w, S, W)
-    geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
-    with phase(profile, f"2. Compute [{kernel}]", device=device):
-        rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel=kernel)
+    num_shards = config.num_shards or 1
+    if num_shards > 1:
+        from mpx_torch.parallel.sharding import run_jobs_sharded
+
+        with phase(profile, f"2. Compute [{kernel}, sharded x{num_shards}]", device=device):
+            rows, cols = run_jobs_sharded(stats, grid, num_shards=num_shards, S=S, W=W, m=m,
+                                          w=w, kernel=kernel, dtype=config.dtype,
+                                          tr=config.tile_rows, tc=config.tile_cols)
+    else:
+        geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
+        with phase(profile, f"2. Compute [{kernel}]", device=device):
+            rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel=kernel)
 
     with phase(profile, "3. Post-Computation", device=device):
         if left_right:
@@ -129,13 +161,47 @@ def _hybrid(T, config: MatrixProfileConfig, *, stats, profile, left_right: bool)
                          "the host, float32 operands on the device); drop stats=")
     from mpx_torch import hybrid
 
-    run = (hybrid.compute_left_right_f64_hybrid if left_right
-           else hybrid.compute_matrix_profile_f64_hybrid)
-    out = run(T, config, profile=profile)
+    num_shards = config.num_shards or 1
+    if left_right and num_shards > 1:
+        raise ValueError("hybrid left/right profiles are single-device; drop "
+                         "--shards or use --kernel mxu")
+    if config.shard_mode == "ring" and not left_right:
+        from mpx_torch.parallel.ring import run_ring_hybrid_f64
+
+        c = config.shrink_to(T.shape[0] - config.m + 1)
+        out = run_ring_hybrid_f64(T, c.m, num_shards=num_shards, band=c.band, chunk=c.chunk,
+                                  profile=profile, device=c.device)
+    else:
+        run = (hybrid.compute_left_right_f64_hybrid if left_right
+               else hybrid.compute_matrix_profile_f64_hybrid)
+        out = run(T, config, profile=profile)
     # (MP, MPI) or (MP_left, MPI_left, MP_right, MPI_right): the exact
     # distances in the requested dtype.
     dt = torch_dtype(config.dtype)
     return tuple(o.to(dt) if o.is_floating_point() else o for o in out)
+
+
+def _ring(T, config: MatrixProfileConfig, *, stats, profile, left_right: bool):
+    """``shard_mode='ring'``, honoured at any shard count (a one-device ring
+    is how the sharded-inputs tier runs on one card): float64 through the
+    ring hybrid, float32 through the one-pass ring (K1 on the card;
+    ``kernel='mxu'`` the plain sweep)."""
+    if left_right:
+        raise ValueError("ring sharding does not support --left-right")
+    if stats is not None:
+        raise ValueError("ring sharding restages statistics internally and cannot take "
+                         "externally-provided stats (they would be silently ignored)")
+    from mpx_torch.parallel.ring import run_ring_hybrid_f64, run_ring_sharded
+
+    num_shards = config.num_shards or 1
+    c = config.shrink_to(T.shape[0] - config.m + 1)
+    if torch_dtype(c.dtype) == torch.float64:
+        return run_ring_hybrid_f64(T, c.m, num_shards=num_shards, band=c.band,
+                                   chunk=c.chunk, profile=profile, device=c.device)
+    with phase(profile, f"2. Compute [ring sharded x{num_shards}]", device=c.device):
+        return run_ring_sharded(T, c.m, num_shards=num_shards, band=c.band, chunk=c.chunk,
+                                dtype=c.dtype, device=c.device,
+                                kernel="mxu" if c.kernel == "mxu" else "mxu_fused")
 
 
 def matrix_profile(T, m: int, **kwargs):

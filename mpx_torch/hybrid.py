@@ -283,6 +283,17 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
     resumes from a saved group; the jobs before it have no captures and are
     listed in ``ckpt.uncaptured`` for a dense pass B."""
     geom = band_geometry(S, W, m, w, wc=wc, excl=excl)
+    rmax, cmax, cap = max_jobs(stats, r0s, k0s, geom, capture=capture, stats_c=stats_c,
+                               ckpt=ckpt)
+    thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine, wc=wc, pwc=pwc)
+    return thr, cap
+
+
+def max_jobs(stats, r0s, k0s, geom, *, capture: bool, stats_c=None, ckpt=None):
+    """Pass A's sweep (see :func:`run_max_jobs`): the (w + S,) row and
+    (wc + W,) column maxima over the jobs, AGGREGATE_INIT where nothing
+    valid was seen, and the captures (or None)."""
+    S, W, w = geom.S, geom.W, geom.w
     dev = stats.windows.device
     r0s, k0s = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
     rmax = torch.full((w + S,), AGGREGATE_INIT, dtype=torch.float32, device=dev)
@@ -308,8 +319,7 @@ def run_max_jobs(stats, r0s, k0s, margin: float, *, S: int, W: int, m: int, w: i
             jcol[j].copy_(cv)
         if ckpt is not None and ((j + 1) % CKPT_JOBS == 0 or j + 1 == len(r0s)):
             ckpt.save_a(rmax, cmax, -(-(j + 1) // CKPT_JOBS))
-    thr = _build_thr(rmax, cmax, margin, w=w, pw=pw, combine=combine, wc=wc, pwc=pwc)
-    return thr, ((r0s, k0s, jrow, jcol) if capture else None)
+    return rmax, cmax, ((r0s, k0s, jrow, jcol) if capture else None)
 
 
 # ---------------------------------------------------------------- pass B
@@ -369,10 +379,12 @@ def _flag_counts(thr, r0s, k0s, jrow, jcol, *, S: int, W: int, thr_col=None,
 def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
                             thr_col=None, combine: bool = True, profile=None,
                             stats_c=None, wc: Optional[int] = None,
-                            excl: Optional[int] = None, ckpt=None):
+                            excl: Optional[int] = None, ckpt=None,
+                            budget: Optional[int] = None):
     """Sparse pass B: each job re-examines only the rows and columns its
     pass-A captures flag, at its exact flag counts (fetched once for all
-    jobs); a job over the budget takes the dense sweep.  Same result as
+    jobs); a job with more flagged rows or columns than ``budget``
+    (default :func:`_sparse_budget`) takes the dense sweep.  Same result as
     :func:`run_suspect_jobs` over all jobs (and the same arguments).
 
     With ``ckpt`` the sparse jobs merge and are saved in groups of
@@ -389,7 +401,8 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
         if ckpt is not None:
             lost[ckpt.uncaptured] = True
             counts[lost] = 0  # their captures were never written
-        dense = lost | (counts.max(axis=1) > _sparse_budget(S, W))
+        budget = _sparse_budget(S, W) if budget is None else budget
+        dense = lost | (counts.max(axis=1) > budget)
         sparse = np.nonzero(~dense)[0]
         step = CKPT_JOBS if ckpt is not None else max(1, len(sparse))
         for lo in range(0, len(sparse), step):
@@ -424,6 +437,58 @@ def run_suspect_jobs_sparse(stats, thr, cap, *, S: int, W: int, m: int, w: int,
     return _finish_suspects(rows_g, cols_g, w=w, wc=wc, combine=combine)
 
 
+# ---------------------------------------------------------------- sharded passes
+# Passes A and B with the jobs dealt over a mesh (mpx's multi-chip route,
+# as :mod:`mpx_torch.parallel.sharding`): each shard sweeps its share into
+# its own maxima or suspect summaries, which merge with the same
+# associative operators on ``mesh[0]``.  Pass C and the exact stages stay
+# on one device: they are O(flagged), not O(n^2).
+
+
+def _shard_jobs(grid, num_shards: int, stats, mesh):
+    """The mesh (default: ``num_shards`` devices of the statistics' type),
+    the statistics on each of its devices, and each shard's round-robin
+    share of the jobs."""
+    from mpx_torch.parallel.mesh import mesh_for
+    from mpx_torch.parallel.sharding import replicate, shard_jobs
+
+    mesh = mesh_for(num_shards, mesh, stats.windows.device)
+    return mesh, replicate(stats, mesh), shard_jobs(grid, num_shards)
+
+
+def run_max_jobs_sharded(stats, grid, margin: float, *, num_shards: int, S: int, W: int,
+                         m: int, w: int, tr: int, tc: int, pw: int, mesh=None):
+    """Sharded pass A: each shard max-sweeps its jobs (K1's f32 launch on
+    the card); the maxima max-merge into one threshold array on
+    ``mesh[0]`` (:func:`_build_thr`)."""
+    mesh, sts, shares = _shard_jobs(grid, num_shards, stats, mesh)
+    geom = band_geometry(S, W, m, w, tr, tc)
+    parts = [max_jobs(st, jobs.r0, jobs.k0, geom, capture=False)[:2]
+             for st, jobs in zip(sts, shares)]
+    rmax, cmax = (torch.stack([p[k].to(mesh[0]) for p in parts]).amax(dim=0) for k in (0, 1))
+    return _build_thr(rmax, cmax, margin, w=w, pw=pw)
+
+
+def run_suspect_jobs_sharded(stats, thr, grid, *, num_shards: int, S: int, W: int, m: int,
+                             w: int, tr: int, tc: int, mesh=None):
+    """Sharded pass B (dense): each shard's suspect summaries, folded over
+    the shards on ``mesh[0]`` (counts add, the K smallest and largest
+    indices kept), then the row and column sides per subsequence."""
+    from mpx_torch.parallel.sharding import replicate
+
+    mesh, sts, shares = _shard_jobs(grid, num_shards, stats, mesh)
+    geom = band_geometry(S, W, m, w, tr, tc)
+    parts = []
+    for dev, st, t, jobs in zip(mesh, sts, replicate(thr, mesh), shares):
+        parts.append((_init_suspects(w + S, dev), _init_suspects(w + W, dev)))
+        _dense_jobs(st, t, jobs.r0, jobs.k0, geom, *parts[-1])
+    folded = [SuspectWindow(*(a.to(mesh[0]) for a in g)) for g in parts[0]]
+    for part in parts[1:]:
+        folded = [_combine_suspects(a, SuspectWindow(*(x.to(mesh[0]) for x in b)))
+                  for a, b in zip(folded, part)]
+    return _finish_suspects(*folded, w=w, combine=True)
+
+
 # ---------------------------------------------------------------- pass C
 
 
@@ -438,37 +503,48 @@ def scan_flagged_rows(stats, thr, flag_idx, *, w: int, excl: int, side: int = 0,
     ``stats_t`` is the target series (an AB-join's other one; default
     ``stats``) and ``w`` its width.  Returns (values (F, K), indices (F,
     K), -1 where empty; counts (F,))."""
-    K, CW = PASS_C_K if K is None else K, PASS_C_COLS
     stats_t = stats if stats_t is None else stats_t
-    U = stats_t.windows
-    dev = U.device
-    fin = torch.isfinite(stats_t.inv)
+    dev = stats_t.windows.device
     outs = []
     for o in range(0, flag_idx.shape[0], _ROW_BLOCK):
         fi = flag_idx[o : o + _ROW_BLOCK].to(dev, torch.int32)
-        F = fi.shape[0]
-        Uf = stats.windows.index_select(0, fi)
-        fin_f = torch.isfinite(stats.inv.index_select(0, fi))
-        thr_f = thr.index_select(0, fi)
-        bv = torch.full((F, K), AGGREGATE_INIT, dtype=torch.float32, device=dev)
-        bi = torch.full((F, K), INDEX_INIT, dtype=torch.int32, device=dev)
-        cnt = torch.zeros(F, dtype=torch.int32, device=dev)
-        for c0 in range(0, w, CW):
-            c1 = min(c0 + CW, w)
-            cols = torch.arange(c0, c1, dtype=torch.int32, device=dev)
-            valid = (_side_zone(cols[None, :] - fi[:, None], excl, side)
-                     & fin_f[:, None] & fin[c0:c1][None, :])
-            with full_precision_matmul():
-                P = Uf @ U[c0:c1].T
-            P.masked_fill_(~valid, AGGREGATE_INIT)
-            cnt += (P >= thr_f[:, None]).sum(dim=1, dtype=torch.int32)
-            v, loc = P.topk(min(K, c1 - c0), dim=1)
-            av = torch.cat([bv, v], dim=1)
-            ai = torch.cat([bi, loc.to(torch.int32) + c0], dim=1)
-            bv, sel = av.topk(K, dim=1)
-            bi = ai.gather(1, sel)
-        outs.append((bv, torch.where(bv > AGGREGATE_INIT, bi, INDEX_INIT), cnt))
+        outs.append(scan_rows(stats.windows.index_select(0, fi),
+                              torch.isfinite(stats.inv.index_select(0, fi)),
+                              thr.index_select(0, fi), fi, stats_t, w=w, excl=excl,
+                              side=side, K=K))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def scan_rows(Uf, fin_f, thr_f, fi, stats_t, *, w: int, excl: int, side: int = 0,
+              K: Optional[int] = None, col_offset: int = 0):
+    """Pass C over one block of query rows given by their float32 unit
+    windows ``Uf``, finite masks ``fin_f``, thresholds ``thr_f`` and global
+    indices ``fi``, against the first ``w`` windows of ``stats_t``, whose
+    window j is global window ``col_offset + j`` (a ring's column shard);
+    see :func:`scan_flagged_rows`.  Indices are global."""
+    K, CW = PASS_C_K if K is None else K, PASS_C_COLS
+    U = stats_t.windows
+    dev = U.device
+    fin = torch.isfinite(stats_t.inv)
+    F = fi.shape[0]
+    bv = torch.full((F, K), AGGREGATE_INIT, dtype=torch.float32, device=dev)
+    bi = torch.full((F, K), INDEX_INIT, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(F, dtype=torch.int32, device=dev)
+    for c0 in range(0, w, CW):
+        c1 = min(c0 + CW, w)
+        cols = torch.arange(col_offset + c0, col_offset + c1, dtype=torch.int32, device=dev)
+        valid = (_side_zone(cols[None, :] - fi[:, None], excl, side)
+                 & fin_f[:, None] & fin[c0:c1][None, :])
+        with full_precision_matmul():
+            P = Uf @ U[c0:c1].T
+        P.masked_fill_(~valid, AGGREGATE_INIT)
+        cnt += (P >= thr_f[:, None]).sum(dim=1, dtype=torch.int32)
+        v, loc = P.topk(min(K, c1 - c0), dim=1)
+        av = torch.cat([bv, v], dim=1)
+        ai = torch.cat([bi, loc.to(torch.int32) + col_offset + c0], dim=1)
+        bv, sel = av.topk(K, dim=1)
+        bi = ai.gather(1, sel)
+    return bv, torch.where(bv > AGGREGATE_INIT, bi, INDEX_INIT), cnt
 
 
 # ---------------------------------------------------------------- exact stages
@@ -568,7 +644,7 @@ def _best_of(P, cand):
 
 def _resolve_side(sus: SuspectWindow, wq: int, m: int, *, stats_q, stats_t, thr_q,
                   exact_q, exact_t, excl: int, wt: int, profile, side: int = 0,
-                  name: str = ""):
+                  name: str = "", passc_fn=None):
     """Rescore the captured candidates exactly, run pass C for
     capture-overflow rows whose captured interval is wide, and hand rows
     with more than PASS_C_K near-maximal pairs to the exact row scan.
@@ -578,7 +654,10 @@ def _resolve_side(sus: SuspectWindow, wq: int, m: int, *, stats_q, stats_t, thr_
     ``exact_q``/``exact_t`` the float64 (T, mu, inv) of each; ``side``
     keeps every stage to one side's neighbors (+1 the right profile, -1 the
     left, 0 both) and ``excl`` is the exclusion zone (:data:`NO_EXCL` for
-    the AB-join).  Phases and counts carry the side's ``name``."""
+    the AB-join).  Phases and counts carry the side's ``name``.  ``passc_fn``
+    (flagged rows -> pass C's (values, indices, counts)) replaces
+    :func:`scan_flagged_rows` where no device holds the whole window
+    matrix (the ring tier's sharded pass C)."""
     dev = sus.cnt.device
     tag, key = (f", {name}", f"_{name}") if name else ("", "")
 
@@ -599,8 +678,9 @@ def _resolve_side(sus: SuspectWindow, wq: int, m: int, *, stats_q, stats_t, thr_
     passc = None
     if flagged.numel():
         with phase(profile, f"2. Compute [pass C{tag}]", device=dev):
-            passc = scan_flagged_rows(stats_q, thr_q, flagged, w=wt, excl=excl, side=side,
-                                      stats_t=stats_t)
+            passc = (passc_fn(flagged) if passc_fn is not None else
+                     scan_flagged_rows(stats_q, thr_q, flagged, w=wt, excl=excl, side=side,
+                                       stats_t=stats_t))
 
     with phase(profile, f"3. Rescore [f64 slots{tag}]", device=dev):
         # Sentinels and repeated slots (a count <= 2K repeats indices in
@@ -735,6 +815,12 @@ def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool, c
     if ckpt is not None and left_right:
         raise ValueError("checkpointed hybrid runs compute the self-join profile only; "
                          "drop left_right")
+    if (config.num_shards or 1) > 1:
+        if ckpt is not None:
+            raise ValueError("hybrid checkpointing is single-device")
+        if left_right:
+            raise ValueError("hybrid left/right profiles are single-device; drop "
+                             "--shards or use --kernel mxu")
     m = config.m
     T64 = _host_f64(T)
     n = T64.shape[0]
@@ -753,9 +839,22 @@ def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool, c
         stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
 
     grid = make_job_grid(w, S, W)
-    thr, sus = _passes(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
-                       pw=stats.mu.shape[0], combine=not left_right, profile=profile,
-                       ckpt=ckpt)
+    num_shards = config.num_shards or 1
+    if num_shards > 1:
+        # mpx's sharded route: passes A and B over the mesh, pass B dense.
+        kw = dict(num_shards=num_shards, S=S, W=W, m=m, w=w, tr=config.tile_rows,
+                  tc=config.tile_cols)
+        with phase(profile, f"2. Compute [pass A, sharded x{num_shards}]", device=dev):
+            thr = run_max_jobs_sharded(stats, grid, margin, pw=stats.mu.shape[0], **kw)
+        with phase(profile, f"2. Compute [pass B dense, sharded x{num_shards}]", device=dev):
+            sus = run_suspect_jobs_sharded(stats, thr, grid, **kw)
+        if profile is not None:
+            profile.counts.update({"pass_b": "dense", "capture_bytes": 0,
+                                   "jobs": len(grid.r0), "dense_jobs": len(grid.r0)})
+    else:
+        thr, sus = _passes(stats, grid.r0, grid.k0, margin, S=S, W=W, m=m, w=w,
+                           pw=stats.mu.shape[0], combine=not left_right, profile=profile,
+                           ckpt=ckpt)
     ex = (exact.T, exact.mu[:w], exact.inv[:w])
     resolve = dict(stats_q=stats, stats_t=stats, exact_q=ex, exact_t=ex, excl=excl, wt=w,
                    profile=profile)

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``mpx_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into ``mpx_torch/_build/``
+The sources are compiled with ``nvcc`` for ``sm_90a``, one process for
+each source, all started together, and linked into one shared library with
+a plain C interface, at first use, into ``mpx_torch/_build/``
 (listed in .gitignore), and loaded with ``ctypes``.  The library's name
 carries a hash of the sources and flags, so an edited source rebuilds.
 Nothing is built at import time, and a failed build raises with nvcc's
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -53,19 +54,41 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmpx_torch_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs) -> str:
+    """Wait for every (command, process) and return their output; raise with
+    nvcc's output if one failed."""
+    out = ""
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{stdout}{stderr}")
+        out += stdout + stderr
+    return out
+
+
 def _build(so: str) -> None:
+    """One nvcc for each source, all started together, then one link."""
     global BUILD_LOG
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        procs = []
+        for src, obj in zip(_sources(), objs):
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        log = _run(procs)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = log
 
 
 def load() -> ctypes.CDLL:

@@ -5,9 +5,11 @@ Counterpart of ``mpx/kernels/mxu_fused.py`` (the Pallas TPU kernel
 C++ for sm_90a on the tensor cores.  float64 runs on the FP64 tensor cores
 (DMMA), bound by their 67 TFLOP/s; float32 runs as split TF32 (three TF32
 products per f32 product, ~2^-22 relative each, where plain TF32 keeps
-three decimal digits), bound by 495 / 3 TFLOP/s.  Each 128 x 64 block
-(two per SM in f64, three in f32) stages the m axis through a 3-slab
-``cp.async`` ring in shared memory.  The correlation tile never reaches
+three decimal digits), bound by 495 / 3 TFLOP/s; each 32-element slab of
+m is summed in a zeroed register tile and folded into the master
+accumulator with a round-to-nearest add, because the tensor cores
+truncate what they add into f32.  Each 128 x 64 block (two per SM)
+stages the m axis through a 3-slab ``cp.async`` ring in shared memory.  The correlation tile never reaches
 device memory: only per-tile (value, index) partials do, and a second
 kernel in the same source reduces them to the job's ``BandOut``.  The
 rows come from one window matrix and the columns from the same one (the

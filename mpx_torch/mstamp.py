@@ -24,8 +24,9 @@ A job's rows are cut into sub-bands so that each (d, S', W) tensor stays
 within ``_TILE_BYTES``; rows are independent and the column side is
 merged once a job, so the outputs do not depend on the cut (but for the
 last bit where the BLAS takes another product kernel for the narrower
-shape).  mpx's Batcher comparator sort and its job-sharded runner are not
-ported (ROADMAP.md "Not to port" and queue 1 item 13).
+shape).  mpx's Batcher comparator sort is not ported (ROADMAP.md "Not to
+port").  With ``config.num_shards > 1`` the jobs are dealt over a mesh
+(:func:`_run_mstamp_sharded`).
 """
 
 from __future__ import annotations
@@ -144,6 +145,26 @@ def _run_jobs(pn: _Panels, grid, *, S: int, W: int, m: int, w: int, excl: int,
     return vals.value[:, :w], vals.index[:, :w]
 
 
+def _run_mstamp_sharded(pn: _Panels, grid, *, num_shards: int, S: int, W: int, m: int,
+                        w: int, excl: int, include: tuple, discords: bool, mesh=None):
+    """Job-sharded mSTAMP (mpx's ``_run_mstamp_sharded``): the panels on
+    each device of a mesh (default: ``num_shards`` devices of the panels'
+    type), the jobs dealt round-robin over the shards, and the (d, w)
+    partial profiles merged on ``mesh[0]`` with a first (lowest shard)
+    minimum."""
+    from mpx_torch.parallel.mesh import mesh_for
+    from mpx_torch.parallel.sharding import replicate, shard_jobs
+
+    mesh = mesh_for(num_shards, mesh, pn.U.device)
+    parts = [_run_jobs(p, jobs, S=S, W=W, m=m, w=w, excl=excl, include=include,
+                       discords=discords)
+             for p, jobs in zip(replicate(pn, mesh), shard_jobs(grid, num_shards))]
+    vals = torch.stack([v.to(mesh[0]) for v, _ in parts])
+    idxs = torch.stack([i.to(mesh[0]) for _, i in parts])
+    best = torch.argmin(vals, dim=0, keepdim=True)
+    return vals.gather(0, best)[0], idxs.gather(0, best)[0]
+
+
 def compute_multidim_profile(
     T,
     m: Optional[int] = None,
@@ -192,8 +213,13 @@ def compute_multidim_profile(
     S, W = config.band, config.chunk
     pn = _stack_stats(T, m, _padded_width(w, S, W), torch_dtype(config.dtype),
                       torch.device(config.device))
-    vals, idxs = _run_jobs(pn, make_job_grid(w, S, W), S=S, W=W, m=m, w=w, excl=m // 4,
-                           include=inc, discords=discords)
+    kw = dict(S=S, W=W, m=m, w=w, excl=m // 4, include=inc, discords=discords)
+    grid = make_job_grid(w, S, W)
+    num_shards = config.num_shards or 1
+    if num_shards > 1:
+        vals, idxs = _run_mstamp_sharded(pn, grid, num_shards=num_shards, **kw)
+    else:
+        vals, idxs = _run_jobs(pn, grid, **kw)
     return MultiProfile(PMP=vals.cpu().numpy(), PMPI=idxs.cpu().numpy())
 
 

@@ -30,6 +30,8 @@ from mpx_torch.ops.precompute import precompute_statistics
 def _check(config: MatrixProfileConfig, threshold: float) -> None:
     if not -1.0 <= threshold <= 1.0:
         raise ValueError(f"threshold must be in [-1, 1], got {threshold}")
+    if config.num_shards and config.num_shards > 1:
+        raise ValueError("the sum-threshold tier is single-device; drop num_shards")
     if config.kernel not in ("auto", "mxu"):
         raise ValueError("the sum-threshold tier has one kernel (windows matmul); use "
                          "kernel='auto'")

@@ -123,14 +123,10 @@ def test_aamp_rejects_ignored_knobs():
         compute_aamp_profile(T, 16, config=_cfg(16, kernel="pallas"))
     with pytest.raises(ValueError, match="one kernel"):
         compute_aamp_ab_join(T, T, 16, config=_cfg(16, kernel="hybrid"))
-    # The port's config refuses sharding before any tier sees it; a config
-    # that carries it anyway is refused by the tier, as mpx's.
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _cfg(16, num_shards=4)
-    cfg = _cfg(16)
-    object.__setattr__(cfg, "num_shards", 4)
+    # The tier is single-device: a sharded config is refused by the tier,
+    # as mpx's (aamp.py's "single-device" ValueError).
     with pytest.raises(ValueError, match="single-device"):
-        compute_aamp_profile(T, 16, config=cfg)
+        compute_aamp_profile(T, 16, config=_cfg(16, num_shards=4))
 
 
 def test_aamp_mpdist_is_not_ported():

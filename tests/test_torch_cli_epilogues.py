@@ -126,9 +126,8 @@ def test_compute_raw_writes_mpxs_files(tmp_path, dtype):
 
 def test_compute_raw_refuses_what_mpx_refuses(tmp_path):
     """mpx's ``--raw`` is a single-device full-profile mode: with
-    ``--left-right``, ``--checkpoint`` or ``--approx`` both exit with
-    mpx's refusal; ``--shards`` is not ported, so the port's parser exits
-    on it."""
+    ``--left-right``, ``--checkpoint``, ``--shards`` or ``--approx`` both
+    exit with mpx's refusal."""
     _, path = _series(tmp_path, "t", 300, 8)
     base = ["compute", "-i", path, "-m", "16", "--raw", "--device", "cpu"]
     for extra in (["--left-right"], ["--checkpoint", "c"], ["--shards", "2"],

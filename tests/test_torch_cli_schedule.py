@@ -146,8 +146,13 @@ def test_batch_writes_mpxs_files(tmp_path, capsys, dtype):
     assert port_main(args + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out
     assert got.startswith("series  min-dist") and len(_table(got)) == 3
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_main(args + ["--shards", "2", "--device", "cpu"])
+    # --shards 2: the series laid over two virtual CPU shards, mpx's files.
+    assert port_main(args + ["--shards", "2", "-o", ours + ".sh", "--device", "cpu"]) == 0
+    assert mpx_main(args + ["--shards", "2", "-o", ref + ".sh"]) == 0
+    capsys.readouterr()
+    for b in range(3):
+        assert_profile_close(batch[b], 16, *_files(f"{ours}.sh.s{b}"),
+                             *_files(f"{ref}.sh.s{b}"), EPS[dtype])
 
 
 def test_floss_prints_mpxs_boundaries(tmp_path, capsys):

@@ -832,3 +832,62 @@ def test_chains_on_card_match_cpu(card, dtype):
         np.testing.assert_array_equal(got.mpi_left, exp.mpi_left)
         np.testing.assert_array_equal(got.mpi_right, exp.mpi_right)
         np.testing.assert_array_equal(got.chain, exp.chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1024, 2048])
+def test_k1_f32_holds_2e3_at_large_m(card, m):
+    """K1's float32 sweep at large m (its per-slab promoted accumulation)
+    within 2e-3 of the exact f64 distances on a walk with noisy planted
+    copies (one job of 512 rows against every window)."""
+    from mpx_torch.hybrid import _row_scan
+    from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
+
+    rng = np.random.default_rng(m)
+    n, S, Wj = 8192 + m - 1, 512, 8192
+    T = np.cumsum(rng.standard_normal(n))
+    src = [17, 211, 333][: (n - 4096 - m) // m]
+    for k, s in enumerate(src):
+        seg = T[s : s + m]
+        at = 4096 + k * m
+        T[at : at + m] = seg - seg[0] + T[at] + 0.05 * seg.std() * rng.standard_normal(m)
+    w = n - m + 1
+    stats = precompute_statistics(T, m, band=S, chunk=Wj, dtype="float32", device=card)
+    ex = precompute_statistics(T, m, band=S, chunk=Wj, dtype="float64", device=card,
+                               windows=False)
+    rows = np.union1d(src, np.arange(0, S - m // 4, 7))
+    bestP, _ = _row_scan(ex.T, ex.mu[:w], ex.inv[:w], m, w, m // 4, rows, side=+1)
+    exact = torch.sqrt(torch.clamp(2.0 * m * (1.0 - bestP), min=0.0)).cpu().numpy()
+    P = sweep_band_mxu_fused(stats, 0, 0, band_geometry(S, Wj, m, w), "float32").row.value
+    got = torch.sqrt(torch.clamp(2.0 * m * (1.0 - P.double()), min=0.0)).cpu().numpy()
+    err = np.abs(got[rows] - exact).max()
+    assert err <= DIST_TOL["float32"], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [("float32", "auto"), ("float64", "pallas")])
+def test_four_virtual_shards_equal_one_device(card, dtype, kernel):
+    """Job sharding over four virtual shards of one card (K1 or K3 on each):
+    values bit-equal to the single-device run, indices equal or tied."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.ops.aggregates import postcompute
+    from mpx_torch.ops.precompute import precompute_statistics as stage
+    from mpx_torch.parallel.sharding import run_jobs_sharded
+
+    T = _series(8192, seed=45)
+    m, S, Wc = 64, 512, 2048
+    w = T.shape[0] - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=S, chunk=Wc, device="cuda")
+    MP1, MPI1 = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
+    stats = stage(T, m, band=S, chunk=Wc, dtype=dtype, device=card, windows=kernel == "auto",
+                  exact_mean=kernel == "pallas")
+    launches = (mxu_fused.LAUNCHES, recurrence.LAUNCHES)
+    rows, cols = run_jobs_sharded(stats, make_job_grid(w, S, Wc), num_shards=4, S=S, W=Wc,
+                                  m=m, w=w, kernel="mxu_fused" if kernel == "auto" else kernel,
+                                  dtype=dtype, mesh=(card,) * 4)
+    MP4, MPI4 = (o.cpu().numpy() for o in postcompute(rows, cols, m, w))
+    assert (mxu_fused.LAUNCHES, recurrence.LAUNCHES) != launches
+    np.testing.assert_array_equal(MP1, MP4)
+    for i in np.nonzero(MPI1 != MPI4)[0]:
+        assert abs(_znorm_distance(T, m, i, MPI1[i]) - _znorm_distance(T, m, i, MPI4[i])) \
+            <= DIST_TOL[dtype]

@@ -62,13 +62,20 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(num_shards=2), "queue 1 item 13"),
-    (dict(shard_mode="ring"), "queue 1 item 13"),
     (dict(dispatch_group=64), "Not to port"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         MatrixProfileConfig(m=16, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(num_shards=2), dict(shard_mode="ring")])
+def test_sharding_options_are_accepted(kwargs):
+    """Multi-device sharding, once refused, is ported (mpx_torch.parallel):
+    the configs are accepted as mpx's are."""
+    cfg = MatrixProfileConfig(m=16, device="cpu", **kwargs)
+    assert (cfg.num_shards, cfg.shard_mode) == (kwargs.get("num_shards"),
+                                                kwargs.get("shard_mode", "jobs"))
 
 
 @pytest.mark.parametrize("kwargs,eps", [

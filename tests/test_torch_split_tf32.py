@@ -4,8 +4,13 @@ On the card K1 computes its float32 correlation tile as split TF32: each
 operand is split into two TF32 values, ``hi = cvt.rna.tf32(x)`` and
 ``lo = cvt.rna.tf32(x - hi)`` (round to nearest, ties away from zero, the
 13 low mantissa bits cleared), and every k8 step adds ``lo.hi + hi.lo``,
-then ``hi.hi``, to an f32 accumulator (``lo.lo`` is dropped).  This file
-puts a numpy emulation of that product into the plain f32 sweep
+then ``hi.hi`` (``lo.lo`` is dropped).  The tensor cores add each MMA's
+products into the f32 accumulator with truncation (round toward zero), so
+K1 runs each 32-element slab of m (four k8 steps, 12 MMAs) into a zeroed
+tile and folds it into the master accumulator with a round-to-nearest
+add.  This file models that accumulation (and the single truncating chain
+it replaced, which drifts with m), puts the emulated product into the
+plain f32 sweep
 (:func:`mpx_torch.kernels.mxu.reduce_tile` on the emulated tile) and holds
 it to mpx, as the card-only tests hold the kernel to the plain sweep:
 
@@ -13,7 +18,9 @@ it to mpx, as the card-only tests hold the kernel to the plain sweep:
   Pallas kernel in interpret mode) on the edge jobs of
   ``tests/test_torch_kernels_mxu.py``, indices equal or tied;
 * profiles within 2e-3 of mpx's f32 profile, indices equal or
-  equidistant.
+  equidistant;
+* on walks with noisy planted copies at m = 1024 and 2048, the promoted
+  order within 2e-3 of the exact distances where the single chain is not.
 """
 
 import jax.numpy as jnp
@@ -43,6 +50,7 @@ from tests.test_torch_kernels_mxu import (
 )
 
 MMA_K = 8  # the depth of one mma.sync m16n8k8 step
+SLAB_K = 32  # float32 elements of m in one of K1's shared-memory slabs
 
 
 def tf32_rna(x: np.ndarray) -> np.ndarray:
@@ -52,19 +60,56 @@ def tf32_rna(x: np.ndarray) -> np.ndarray:
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def split_tf32_product(A: np.ndarray, B: np.ndarray) -> np.ndarray:
-    """A @ B.T for float32 (S, m) and (W, m) as K1 computes it on the card."""
-    Ah = tf32_rna(A)
-    Al = tf32_rna(A - Ah)
-    Bh = tf32_rna(B)
-    Bl = tf32_rna(B - Bh)
-    P = np.zeros((A.shape[0], B.shape[0]), np.float32)
-    for k in range(0, A.shape[1], MMA_K):
+def round_toward_zero_f32(x: np.ndarray) -> np.ndarray:
+    """The float64 ``x`` rounded to float32 toward zero: how the tensor
+    cores round an MMA's sum into an f32 accumulator."""
+    y = np.asarray(x, np.float64).astype(np.float32)
+    over = np.abs(y) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _split(X: np.ndarray):
+    hi = tf32_rna(X)
+    return hi.astype(np.float64), tf32_rna(X - hi).astype(np.float64)
+
+
+def split_tf32_accumulate(A: np.ndarray, B: np.ndarray, k_step, promote: bool = True):
+    """K1's split-TF32 sum over m of the float32 operands ``A`` and ``B``
+    (m last): every k8 step adds its three products (``lo.hi``, ``hi.lo``,
+    ``hi.hi``, each summed exactly) with round-toward-zero, into a zeroed
+    slab accumulator that a round-to-nearest add folds into the result
+    every SLAB_K elements (``promote``, the kernel), or into one chain
+    along the whole m axis (``promote=False``, the kernel before the
+    repair).  ``k_step(X, Y, ks)`` is the exact sum of one step's products
+    of X and Y over the k slice ``ks``."""
+    (Ah, Al), (Bh, Bl) = _split(A), _split(B)
+    m = A.shape[-1]
+    acc = part = None
+    for k in range(0, m, MMA_K):
         ks = slice(k, k + MMA_K)
-        P += Al[:, ks] @ Bh[:, ks].T
-        P += Ah[:, ks] @ Bl[:, ks].T
-        P += Ah[:, ks] @ Bh[:, ks].T
-    return P
+        for X, Y in ((Al, Bh), (Ah, Bl), (Ah, Bh)):
+            s = k_step(X, Y, ks)
+            cur = part if promote else acc
+            cur = round_toward_zero_f32(s if cur is None else cur.astype(np.float64) + s)
+            if promote:
+                part = cur
+            else:
+                acc = cur
+        if promote and ((k + MMA_K) % SLAB_K == 0 or k + MMA_K >= m):
+            acc = part if acc is None else (acc.astype(np.float64) + part).astype(np.float32)
+            part = None
+    return acc
+
+
+def split_tf32_product(A: np.ndarray, B: np.ndarray, promote: bool = True) -> np.ndarray:
+    """A @ B.T for float32 (S, m) and (W, m) as K1 computes it on the card."""
+    return split_tf32_accumulate(A, B, lambda X, Y, ks: X[:, ks] @ Y[:, ks].T, promote)
+
+
+def split_tf32_pair_dots(A: np.ndarray, B: np.ndarray, promote: bool = True) -> np.ndarray:
+    """The K1 products of rows A[i] and B[i] only."""
+    return split_tf32_accumulate(A, B, lambda X, Y, ks: (X[:, ks] * Y[:, ks]).sum(1), promote)
 
 
 def split_tf32_sweep(stats, r0, k0, geom, dtype):
@@ -87,6 +132,55 @@ def test_tf32_rounding_and_split():
     hi = tf32_rna(A)
     rest = A.astype(np.float64) - hi - tf32_rna(A - hi)
     assert np.abs(rest).max() <= 2.0**-22 * np.abs(A).max()
+
+
+def test_round_toward_zero():
+    one = np.float64(1.0)
+    ulp = 2.0**-23  # float32 spacing at 1
+    x = np.array([one + 0.75 * ulp, -(one + 0.75 * ulp), one + 0.25 * ulp, 1.5], np.float64)
+    np.testing.assert_array_equal(round_toward_zero_f32(x), np.float32([1.0, -1.0, 1.0, 1.5]))
+
+
+def planted_pairs(m: int, seed: int, copies: int = 20):
+    """A walk of 16 m samples with ``copies`` noisy copies (noise 0.05 of
+    the segment's spread) of segments of its first half planted in its
+    second half: the exact float64 unit windows of each (source, copy)
+    pair."""
+    rng = np.random.default_rng(seed)
+    n = 16 * m
+    T = np.cumsum(rng.standard_normal(n))
+    src = rng.integers(0, n // 2 - m, copies)
+    dst = n // 2 + rng.integers(0, n // 2 - m, copies)
+    for s, d in zip(src, dst):
+        seg = T[s : s + m]
+        T[d : d + m] = seg - seg.mean() + T[d] + 0.05 * seg.std() * rng.standard_normal(m)
+
+    def unit(idx):
+        c = np.lib.stride_tricks.sliding_window_view(T, m)[idx]
+        c = c - c.mean(axis=1, keepdims=True)
+        return c / np.sqrt((c * c).sum(axis=1, keepdims=True))
+
+    return unit(src), unit(dst)
+
+
+@pytest.mark.parametrize("m", [1024, 2048])
+def test_promoted_accumulation_holds_large_m(m):
+    """K1's per-slab promotion keeps the f32 distances of near neighbours
+    within 2e-3 of the exact ones at m = 1024 and 2048; the single
+    truncating chain it replaced drifts past 2e-3 there (its bias grows
+    with the 3m/8 MMAs of the chain)."""
+    Ua, Ub = planted_pairs(m, seed=m)
+    exact = np.sqrt(np.maximum(2.0 * m * (1.0 - (Ua * Ub).sum(axis=1)), 0.0))
+    A, B = Ua.astype(np.float32), Ub.astype(np.float32)
+    err = {}
+    for promote in (True, False):
+        P = split_tf32_pair_dots(A, B, promote).astype(np.float64)
+        err[promote] = np.abs(np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0)) - exact).max()
+    assert err[True] <= 2e-3 < err[False], err
+    # A window against itself: the chain's truncation reads d ~ 0.1, the
+    # promoted order several times less.
+    own = {p: split_tf32_pair_dots(A[:1], A[:1], p)[0] for p in (True, False)}
+    assert 1.0 - own[True] < (1.0 - own[False]) / 2
 
 
 @pytest.fixture(scope="module")
