@@ -103,12 +103,12 @@ script exits nonzero without the final line):
 23. the ``abjoin``, ``topk`` and ``thresh`` command lines on
     data/binary/16384.tsb, each file equal to the API's result;
 24. the float64 top-k hybrid (m=256, k=4, band 4096, chunk 32768) on
-    phase 21's n=2^19 series (``topk-f64-1048576-k4`` cut from n=2^20 to
-    keep the script under 600 s once phases 29-32 came): one K1 float32
-    launch per job (pass A) and no plain sweep, 32 rows against the exact scan,
-    equal to phase 21's strict tile within 1e-10, the strict tile's time
-    beside; phase split, rows resolved per stage and round, rounds, peak
-    memory, clock and power;
+    the first n=2^18 samples of phase 21's series (``topk-f64-1048576-k4``
+    cut from n=2^20 to 2^19 once phases 29-32 came, and to 2^18 once phases
+    48-50 came): one K1 float32 launch per job (pass A) and no plain sweep,
+    32 rows against the exact scan, equal to the strict tile of the same
+    series within 1e-10, the strict tile's time beside; phase split, rows
+    resolved per stage and round, rounds, peak memory, clock and power;
 25. the top-k hybrid on phase 13's tie-heavy series at k=4 and k=8 against
     the strict float64 tile, pass C, the wide pass C and the exact row
     scan each resolving rows (a knob set between the series' tie counts);
@@ -133,12 +133,14 @@ script exits nonzero without the final line):
     8192, no plain sweep), the fused rows within 2e-3 of the exact rows,
     16 exact windows within 1e-8 of an exact f64 row scan on the card; ms
     per level per job of the fused sweep;
-31. MERLIN at ``merlin-f32-524288-16``'s full shape (n=2^19, lengths
-    256..271): the suite runner's validation, the discords at 256 and 271
-    equal to the full f64 profile's maximum (K1) within 1e-9, the survey
-    and refine times, candidates and observed survey error per length
-    beside eps; motifs at n=2^16, lengths 64..71, each within 1e-9 of the
-    exact f64 profile's minimum;
+31. MERLIN at ``merlin-f32-524288-16``'s lengths (256..271) cut from
+    n=2^19 to 2^18 to keep the script under 570 s once phases 48-50 came
+    (``bench --suite`` measures the full shape): the suite runner's
+    validation, the discords at 256 and 271 equal to the full f64
+    profile's maximum (K1) within 1e-9, the survey and refine times,
+    candidates and observed survey error per length beside eps; motifs at
+    n=2^16, lengths 64..71, each within 1e-9 of the exact f64 profile's
+    minimum;
 32. the ``mstamp``, ``pan --motifs --discords`` and ``merlin`` command
     lines, each file and table equal to the API's result;
 33. streaming at ``streaming-f32-262144``'s full shape (n=2^18, m=256,
@@ -198,6 +200,27 @@ script exits nonzero without the final line):
     and closes (n=2^18, f32 through K1), equal to the single-device run;
     ``compute --shards 1 --shard-mode ring`` and ``batch --shards 1`` on
     data/binary/16384.tsb, each file equal to the API's;
+48. ``DeviceContext`` on the card (``finish`` after a staged product, the
+    round trip) and ``python -m mpx_torch --version`` as a subprocess
+    (started before phase 46, read after phase 49, so reported after 49);
+49. ``python -m mpx_torch serve`` as a subprocess on the card, a pipe
+    server and a TCP server (both started before phase 46, so that their
+    imports overlap phases 46-47; every request line is encoded before the
+    first is sent): ``ping``, ``compute`` on
+    phase 4's n=2^20 f32 walk (m=256, band 4096, chunk 32768) twice, each
+    bit-equal to phase 4's profile, and in f64 at n=2^17 bit-equal to a
+    direct call and 64 rows against the exact scan, the client's latency
+    beside the direct call's wall; ``stream.create`` sessions in ``full``,
+    ``floss`` and ``damp`` mode at ``streaming-f32-262144``'s shape (the
+    ``full`` profile against phase 33's stream); a malformed line and an
+    unknown op; over TCP a ``compute`` at n=2^14, a client reset and
+    ``shutdown``; each server's K1 launches (printed at its exit) equal to
+    those of the same work in this process;
+50. ``python -m mpx_torch bench --suite --only ... --table --out`` as a
+    subprocess for ``vanilla-f32-8192``, ``tiled-f32-131072``,
+    ``real-sudden-cardiac-death``, ``real-italian-power-f64`` and
+    ``streaming-f32-262144``: each row measured and validated, the table
+    printed;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
@@ -209,7 +232,8 @@ pan of phase 30, phases 33–38's runs of the new entry points (the
 checkpointed hybrids' pass A in phase 35 included), the contrast
 profile's joins in phase 40 (f64) and phase 41's compositions (chains and
 snippets f32, ostinato and the clustering's AB-joins f64), and (f32) the
-sharded runs of phases 44-47 (the ring hybrid's pass A in 46); K3 in
+sharded runs of phases 44-47 (the ring hybrid's pass A in 46) and the
+served requests and stream bootstraps of phase 49; K3 in
 phases 7, 8 and (f64) 30, 35, 37 and 44; the bound and the library call's time at the
 band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
@@ -220,6 +244,7 @@ the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -706,7 +731,7 @@ def phase_e2e_f64(torch):
     return MP, MPI
 
 
-def phase_e2e_f32(torch) -> int:
+def phase_e2e_f32(torch) -> dict:
     from mpx_torch import MatrixProfileConfig
 
     n, m, tol = 1 << 20, 256, DIST_TOL["float32"]
@@ -723,7 +748,8 @@ def phase_e2e_f32(torch) -> int:
         k1_launches=launches, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases, card=card,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return launches
+    return {"launches": launches, "T": T, "MP": MP, "MPI": MPI, "wall_s": wall,
+            "band": cfg.band, "chunk": cfg.chunk}
 
 
 def phase_cli():
@@ -1590,7 +1616,7 @@ def phase_topk(torch, n: int = 1 << 19):
         max_err_vs_exact_32_rows=err, tol=DIST_TOL["float64"],
         ab_f32={"na": A.shape[0], "nb": B.shape[0], "m": m3, "wall_s": wall_ab,
                 "max_err_vs_exact_32_rows": err_ab, "tol": DIST_TOL["float32"]})
-    return {"T": T, "D": D, "I": I, "wall_s": wall}
+    return {"T": T}
 
 
 def phase_thresh(torch):
@@ -1741,29 +1767,43 @@ def check_topk_agree(T, m, D, I, D2, I2, tol: float, tie_tol: float) -> float:
 
 
 def phase_topk_hybrid(torch, p21: dict) -> int:
-    """The float64 top-k hybrid (m=256, k=4, band 4096, chunk 32768) on
-    phase 21's n=2^19 series (``topk-f64-1048576-k4`` cut from n=2^20 to
-    keep the script under 600 s once phases 29-32 came): one K1 float32
-    launch per job (pass A) and no plain sweep, 32 sampled rows against
-    the exact scan, and the profile held to phase 21's strict tile within
-    1e-10, with the strict tile's time beside.  Returns the K1 launches."""
+    """The float64 top-k hybrid (m=256, k=4, band 4096, chunk 32768) on the
+    first n=2^18 samples of phase 21's series (``topk-f64-1048576-k4`` cut
+    from n=2^20 to 2^19 in PR 9 and to 2^18 to keep the script under 570 s
+    once phases 48-50 came; ``bench --suite`` measures the full shape): one
+    K1 float32 launch per job (pass A) and no plain sweep, 32 sampled rows
+    against the exact scan, and the profile held to the strict tile of the
+    same series within 1e-10, the strict tile's time beside.  Returns the
+    K1 launches."""
+    from mpx_torch import MatrixProfileConfig
     from mpx_torch.config import make_job_grid
+    from mpx_torch.topk import compute_topk_profile
 
-    m, k, tol = 256, 4, DIST_TOL["float64"]
-    shape = dict(kernel="hybrid", band=4096, chunk=32768)
-    T, w = p21["T"], p21["T"].shape[0] - m + 1
+    m, k, tol, n = 256, 4, DIST_TOL["float64"], 1 << 18
+    shape = dict(band=4096, chunk=32768)
+    T, w = p21["T"][:n], n - m + 1
     jobs = len(make_job_grid(w, 4096, 32768).r0)
-    D, I, wall, phases, cnt, card, peak, launched = run_topk(torch, T, m, k, **shape)
-    launches = require_only(launched, "k1", "top-k hybrid n=2^19 (pass A)", jobs)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Ds, Is = compute_topk_profile(T, k=k, config=MatrixProfileConfig(
+        m=m, dtype="float64", device="cuda", **shape))
+    torch.cuda.synchronize()
+    strict_wall = time.perf_counter() - t0
+    require(not any(counts().values()), f"the strict top-k launched a band sweep: {counts()}")
+    Ds, Is = Ds.cpu().numpy(), Is.cpu().numpy()
+    D, I, wall, phases, cnt, card, peak, launched = run_topk(torch, T, m, k, kernel="hybrid",
+                                                             **shape)
+    launches = require_only(launched, "k1", "top-k hybrid n=2^18 (pass A)", jobs)
     rows = sample_rows(w, SEED + 15)[::2]
     err = check_topk_rows(D, I, rows, row_scan64(T, m, rows), k, tol)
-    vs_strict = check_topk_agree(T, m, D, I, p21["D"], p21["I"], 1e-10, tol)
-    say("24 top-k f64 hybrid vs strict", n=T.shape[0], m=m, k=k, band=4096, chunk=32768,
+    vs_strict = check_topk_agree(T, m, D, I, Ds, Is, 1e-10, tol)
+    say("24 top-k f64 hybrid vs strict", n=n, m=m, k=k, band=4096, chunk=32768,
         jobs=jobs, k1_launches=launches, plain_calls=0, wall_s=wall,
-        pairs_per_s=w * (w - 1) / 2 / wall, strict_wall_s_phase_21=p21["wall_s"],
+        pairs_per_s=w * (w - 1) / 2 / wall, strict_wall_s=strict_wall,
         split_s=topk_split(phases), counts=cnt, peak_device_bytes=peak, card=card,
         max_err_vs_exact_32_rows=err, max_err_vs_strict=vs_strict,
-        index_differs_vs_strict=int((I != p21["I"]).sum()), tol=1e-10)
+        index_differs_vs_strict=int((I != Is).sum()), tol=1e-10)
     return launches
 
 
@@ -2243,8 +2283,9 @@ def merlin_split(prof) -> dict:
 
 
 def phase_merlin(torch) -> int:
-    """MERLIN at ``merlin-f32-524288-16``'s full shape (n=2^19, lengths
-    256..271, the suite runner's walk from seed 0) on the card: the
+    """MERLIN at ``merlin-f32-524288-16``'s lengths (256..271) on the suite
+    runner's walk from seed 0, cut from n=2^19 to 2^18 (``bench --suite``
+    measures the full shape) on the card: the
     runner's own validation (16 sampled rows at 4 lengths: no exact NN
     distance exceeds the reported discord), and at lengths 256 and 271 the
     reported discord equal to the largest value of the full f64 profile
@@ -2257,7 +2298,7 @@ def phase_merlin(torch) -> int:
     from mpx_torch.merlin import multi_length_discords, multi_length_motifs
     from mpx_torch.utils.profile import BenchmarkProfile
 
-    n, lo, hi = 1 << 19, 256, 271
+    n, lo, hi = 1 << 18, 256, 271
     T = np.cumsum(np.random.default_rng(0).standard_normal(n))
     ms = np.arange(lo, hi + 1)
     pairs = float(sum((n - m + 1) * (n - m) / 2 for m in ms))
@@ -2440,7 +2481,8 @@ def phase_streaming(torch) -> dict:
     DAMP at n = 2^16, m = 128, f64, 64 appends of 256 on a noisy sine with
     a planted burst: the right and left states within 1e-8 of the card's
     batch right and left profiles (K1) of the retained series, and the
-    burst alerts.  Returns the K1 launches by dtype."""
+    burst alerts.  Returns the K1 launches by dtype and the stream's
+    checked profile (after its 50 appends)."""
     from mpx_torch import MatrixProfileConfig, compute_matrix_profile
     from mpx_torch.damp import OnlineAnomalyDetector
     from mpx_torch.floss import Floss
@@ -2527,7 +2569,7 @@ def phase_streaming(torch) -> dict:
               "planted_at": at, "discord": list(det.discord),
               "max_err_left_vs_batch": err_l},
         bootstrap_k1_f64_launches=k1_f64, tol=DIST_TOL["float64"])
-    return {"float32": k1_f32, "float64": k1_f64}
+    return {"float32": k1_f32, "float64": k1_f64, "profile": (MP, MPI)}
 
 
 def phase_anytime(torch) -> int:
@@ -3576,6 +3618,332 @@ def phase_process_group(torch) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- slice 13
+def start_version_banner():
+    """``python -m mpx_torch --version`` started as a subprocess (its import
+    overlaps phases 46-47; phase 48 collects it)."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "mpx_torch", "--version"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_runtime_version(torch, banner_proc):
+    """``DeviceContext`` on the card (a staged f64 product, ``finish``,
+    the round trip) and the ``--version`` subprocess's lines."""
+    from mpx_torch.runtime import DeviceContext, devices
+
+    x = np.random.default_rng(SEED + 48).standard_normal((4096, 4096))
+    ctx = DeviceContext("cuda")
+    d = ctx.to_device(x)
+    y = d @ d
+    ns = ctx.finish(y)
+    require(ns > 0 and ctx._pending == [] and ctx.platform == "gpu",
+            f"DeviceContext.finish: {ns} ns, pending {len(ctx._pending)}, {ctx.platform}")
+    require(np.array_equal(ctx.to_host(d), x), "DeviceContext round trip changed the values")
+    require(devices() == [torch.device("cuda", i) for i in range(torch.cuda.device_count())],
+            f"devices(): {devices()}")
+    stats = ctx.memory_stats()
+    t0, proc = banner_proc
+    out, err = proc.communicate(timeout=120)
+    version_s = time.perf_counter() - t0
+    banner = out.splitlines()
+    require(proc.returncode == 0 and banner[0].startswith("mpx_torch ")
+            and torch.cuda.get_device_name(0) in banner[2]
+            and "kernel library (K1, K3): built" in banner[3], f"--version: {out}{err}")
+    say("48 runtime, --version", finish_ns=ns, devices=[str(x) for x in devices()],
+        allocated_bytes=stats["allocated_bytes.all.current"], version_lines=banner,
+        version_subprocess_s=version_s)
+
+
+# The server's K1/K3 counts, printed on its standard error when it exits
+# (the counters live in the server's process).
+_SERVE_WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla\n"
+    "atexit.register(lambda: print('COUNTS ' + json.dumps({'k1': mxu_fused.LAUNCHES, "
+    "'mxu': mxu.CALLS, 'k3': recurrence.LAUNCHES, 'xla': xla.CALLS}), file=sys.stderr, "
+    "flush=True))\n"
+    "sys.argv = ['mpx_torch', 'serve', *sys.argv[1:]]\n"
+    "runpy.run_module('mpx_torch', run_name='__main__', alter_sys=True)\n"
+)
+
+
+class ServeProcess:
+    """``python -m mpx_torch serve ARGS`` in a subprocess on the card (run
+    through a wrapper that prints its kernel counts at exit); ``call``
+    writes one request line and reads one response line, timed.  The
+    process is stopped on exit."""
+
+    def __init__(self, *args):
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen([sys.executable, "-c", _SERVE_WRAPPER, *args], cwd=REPO,
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=self.err, text=True)
+
+    def __enter__(self):
+        return self
+
+    def call(self, line: str):
+        t0 = time.perf_counter()
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        out = self.proc.stdout.readline()
+        dt = time.perf_counter() - t0
+        require(out, f"the server closed its output: {self.stderr()[-2000:]}")
+        return json.loads(out), dt
+
+    def stderr(self) -> str:
+        self.err.seek(0)
+        return self.err.read()
+
+    def counts(self, timeout: float = 120) -> dict:
+        """Wait for the server to exit and return its kernel counts."""
+        require(self.proc.wait(timeout=timeout) == 0,
+                f"the server exited {self.proc.returncode}: {self.stderr()[-2000:]}")
+        lines = [ln for ln in self.stderr().splitlines() if ln.startswith("COUNTS ")]
+        require(len(lines) == 1, f"no counts from the server: {self.stderr()[-2000:]}")
+        return json.loads(lines[0][len("COUNTS "):])
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        return False
+
+
+def direct(torch, fn):
+    """``fn()`` in this process: its result, wall seconds (ending in a
+    synchronize) and K1/K3 counts."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counts()
+
+
+def start_servers(stack) -> tuple:
+    """Phase 49's servers, ``python -m mpx_torch serve`` on the card over a
+    pipe and over TCP (``--port 0 --ready-file``), started ahead of the
+    phase (their imports overlap phases 46-47); ``stack`` (an ExitStack)
+    stops them.  Returns (pipe server, TCP server, ready file)."""
+    tmp = stack.enter_context(tempfile.TemporaryDirectory())
+    ready = os.path.join(tmp, "addr")
+    return (stack.enter_context(ServeProcess()),
+            stack.enter_context(ServeProcess("--port", "0", "--ready-file", ready,
+                                             "--idle-timeout", "30")), ready)
+
+
+def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
+    """``python -m mpx_torch serve`` on the card: the pipe server and the
+    TCP server of :func:`start_servers`.  Over the pipe:
+    ``ping``; ``compute`` on phase 4's n=2^20 f32 walk (m=256, band 4096,
+    chunk 32768, the showcase shape) twice, each bit-equal to phase 4's
+    ``compute_matrix_profile`` of the same config in this process, with
+    the client's latency (line written to line read) beside phase 4's wall;
+    ``compute`` in f64 at n=2^17, bit-equal to a direct call and 64 rows
+    against the exact scan; stream sessions in ``full``, ``floss`` and
+    ``damp`` mode at ``streaming-f32-262144``'s shape (n=2^18, m=256, 50
+    appends of 64; the suite runner's walk): the ``full`` session's
+    ``stream.profile`` against phase 33's ``StreamingMatrixProfile`` after
+    the same appends (within 2e-3, indices equal or equidistant; whether
+    bit-equal is reported), FLOSS's score in [0, 1] and its regime inside
+    the stream, DAMP's alerts scored; a malformed line and an unknown op
+    answered with errors and the loop alive.  Over TCP: a ``compute`` at
+    n=2^14 equal to the direct call, a client reset mid-session, and
+    ``shutdown`` from a second connection.  Each server's K1 launches
+    (printed at its exit) equal those of the same work in this process
+    (phase 4's run a request, phase 33's bootstrap a session).  Returns
+    the served K1 launches by dtype."""
+    import socket
+    import struct
+
+    from mpx_torch import MatrixProfileConfig, compute_matrix_profile
+
+    m = 256
+    expect = {"float32": 0, "float64": 0}
+    latency = {}
+    T17 = random_walk(1 << 17, SEED + 50)
+    T14 = random_walk(1 << 14, SEED + 52)
+    n, app, rounds = 1 << 18, 64, 50
+    Ts = np.cumsum(np.random.default_rng(0).standard_normal(n + app * rounds))
+    srv, tcp, ready = servers
+    # every request line encoded before the first is sent
+    line20 = json.dumps({"op": "compute", "series": p4["T"].tolist(), "m": m,
+                         "dtype": "float32", "band": p4["band"], "chunk": p4["chunk"]})
+    line17 = json.dumps({"op": "compute", "series": T17.tolist(), "m": m, "dtype": "float64",
+                         "band": 4096, "chunk": 32768})
+    modes = ("full", "floss", "damp")
+    creates = {mode: json.dumps({"op": "stream.create", "sid": mode, "series": Ts[:n].tolist(),
+                                 "m": m, "mode": mode}) for mode in modes}
+    appends = {mode: [json.dumps({"op": "stream.append", "sid": mode,
+                                  "points": Ts[o : o + app].tolist()})
+                      for o in range(n, n + app * rounds, app)] for mode in modes}
+    t0 = time.perf_counter()
+    cfg17 = MatrixProfileConfig(m=m, dtype="float64", band=4096, chunk=32768, device="cuda")
+    (MP17, MPI17), wall17, c17 = direct(torch, lambda: compute_matrix_profile(T17,
+                                                                              config=cfg17))
+    require_only(c17, "k1", "compute f64 n=2^17 (direct)")
+    cfg14 = MatrixProfileConfig(m=64, device="cuda")
+    (MP14, MPI14), _, c14 = direct(torch, lambda: compute_matrix_profile(T14, config=cfg14))
+    require_only(c14, "k1", "compute f32 n=2^14 (direct)")
+    ping, ping_s = srv.call(json.dumps({"op": "ping", "id": 0}))
+    require(ping == {"ok": True, "devices": torch.cuda.device_count(), "streams": [],
+                     "id": 0}, f"ping: {ping}")
+
+    def served(label, line, T, dtype, MP, MPI, wall, launches):
+        resp, dt = srv.call(line)
+        require("error" not in resp, f"{label}: {resp}")
+        require(np.array_equal(np.asarray(resp["mp"], np.float64), MP.astype(np.float64))
+                and np.array_equal(np.asarray(resp["mpi"], np.int64), MPI),
+                f"{label}: the served profile is not bit-equal to the direct call")
+        expect[dtype] += launches
+        latency[label] = {"n": T.shape[0], "dtype": dtype, "served_s": dt,
+                          "direct_s": wall, "json_and_pipe_s": dt - wall,
+                          "request_bytes": len(line), "k1_launches": launches}
+
+    for i in (1, 2):
+        served(f"compute f32 n=2^20 #{i}", line20, p4["T"], "float32", p4["MP"],
+               p4["MPI"], p4["wall_s"], p4["launches"])
+    MP17, MPI17 = MP17.cpu().numpy(), MPI17.cpu().numpy()
+    served("compute f64 n=2^17", line17, T17, "float64", MP17, MPI17, wall17, c17["k1"])
+    rows = sample_rows(T17.shape[0] - m + 1, SEED + 50)
+    err17 = check_rows(T17, m, MP17, MPI17, rows, DIST_TOL["float64"],
+                       D=row_scan64_card(torch, T17, m, rows))
+
+    streams = {}
+    for mode in modes:
+        resp, create_s = srv.call(creates[mode])
+        require(resp == {"ok": True}, f"stream.create {mode}: {resp}")
+        expect["float32"] += p33["float32"]  # the bootstrap phase 33 made
+        answers, times = [], []
+        for o, line in zip(range(n, n + app * rounds, app), appends[mode]):
+            resp, dt = srv.call(line)
+            # a FLOSS window trims its head at twice its length
+            require(resp.get("n") == o + app or mode == "floss" and 0 < resp["n"] < o + app,
+                    f"stream {mode} append at {o}: {resp}")
+            answers.append(resp)
+            times.append(dt)
+        prof, prof_s = srv.call(json.dumps({"op": "stream.profile", "sid": mode}))
+        MP, MPI = np.asarray(prof["mp"], np.float64), np.asarray(prof["mpi"], np.int64)
+        live = MPI >= 0
+        require(MP.shape == (answers[-1]["n"] - m + 1,) and np.isfinite(MP[live]).all(),
+                f"stream {mode}: profile {MP.shape}")
+        info = {"create_s": create_s, "served_append_ms": float(np.mean(times)) * 1e3,
+                "served_append_ms_median": float(np.median(times)) * 1e3,
+                "profile_s": prof_s}
+        if mode == "full":
+            MP33, MPI33 = p33["profile"]
+            info["max_err_vs_phase_33"] = check_profiles_agree(
+                Ts, m, MP, MPI, MP33, MPI33, DIST_TOL["float32"])
+            info["bit_equal_to_phase_33"] = bool(
+                np.array_equal(MP, MP33.astype(np.float64)) and np.array_equal(MPI, MPI33))
+        elif mode == "floss":
+            last = answers[-1]
+            require(all(0.0 <= a["score"] <= 1.0 for a in answers)
+                    and all(0 <= r < Ts.shape[0] for r in last["regimes"]),
+                    f"stream floss: {last}")
+            info.update(score=last["score"], regimes=last["regimes"])
+        else:
+            alerts = [a for r in answers for a in r["alerts"]]
+            require(all(np.isfinite(a["distance"]) and n - m < a["index"] < Ts.shape[0]
+                        for a in alerts), f"stream damp alerts {alerts[:3]}")
+            info.update(alerts=len(alerts), discord=answers[-1].get("discord"))
+        streams[mode] = info
+    bad, _ = srv.call("{not json")
+    unknown, _ = srv.call(json.dumps({"op": "nope", "id": "u"}))
+    alive, _ = srv.call(json.dumps({"op": "ping"}))
+    require(bad["error"].startswith("JSONDecodeError: ")
+            and unknown == {"error": "ValueError: unknown op 'nope'", "id": "u"}
+            and alive["streams"] == sorted(modes),
+            f"bad lines: {bad}, {unknown}, then {alive}")
+    bye, _ = srv.call(json.dumps({"op": "shutdown"}))
+    require(bye == {"ok": True}, f"shutdown: {bye}")
+    session_s = time.perf_counter() - t0
+
+    for _ in range(1200):
+        if os.path.exists(ready) and open(ready).read().endswith("\n"):
+            break
+        require(tcp.proc.poll() is None, f"the TCP server exited: {tcp.stderr()[-2000:]}")
+        time.sleep(0.05)
+    host, port = open(ready).read().strip().split(":")
+    with socket.create_connection((host, int(port)), timeout=300) as c1:
+        f1 = c1.makefile("rw", encoding="utf-8")
+        t1 = time.perf_counter()
+        f1.write(json.dumps({"op": "compute", "series": T14.tolist(), "m": 64}) + "\n")
+        f1.flush()
+        resp = json.loads(f1.readline())
+        tcp_s = time.perf_counter() - t1
+        require(np.array_equal(np.asarray(resp["mp"]), MP14.cpu().numpy().astype(np.float64))
+                and np.array_equal(np.asarray(resp["mpi"]), MPI14.cpu().numpy()),
+                "TCP compute differs from the direct call")
+        f1.write(json.dumps({"op": "ping"}) + "\n")
+        f1.flush()
+        # reset the connection without reading the response
+        c1.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+        f1.close()
+    with socket.create_connection((host, int(port)), timeout=60) as c2:
+        f2 = c2.makefile("rw", encoding="utf-8")
+        answers = []
+        for req in ({"op": "ping"}, {"op": "shutdown"}):
+            f2.write(json.dumps(req) + "\n")
+            f2.flush()
+            answers.append(json.loads(f2.readline()))
+    require(answers[0]["ok"] and answers[1] == {"ok": True}, f"after the drop: {answers}")
+    c = srv.counts()
+    ct = tcp.counts()
+    require("dropped" in tcp.stderr(), f"TCP server stderr {tcp.stderr()[-500:]}")
+    total = expect["float32"] + expect["float64"]
+    require(c["k1"] == total and not (c["mxu"] or c["k3"] or c["xla"]),
+            f"the server's counts {c}, expected K1 x{total}")
+    require(ct["k1"] == c14["k1"] and not (ct["mxu"] or ct["k3"] or ct["xla"]),
+            f"TCP server counts {ct} (direct {c14})")
+    expect["float32"] += ct["k1"]
+    say("49 serve", card=torch.cuda.get_device_name(0), ping_s=ping_s, requests=latency,
+        f64_max_err_64_rows=err17, tol=DIST_TOL["float64"],
+        streams={"n": n, "m": m, "appends": rounds, "append": app, **streams},
+        bad_lines={"malformed": bad, "unknown_op": unknown}, session_s=session_s,
+        server_counts=c, tcp={"n": 1 << 14, "m": 64, "compute_s": tcp_s,
+                              "k1_launches": ct["k1"], "client_reset": "survived"},
+        k1_launches=expect)
+    return expect
+
+
+SUITE_ROWS = ("vanilla-f32-8192", "tiled-f32-131072", "real-sudden-cardiac-death",
+              "real-italian-power-f64", "streaming-f32-262144")
+
+
+def phase_bench_suite(torch):
+    """``python -m mpx_torch bench --suite --only ... --table --out`` as a
+    subprocess on the card for the rows that take seconds: each row
+    measured (no ``failed`` key), validated and carrying its provenance;
+    the table printed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "suite.json")
+        args = ["bench", "--suite", "--table", "--out", out]
+        for name in SUITE_ROWS:
+            args += ["--only", name]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mpx_torch", *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"bench --suite failed:\n{proc.stdout}{proc.stderr}")
+        rows = json.load(open(out))
+    require([r["name"] for r in rows] == list(SUITE_ROWS), f"suite rows {rows}")
+    for r in rows:
+        require("failed" not in r and r.get("validation"), f"suite row {r['name']}: {r}")
+        require(r["provenance"]["device"].startswith(torch.cuda.get_device_name(0)),
+                f"suite row {r['name']} provenance {r['provenance']}")
+    table = [ln for ln in proc.stderr.splitlines() if ln.startswith("|")]
+    require(len(table) == 2 + len(SUITE_ROWS), f"suite table: {proc.stderr[-2000:]}")
+    say("50 bench --suite", rows={r["name"]: {k: r.get(k) for k in (
+        "n", "m", "dtype", "wall_s", "append_ms", "pairs_per_sec", "vs_baseline",
+        "validation")} for r in rows}, subprocess_s=wall)
+    for ln in table:
+        print(ln, flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3597,7 +3965,8 @@ def main() -> int:
     tf32_kept("2")
     k1_profile = phase_e2e_f64(torch)
     tf32_kept("3")
-    launches = {"mxu_fused": {"float32": phase_e2e_f32(torch)}}
+    p4 = phase_e2e_f32(torch)
+    launches = {"mxu_fused": {"float32": p4["launches"]}}
     tf32_kept("4")
     phase_cli()
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
@@ -3700,10 +4069,23 @@ def main() -> int:
     tf32_kept("44")
     launches["mxu_fused"]["float32"] += phase_ring_f32(torch)
     tf32_kept("45")
-    launches["mxu_fused"]["float32"] += phase_ring_f64(torch)
-    tf32_kept("46")
-    launches["mxu_fused"]["float32"] += phase_process_group(torch)
-    tf32_kept("47")
+    with contextlib.ExitStack() as stack:
+        # phase 49's servers and phase 48's --version start here: their
+        # imports overlap phases 46-47
+        servers = start_servers(stack)
+        banner = start_version_banner()
+        stack.callback(banner[1].kill)
+        launches["mxu_fused"]["float32"] += phase_ring_f64(torch)
+        tf32_kept("46")
+        launches["mxu_fused"]["float32"] += phase_process_group(torch)
+        tf32_kept("47")
+        for dt, n1 in phase_serve(torch, p4, p33, servers).items():
+            launches["mxu_fused"][dt] += n1
+        tf32_kept("49")
+        phase_runtime_version(torch, banner)
+        tf32_kept("48")
+    phase_bench_suite(torch)
+    tf32_kept("50")
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)
     kernels = [

@@ -30,8 +30,12 @@ the contrast profile (``contrast.py``), consensus motifs
 ``topk``, ``thresh``, ``matrix``, ``mstamp``, ``pan``, ``merlin``,
 ``damp``, ``batch``, ``floss``, ``analyze``, ``chains``, ``contrast``,
 ``ostinato``, ``snippets``, ``cluster``, ``motiflets``, ``query``,
-``tsbin``, ``golden``, ``datasets`` and ``bench`` command lines
-(``python -m mpx_torch ...``).
+``tsbin``, ``golden``, ``datasets``, ``serve`` and ``bench`` (``--suite``
+too) command lines (``python -m mpx_torch ...``, ``--version``); and the
+surfaces: the device runtime (``runtime.py``), the NDJSON serving loop
+over stdin or TCP with its stream sessions (``serve.py``), the benchmark
+suite with every runner (``bench.py``) and the pyscamp and STUMPY
+compatibility layers (``compat/``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile

@@ -39,7 +39,12 @@
 * ``golden``   — golden MP/MPI through the numpy oracle
   (:mod:`mpx_torch.reference`);
 * ``datasets`` — list the datasets under ``data/``;
-* ``bench``    — the benchmark's single run (:mod:`mpx_torch.bench`).
+* ``serve``    — the persistent NDJSON request loop over stdin/stdout or
+  TCP (:mod:`mpx_torch.serve`);
+* ``bench``    — the benchmark: one run, or ``--suite`` (:mod:`mpx_torch.bench`).
+
+``python -m mpx_torch --version`` prints the versions, the device and
+whether the kernel library is built.
 
 ::
 
@@ -1111,6 +1116,65 @@ def _cmd_golden(args) -> int:
     return 0
 
 
+def _add_serve(sub):
+    p = sub.add_parser(
+        "serve",
+        help="persistent NDJSON request loop (stdin -> stdout)",
+        description="Serving mode: one JSON request per stdin line, one "
+        "JSON response per stdout line; the kernel library, the allocator "
+        "and streaming/FLOSS/DAMP sessions stay warm for the process "
+        "lifetime. See mpx_torch/serve.py for the protocol.",
+    )
+    p.add_argument("--port", type=int, default=None,
+                   help="serve NDJSON over TCP instead of stdin/stdout "
+                        "(0 picks a free port; state persists across "
+                        "connections)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--ready-file", default=None,
+                   help="with --port: write the bound host:port here "
+                        "once listening")
+    p.add_argument("--idle-timeout", type=float, default=300.0,
+                   help="with --port: drop a connection silent this "
+                        "long (state persists; the client reconnects)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--verbose", action="store_true")
+    return p
+
+
+def _cmd_serve(args) -> int:
+    from mpx_torch.serve import Server
+
+    Logger.verbose = args.verbose
+    server = Server(device=args.device)
+    if args.port is not None:
+        return server.run_tcp(host=args.host, port=args.port,
+                              ready_file=args.ready_file,
+                              idle_timeout=args.idle_timeout)
+    return server.run()
+
+
+def _print_version() -> int:
+    """The version banner with the build and runtime configuration, the
+    analog of the reference's versionInfo()
+    (include/host/MatrixProfileHost.hpp:12-20)."""
+    import torch
+
+    import mpx_torch
+    from mpx_torch.bench import device_line
+    from mpx_torch.kernels import _build
+
+    print(f"mpx_torch {mpx_torch.__version__}")
+    print(f"  torch {torch.__version__} (CUDA build: {torch.version.cuda or 'none'})")
+    if torch.cuda.is_available():
+        print(f"  device: {device_line('cuda')} ({torch.cuda.device_count()} card(s))")
+    else:
+        print("  device: cpu (no CUDA device)")
+    so = _build.library_path()
+    print(f"  kernel library (K1, K3): "
+          f"{'built' if os.path.exists(so) else 'not built'} ({os.path.relpath(so)})")
+    return 0
+
+
 def _cmd_datasets(args) -> int:
     from mpx_torch.io.datasets import list_datasets
 
@@ -1132,6 +1196,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="mpx_torch", description="matrix-profile framework (PyTorch/CUDA port)"
     )
+    parser.add_argument("-v", "--version", action="store_true",
+                        help="print the versions, the device and the kernel build, and exit")
     sub = parser.add_subparsers(dest="command")
     _add_compute(sub)
     _add_abjoin(sub)
@@ -1154,9 +1220,12 @@ def main(argv=None) -> int:
     _add_query(sub)
     _add_tsbin(sub)
     _add_golden(sub)
+    _add_serve(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
     sub.add_parser("bench", help="run the benchmark (python -m mpx_torch bench -h)")
     args = parser.parse_args(argv)
+    if args.version:
+        return _print_version()
     if args.command is None:
         parser.print_help()
         return 2
@@ -1168,7 +1237,7 @@ def main(argv=None) -> int:
                 "chains": _cmd_chains, "contrast": _cmd_contrast, "ostinato": _cmd_ostinato,
                 "snippets": _cmd_snippets, "cluster": _cmd_cluster,
                 "motiflets": _cmd_motiflets, "query": _cmd_query, "tsbin": _cmd_tsbin,
-                "golden": _cmd_golden,
+                "golden": _cmd_golden, "serve": _cmd_serve,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

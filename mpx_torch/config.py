@@ -112,7 +112,8 @@ class MatrixProfileConfig:
                 bad = int(np.nonzero(~np.isfinite(Tn))[0][0])
                 raise ValueError(
                     f"series contains a non-finite value at index {bad}; "
-                    f"NaN/inf would silently poison every correlation"
+                    f"NaN/inf would silently poison every correlation "
+                    f"(the reference computes garbage on such input)"
                 )
 
     def prepare_series(self, T) -> np.ndarray:

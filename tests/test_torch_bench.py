@@ -103,6 +103,136 @@ def test_run_benchmark_validates_what_it_computed(dtype, tol):
     assert res["pairs_per_sec"] == res["pairs"] / res["wall_s"]
 
 
-def test_suite_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        bench.main(["--suite", "--device", "cpu"])
+def _suite_row(name):
+    return next(r for r in bench.SUITE if r["name"] == name)
+
+
+def test_suite_names_and_shapes_equal_mpxs():
+    """The port's SUITE is mpx's, row for row, less mpx's ``note`` text."""
+    from mpx.bench import SUITE as MPX_SUITE
+
+    assert [r["name"] for r in bench.SUITE] == [r["name"] for r in MPX_SUITE]
+    for ours, theirs in zip(bench.SUITE, MPX_SUITE):
+        assert ours == {k: v for k, v in theirs.items() if k != "note"}
+
+
+def test_suite_only_runs_the_named_row_and_writes_table_and_out(capsys, tmp_path):
+    out = tmp_path / "suite.json"
+    assert bench.main(["--suite", "--only", "vanilla-f32-8192", "--device", "cpu",
+                       "--table", "--out", str(out)]) == 0
+    cap = capsys.readouterr()
+    lines = cap.out.splitlines()
+    assert lines[0] == "device: cpu"
+    rows = json.loads("\n".join(lines[1:]))
+    assert rows == json.loads(out.read_text())
+    (row,) = rows
+    assert row["name"] == "vanilla-f32-8192" and "failed" not in row
+    assert (row["n"], row["m"], row["dtype"]) == (8192, 32, "float32")
+    assert row["validation"]["rows"] == 64 and row["validation"]["tol"] == 2e-3
+    assert row["vs_baseline"] == row["pairs_per_sec"] / bench.BASELINE_PAIRS_PER_SEC
+    prov = row["provenance"]
+    assert {"mpx_torch", "torch", "cuda", "device", "allow_tf32", "measured_at",
+            "commit"} <= set(prov)
+    assert prov["device"] == "device: cpu"
+    assert "| vanilla-f32-8192 | 8,192 | 32 | float32 |" in cap.err
+
+
+def test_suite_skips_huge_rows_unless_named(monkeypatch):
+    ran = []
+    monkeypatch.setattr(bench, "run_benchmark",
+                        lambda **kw: ran.append(kw) or {"pairs_per_sec": 1.0, "wall_s": 1.0})
+    monkeypatch.setattr(bench, "SUITE", [_suite_row("vanilla-f32-8192"),
+                                         _suite_row("pod-f32-16777216")])
+    assert [r["name"] for r in bench.run_suite(device="cpu")] == ["vanilla-f32-8192"]
+    rows = bench.run_suite(names=["pod-f32-16777216"], device="cpu")
+    assert [r["name"] for r in rows] == ["pod-f32-16777216"]
+    assert ran[-1]["kernel"] == "mxu" and ran[-1]["warmup"] is False
+    assert ran[-1]["validate"] == 32 and "huge" not in ran[-1]
+
+
+def test_suite_reraises_validation_errors_and_records_other_failures(monkeypatch):
+    def corrupt(**kw):
+        raise bench.ValidationError("sampled-row validation FAILED")
+
+    def flaky(**kw):
+        raise RuntimeError("out of memory")
+
+    monkeypatch.setattr(bench, "SUITE", [_suite_row("vanilla-f32-8192")])
+    monkeypatch.setattr(bench, "run_benchmark", corrupt)
+    with pytest.raises(bench.ValidationError):
+        bench.run_suite(device="cpu")
+    monkeypatch.setattr(bench, "run_benchmark", flaky)
+    seen = []
+    rows = bench.run_suite(device="cpu", on_row=seen.append)
+    assert rows == seen and rows[0]["failed"] == "RuntimeError('out of memory')"
+    assert "measured_at" in rows[0]["provenance"]
+
+
+# Each runner at a tiny size, with the keys mpx's runner returns.
+RUNNERS = [
+    ("run_streaming_benchmark", dict(n=600, m=16, append=16, rounds=4),
+     {"append_ms", "recompute_pairs", "appends", "baseline_model"}),
+    ("run_topk_benchmark", dict(n=700, m=16, k=3, band=256, chunk=512, validate=8),
+     {"k"}),
+    ("run_thresh_benchmark", dict(n=700, m=16, threshold=0.5, band=256, chunk=512,
+                                  validate=8), {"threshold"}),
+    ("run_damp_benchmark", dict(n=700, m=16, band=256, chunk=512, validate=8), set()),
+    ("run_mstamp_benchmark", dict(n=500, m=16, d=3, band=256, chunk=512, validate=4),
+     {"d", "work_factor", "baseline_model"}),
+    ("run_batch_benchmark", dict(n=400, m=16, b=5, band=128, chunk=128, validate=2),
+     {"b", "series_ms", "baseline_model"}),
+    ("run_matrix_benchmark", dict(n=700, m=16, mwidth=8, mheight=8, band=256, chunk=512,
+                                  validate=8), {"mwidth", "mheight", "matrix_max_corr"}),
+    ("run_merlin_benchmark", dict(n=500, lo=8, hi=11, validate=4),
+     {"lengths", "top_discord"}),
+]
+
+
+@pytest.mark.parametrize("name,kwargs,extra", RUNNERS, ids=[r[0] for r in RUNNERS])
+def test_runner_runs_and_validates_at_a_tiny_size(name, kwargs, extra):
+    res = getattr(bench, name)(device="cpu", **kwargs)
+    assert {"n", "m", "dtype", "pairs", "wall_s", "pairs_per_sec", "validation",
+            "device"} | extra <= set(res)
+    val = res["validation"]
+    assert res["device"] == "cpu" and res["wall_s"] > 0
+    assert val.get("rows", val.get("series")) > 0
+    assert res["pairs_per_sec"] == res["pairs"] / res["wall_s"]
+
+
+def test_thresh_runner_catches_a_corrupt_sum(monkeypatch):
+    import mpx_torch.thresh as thresh
+
+    real = thresh.compute_sum_thresh
+
+    def corrupt(*a, **kw):
+        sums, cnts = real(*a, **kw)
+        return sums + 1.0, cnts
+
+    monkeypatch.setattr(thresh, "compute_sum_thresh", corrupt)
+    with pytest.raises(bench.ValidationError, match="thresh"):
+        bench.run_thresh_benchmark(n=600, m=16, threshold=0.5, band=256, chunk=512,
+                                   validate=8, device="cpu")
+
+
+def test_run_benchmark_takes_the_ring_rows_shards():
+    res = bench.run_benchmark(n=1500, m=16, band=256, chunk=512, shards=1,
+                              shard_mode="ring", validate=16, warmup=False, device="cpu")
+    assert res["validation"]["rows"] == 16 and res["validation"]["tol"] == 2e-3
+
+
+def test_suite_table_renders_every_row_shape():
+    rows = [
+        {"name": "a", "n": 8192, "m": 32, "dtype": "float32", "wall_s": 0.5,
+         "pairs_per_sec": 6.0e10, "vs_baseline": 2.0},
+        {"name": "s", "n": 262144, "m": 256, "dtype": "float32", "wall_s": 0.1,
+         "append_ms": 1.25, "pairs_per_sec": 1e9, "vs_baseline": 7.5},
+        {"name": "s2", "n": 262144, "m": 256, "dtype": "float32", "wall_s": 0.1,
+         "append_ms": 1.25, "pairs_per_sec": 1e9},
+        {"name": "f", "failed": "RuntimeError()", "provenance": {"measured_at": "T"}},
+    ]
+    lines = bench.suite_table(rows).splitlines()
+    assert lines[0].startswith("| config | n | m | dtype |") and len(lines) == 6
+    assert lines[2] == "| a | 8,192 | 32 | float32 | 0.500 | 6.0000e+10 | 2.000x |"
+    assert "1.250 ms/append" in lines[3] and "7.5x vs recompute" in lines[3]
+    assert "(incremental tier)" in lines[4]
+    assert lines[5] == "| f | — | — | — | FAILED (T) | — | — |"

@@ -891,3 +891,62 @@ def test_four_virtual_shards_equal_one_device(card, dtype, kernel):
     for i in np.nonzero(MPI1 != MPI4)[0]:
         assert abs(_znorm_distance(T, m, i, MPI1[i]) - _znorm_distance(T, m, i, MPI4[i])) \
             <= DIST_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_served_compute_equals_the_direct_call(card, dtype):
+    """A ``compute`` request through the serving loop on the card: the
+    profile is bit-equal to ``compute_matrix_profile`` on the same config,
+    through K1's launches."""
+    import json
+
+    from mpx_torch.serve import Server
+
+    T = _series(8192, seed=51)
+    cfg = dict(m=64, dtype=dtype, band=1024, chunk=2048)
+    MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile(
+        T, config=MatrixProfileConfig(device="cuda", **cfg)))
+    server = Server(device="cuda")
+    before = mxu_fused.LAUNCHES
+    resp = server.handle(json.dumps({"op": "compute", "series": T.tolist(), "id": 3, **cfg}))
+    assert "error" not in resp, resp
+    assert mxu_fused.LAUNCHES > before and resp["id"] == 3
+    np.testing.assert_array_equal(np.asarray(resp["mp"]), MP.astype(np.float64))
+    np.testing.assert_array_equal(np.asarray(resp["mpi"]), MPI)
+    assert server.handle('{"op": "ping"}')["devices"] == torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+def test_bench_suite_row_on_card(card, tmp_path, capsys):
+    """``bench --suite --only vanilla-f32-8192`` on the card: one validated
+    row carrying the card's name and its provenance."""
+    import json
+
+    from mpx_torch import bench
+
+    out = tmp_path / "suite.json"
+    assert bench.main(["--suite", "--only", "vanilla-f32-8192", "--table",
+                       "--out", str(out)]) == 0
+    (row,) = json.loads(out.read_text())
+    assert "failed" not in row and row["validation"]["rows"] == 64
+    assert row["device"] == torch.cuda.get_device_name(0)
+    assert row["provenance"]["device"] == bench.device_line("cuda")
+    assert "| vanilla-f32-8192 |" in capsys.readouterr().err
+
+
+@pytest.mark.cuda
+def test_device_context_finish_on_card(card):
+    """``DeviceContext.finish`` waits for the card's queued work and
+    clears what the context tracked."""
+    from mpx_torch.runtime import DeviceContext, devices
+
+    ctx = DeviceContext("cuda")
+    x = ctx.to_device(np.random.default_rng(0).standard_normal((2048, 2048)))
+    y = x @ x
+    ns = ctx.finish(y)
+    assert ns > 0 and ctx._pending == [] and ctx.platform == "gpu"
+    np.testing.assert_allclose(ctx.to_host(y), ctx.to_host(x) @ ctx.to_host(x), rtol=1e-9,
+                               atol=1e-10)
+    assert ctx.memory_stats()["allocation.all.current"] >= 2
+    assert devices()[0] == torch.device("cuda", 0)
