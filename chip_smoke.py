@@ -7,11 +7,13 @@ Phases, each printing one line of findings (any failure raises, and the
 script exits nonzero without the final line):
 
 0. device: the card's name and power limit, torch and CUDA versions;
-1. build: compile K1 and K3 (mpx_torch/csrc/*.cu, one nvcc for each, together) for
-   sm_90a, with ptxas's registers and the count of tensor-core
-   instructions (DMMA, HMMA) in each of K1's kernels, from
-   ``cuobjdump -sass`` of the library, and the registers, spills and
-   shared memory of K3's three kernels (k3_segsum, k3_tiles, k3_reduce);
+1. build: compile K1, K3 and the window statistics kernel
+   (mpx_torch/csrc/*.cu, one nvcc for each, together) for sm_90a, with
+   ptxas's registers and the count of tensor-core instructions (DMMA,
+   HMMA) in each of K1's kernels, from ``cuobjdump -sass`` of the
+   library, and the registers, spills and shared memory of K3's three
+   kernels (k3_segsum, k3_tiles, k3_reduce) and of the four
+   instantiations of ``window_stats``;
 2. K1 against its plain PyTorch version on the card, band level, f32 and
    f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
    jobs, with CUDA-event times of both, of one ``torch.matmul`` of the
@@ -22,8 +24,19 @@ script exits nonzero without the final line):
    kernel='auto' (K1), against kernel='mxu' on the card and against an
    exact float64 numpy row scan on 64 sampled rows;
 4. end to end, f32, n=2^20, m=256, band 4096, chunk 32768 (a random walk
-   from a fixed seed) through K1, against the exact row scan;
+   from a fixed seed) through K1 and one launch of the window statistics
+   kernel, against the exact row scan;
 5. the command line: ``python -m mpx_torch compute`` on data/binary/16384.tsb;
+51. (run after 5) the statistics backends on phase 4's walk (n=2^20,
+    m=256) and on a walk of n=2^18 at m=4096, each with a planted constant
+    run: the window statistics kernel against its plain version on the
+    card (inv within 1e-14 relative, the same zero-variance windows, qt0
+    and the corrected mean's residuals), the share of its inv bit-equal to
+    the host library's ``precompute_stats``, ``native`` against ``numpy``
+    on the card's host; the kernel's CUDA-event times (inv alone, with
+    qt0, with the residuals), its plain version's and its bound; each
+    backend's ``host_statistics`` and whole ``precompute_statistics`` on
+    the host clock, ``auto``'s choice (``device``) held to the fastest;
 6. K3 against its plain PyTorch version (``sweep_band_xla``) on the card,
    band level, f32 and f64, on phase 2's series and edge jobs, with
    CUDA-event times of K3's wrapper (seed, allocations and launches, as
@@ -38,7 +51,8 @@ script exits nonzero without the final line):
    job beside phase 6's K3 times (wrapper, kernels alone) at W = 32768;
    the same rows read with the running mean's statistics (what the
    recurrence tier read before its corrected means) beside, and the host
-   statistics timed with and without the correction;
+   statistics (``auto``: the window statistics kernel) timed with and
+   without the correction;
 8. parity: ``kernel='pallas'`` and ``kernel='hybrid'`` in f64 and f32 on
    phase 3's series against phase 3's K1 f64 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
@@ -225,7 +239,8 @@ script exits nonzero without the final line):
     leaves it so through every phase (checked after each, reported last).
 
 The line before the last but one is a JSON object with one entry per
-kernel and dtype (launches counted in that kernel's main-path runs: K1 in
+kernel and dtype (launches counted in that kernel's main-path runs: the
+window statistics kernel in phases 4, 7 and 10, one a run; K1 in
 phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
 pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
 pan of phase 30, phases 33–38's runs of the new entry points (the
@@ -260,6 +275,10 @@ K1_SOURCE = "mpx_torch/csrc/mxu_fused.cu"
 K1_REPLACES = "mpx/kernels/mxu_fused.py:50"
 K3_SOURCE = "mpx_torch/csrc/band_recurrence.cu"
 K3_REPLACES = "mpx/kernels/pallas_tpu.py:55"
+# The window statistics kernel has no Pallas counterpart: it replaces mpx's
+# on-device statistics backend (backend='jax') and its host C++ one.
+STATS_SOURCE = "mpx_torch/csrc/precompute.cu"
+STATS_REPLACES = "mpx/ops/precompute.py:289"
 # Band-level tolerances (values) and end-to-end distance tolerances.  K1
 # and its plain version sum the same m products; K3 and its plain version
 # carry the recurrence's rounding down the band's rows in another order
@@ -282,6 +301,19 @@ K3_OPS_PER_S = {"float64": 34e12 / 2, "float32": 67e12 / 2}
 # update (multiply, FMA, add), P = QT * inv_r * inv_c (two multiplies), the
 # NaN test, and the row and column comparisons.
 K3_OPS_PER_PAIR = 8
+# FP64 instructions per window element in the window statistics kernel
+# (precompute.cu): the subtraction and the two FMAs of the sums of squares,
+# one FMA more for qt0, one add more for the residuals.
+STATS_OPS_PER_ELEMENT = 3
+
+
+def inv_tol(chain: int) -> float:
+    """Relative tolerance on inv where one side sums a window's squares in
+    chains of ``chain`` terms: 1e-14 up to 128 terms (the kernel's two
+    chains at m = 256), beyond that the worst-case relative error of such
+    a chain of positive terms, chain * 2^-53 (the host library's single
+    chain at m = 256 and 4096, the kernel's at m = 4096)."""
+    return 1e-14 if chain <= 128 else chain * 2.0 ** -53
 
 
 def require(ok, msg: str) -> None:
@@ -427,18 +459,24 @@ def phase_build():
         require(counted[kind] > 0, f"{name} has no {kind} instruction: {counted}")
     say("1 build", seconds=seconds, library=os.path.relpath(
         _build.library_path(), REPO), ptxas=regs, sass_mma=mma,
-        k3_ptxas=k3_ptxas(_build.BUILD_LOG or ""))
+        k3_ptxas=ptxas_report(_build.BUILD_LOG or "", K3_MANGLED),
+        stats_ptxas=ptxas_report(_build.BUILD_LOG or "", STATS_MANGLED))
 
 
-def k3_ptxas(log: str) -> dict:
-    """Registers, spill bytes and static shared memory of K3's kernels,
-    from ptxas's report in the build log."""
+K3_MANGLED = {f"{k}<{t}>": f"{len(k)}{k}{c}" for k in ("k3_segsum", "k3_tiles", "k3_reduce")
+              for t, c in (("float", "If"), ("double", "Id"))}
+STATS_MANGLED = {f"window_stats<{q}, {r}>": f"12window_statsILb{int(q)}ELb{int(r)}E"
+                 for q in (False, True) for r in (False, True)}
+
+
+def ptxas_report(log: str, mangled: dict) -> dict:
+    """Registers, spill bytes and static shared memory of the kernels named
+    in ``mangled`` (name -> a piece of the mangled name), from ptxas's
+    report in the build log."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = next((f"{k}<{t}>" for k in ("k3_segsum", "k3_tiles", "k3_reduce")
-                         for t, c in (("float", "If"), ("double", "Id"))
-                         if f"{len(k)}{k}{c}" in ln), None)
+            name = next((k for k, c in mangled.items() if c in ln), None)
         elif name and "spill stores" in ln:
             w = ln.split()
             out.setdefault(name, {}).update(spill_store_bytes=int(w[w.index("spill") - 2]),
@@ -447,7 +485,7 @@ def k3_ptxas(log: str) -> dict:
             w = ln.replace(",", " ").split()
             out.setdefault(name, {})["registers"] = int(w[w.index("registers") - 1])
             out[name]["smem_bytes"] = int(w[w.index("smem") - 2]) if "smem" in w else 0
-    require(len(out) == 6, f"ptxas report of K3's kernels incomplete: {sorted(out)}")
+    require(len(out) == len(mangled), f"ptxas report incomplete: {sorted(out)}")
     return out
 
 
@@ -615,11 +653,30 @@ def k3_bound(S: int, W: int, itemsize: int, dtype: str) -> dict:
     return bound_of(nbytes, float(K3_OPS_PER_PAIR) * S * W, K3_OPS_PER_S[dtype])
 
 
+def stats_bound(n: int, m: int, qt0: bool, resid: bool) -> dict:
+    """The window statistics kernel on one series: T (n,) and mu (w,) read
+    once, inv (and qt0, the residuals) written once; STATS_OPS_PER_ELEMENT
+    FP64 instructions a window element, one more each for qt0 and the
+    residuals, at the FP64 instruction rate (K3's float64 rate)."""
+    w = n - m + 1
+    nbytes = 8.0 * (n + w + (1 + qt0 + resid) * w)
+    ops = float(w) * m * (STATS_OPS_PER_ELEMENT + qt0 + resid)
+    return bound_of(nbytes, ops, K3_OPS_PER_S["float64"])
+
+
 def reset_counts():
-    from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
+    from mpx_torch.kernels import mxu, mxu_fused, recurrence, stats, xla
 
     mxu.CALLS = xla.CALLS = 0
-    mxu_fused.LAUNCHES = recurrence.LAUNCHES = 0
+    mxu_fused.LAUNCHES = recurrence.LAUNCHES = stats.LAUNCHES = 0
+
+
+def stats_launches() -> int:
+    """Launches of the window statistics kernel since the last reset (kept
+    out of ``counts()``: every sweep path launches it once a run)."""
+    from mpx_torch.kernels import stats
+
+    return stats.LAUNCHES
 
 
 def counts() -> dict:
@@ -742,14 +799,16 @@ def phase_e2e_f32(torch) -> dict:
     reset_counts()
     MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), "k1", "auto f32 run")
+    st = stats_launches()
+    require(st == 1, f"auto f32 run: {st} window statistics launches, expected 1")
     vs_exact = check_rows(T, m, MP, MPI, sample_rows(w, SEED + 1), tol)
     pairs = w * (w - 1) / 2
     say("4 e2e f32", n=n, m=m, band=cfg.band, chunk=cfg.chunk,
-        k1_launches=launches, plain_calls=0, wall_s=wall,
+        k1_launches=launches, stats_launches=st, plain_calls=0, wall_s=wall,
         pairs_per_s=pairs / wall, phases_s=phases, card=card,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return {"launches": launches, "T": T, "MP": MP, "MPI": MPI, "wall_s": wall,
-            "band": cfg.band, "chunk": cfg.chunk}
+    return {"launches": launches, "stats_launches": st, "T": T, "MP": MP, "MPI": MPI,
+            "wall_s": wall, "band": cfg.band, "chunk": cfg.chunk}
 
 
 def phase_cli():
@@ -771,6 +830,108 @@ def phase_cli():
         say("5 cli", command="python -m mpx_torch compute -i data/binary/16384.tsb "
             f"-m {m} -o <tmp>/out", seconds=time.perf_counter() - t0,
             mpb_bytes=sizes[0], mpib_bytes=sizes[1])
+
+
+def phase_stats_backends(torch, T4) -> dict:
+    """The statistics backends on phase 4's walk (n=2^20, m=256) and on a
+    walk of n=2^18 at m=4096, each with a constant run of 2m samples
+    planted at n/4: the window statistics kernel against its plain version
+    on the same card tensors (inv within ``inv_tol(m / 2)`` relative,
+    1e-14 at m = 256, with the same zero-variance windows, qt0 within
+    1e-12 of m max T^2, the residuals within 1e-13 of m max |T|) and the
+    share of its inv bit-equal to the host library's
+    ``precompute_stats``; ``native`` against ``numpy`` on this host (mu,
+    df, dg bit-equal, the same zero-variance windows, inv within
+    ``inv_tol(m)``, qt0 as above); the kernel's
+    CUDA-event times (inv alone as the hybrid launches it, with qt0 as the
+    driver does, with the residuals as the recurrence tier does), its
+    plain version's, its bound; each backend's ``host_statistics`` and
+    whole ``precompute_statistics`` (f32, windows, band 4096, chunk 32768,
+    as phase 4 stages them) on the host clock, and ``auto``'s choice held
+    to the fastest whole call at the showcase shape."""
+    from mpx_torch import native
+    from mpx_torch.kernels.stats import window_stats_cuda, window_stats_torch
+    from mpx_torch.ops.precompute import (
+        CUDA_AUTO_BACKEND,
+        _running_mean,
+        host_statistics,
+        precompute_statistics,
+        resolve_backend,
+    )
+
+    require(resolve_backend("auto", "cuda") == CUDA_AUTO_BACKEND,
+            f"auto on the card is {resolve_backend('auto', 'cuda')}")
+    out, main = {}, None
+    for n, m, T in ((1 << 20, 256, T4), (1 << 18, 4096, random_walk(1 << 18, SEED + 51))):
+        T = np.array(T[:n], np.float64)
+        T[n // 4 : n // 4 + 2 * m] = T[n // 4]
+        w, tmax = n - m + 1, float(np.max(np.abs(T)))
+        Tt = torch.as_tensor(T, device="cuda")
+        mut = torch.as_tensor(_running_mean(T, m), device="cuda")
+        inv, qt0, resid = window_stats_cuda(Tt, mut, m, qt0=True, resid=True)
+        torch.cuda.synchronize()
+        rinv, rqt0, rresid = window_stats_torch(Tt, mut, m, qt0=True, resid=True)
+        fin = torch.isfinite(rinv)
+        require(torch.equal(torch.isfinite(inv), fin) and not bool(fin.all()),
+                f"m={m}: zero-variance windows differ from the plain version")
+        inv_rel = float((inv[fin] / rinv[fin] - 1).abs().max())
+        inv_abs = float((inv[fin] - rinv[fin]).abs().max())
+        qt0_err = float((qt0 - rqt0).abs().max())
+        resid_err = float((resid - rresid).abs().max())
+        require(inv_rel <= inv_tol(m // 2), f"m={m}: inv {inv_rel} from the plain version")
+        require(qt0_err <= 1e-12 * m * tmax ** 2, f"m={m}: qt0 {qt0_err}")
+        require(resid_err <= 1e-13 * m * tmax, f"m={m}: residuals {resid_err}")
+        inv_only = window_stats_cuda(Tt, mut, m)[0]
+        require(torch.equal(inv_only, inv), f"m={m}: inv alone differs from inv with qt0")
+        nat_stats = native.precompute_stats(T, m)
+        bit_equal = float((inv_only.cpu().numpy() == nat_stats["inv"]).mean())
+
+        ms = {"inv": time_ms(torch, lambda: window_stats_cuda(Tt, mut, m), reps=20),
+              "inv_qt0": time_ms(torch, lambda: window_stats_cuda(Tt, mut, m, qt0=True),
+                                 reps=20),
+              "inv_qt0_resid": time_ms(torch, lambda: window_stats_cuda(
+                  Tt, mut, m, qt0=True, resid=True), reps=20)}
+        plain_ms = time_ms(torch, lambda: window_stats_torch(Tt, mut, m, qt0=True), reps=2)
+        bound = stats_bound(n, m, qt0=True, resid=False)
+
+        host, whole, s = {}, {}, {}
+        for b in ("device", "native", "numpy", "native", "device"):
+            t0 = time.perf_counter()
+            s[b] = host_statistics(T, m, backend=b, device="cuda")
+            host.setdefault(b, []).append(time.perf_counter() - t0)
+        for b in ("device", "native", "numpy", "native", "device"):
+            whole.setdefault(b, []).append(direct(torch, lambda: precompute_statistics(
+                T, m, band=4096, chunk=32768, dtype="float32", device="cuda", backend=b))[1])
+        for name in ("mu", "df", "dg"):
+            for b in ("native", "device"):
+                require(np.array_equal(s[b][name], s["numpy"][name]),
+                        f"m={m}: {b} {name} differs from numpy's")
+        errs = {}
+        for b in ("native", "device"):
+            f = np.isfinite(s["numpy"]["inv"])
+            require(np.array_equal(np.isfinite(s[b]["inv"]), f),
+                    f"m={m}: {b} zero-variance windows differ from numpy's")
+            errs[b] = {"inv_rel": float(np.abs(s[b]["inv"][f] / s["numpy"]["inv"][f] - 1).max()),
+                       "qt0_abs": float(np.abs(s[b]["qt0"] - s["numpy"]["qt0"]).max())}
+            require(errs[b]["inv_rel"] <= inv_tol(m if b == "native" else m // 2) and
+                    errs[b]["qt0_abs"] <= 1e-12 * m * tmax ** 2, f"m={m}: {b} vs numpy {errs[b]}")
+        fastest = min(whole, key=lambda b: min(whole[b]))
+        if m == 256:
+            require(fastest == CUDA_AUTO_BACKEND,
+                    f"auto takes {CUDA_AUTO_BACKEND}, the fastest here is {fastest}: {whole}")
+            main = {"max_abs_err": inv_abs, "ms": ms["inv_qt0"], "plain_ms": plain_ms,
+                    **bound, "library_ms": None}
+        out[f"n={n} m={m}"] = dict(
+            w=w, zero_variance_windows=int((~fin).sum()), inv_max_rel_err=inv_rel,
+            inv_max_abs_err=inv_abs, qt0_max_abs_err=qt0_err, resid_max_abs_err=resid_err,
+            inv_bit_equal_share_vs_native_precompute_stats=bit_equal,
+            kernel_ms=ms, plain_ms=plain_ms, **bound, share_of_bound=bound["bound_ms"] / ms[
+                "inv_qt0"], host_statistics_s=host, precompute_statistics_s=whole,
+            fastest=fastest, backends_vs_numpy=errs)
+        del Tt, mut, inv, qt0, resid, rinv, rqt0, rresid, inv_only
+    say("51 statistics backends", auto=CUDA_AUTO_BACKEND, native=native.is_available(),
+        **out)
+    return main
 
 
 def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
@@ -871,7 +1032,7 @@ def phase_band_k3(torch, dtype: str) -> dict:
 
 
 def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
-                   band_ms_per_job=None) -> int:
+                   band_ms_per_job=None) -> tuple:
     """The reference's showcase job in double precision (n=2^20, m=256,
     band 4096, chunk 32768) through ``kernel``: one launch of the counted
     kernel per job and no plain call, against the exact row scan.  With
@@ -881,10 +1042,12 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
     with the running mean's statistics (``exact_mean=False``, what the
     recurrence tier read before it took corrected means) on the same
     rows, beside the gated reading (that run is not counted), and the
-    host statistics are timed with and without the corrected mean."""
+    host statistics (``auto``: the window statistics kernel) are timed with
+    and without the corrected mean.  Returns (launches of the counted
+    kernel, of the window statistics kernel, the profile, the wall)."""
     from mpx_torch import MatrixProfileConfig, compute_matrix_profile
     from mpx_torch.config import make_job_grid
-    from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics, precompute_statistics
 
     n, m, tol = 1 << 20, 256, DIST_TOL["float64"]
     T = random_walk(n, seed)
@@ -896,6 +1059,8 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
     reset_counts()
     MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), counter, f"kernel={kernel!r} f64 showcase", jobs)
+    st = stats_launches()
+    require(st == 1, f"kernel={kernel!r} f64 showcase: {st} window statistics launches")
     rows = sample_rows(w, seed)
     D = row_scan64(T, m, rows)
     vs_exact = check_rows(T, m, MP, MPI, rows, tol, D=D)
@@ -907,9 +1072,9 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
                    "band_level_ms_per_job": band_ms_per_job}
     if kernel == "pallas":
         t0 = time.perf_counter()
-        host = precompute_statistics_numpy(T, m)
+        host = host_statistics(T, m, device="cuda")
         t1 = time.perf_counter()
-        precompute_statistics_numpy(T, m, exact_mean=True)
+        host_statistics(T, m, device="cuda", exact_mean=True)
         per_job["host_stats_s"] = {"running_mean": t1 - t0,
                                    "exact_mean": time.perf_counter() - t1}
         running = precompute_statistics(T, m, band=grid.band, chunk=grid.chunk, dtype="float64",
@@ -919,10 +1084,10 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
             np.abs(MPr[rows] - D.min(axis=1)).max())
         del running, MPr, host
     say(phase, n=n, m=m, kernel=kernel, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
-        **{f"{counter}_launches": launches}, plain_calls=0, wall_s=wall,
-        pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
+        **{f"{counter}_launches": launches}, stats_launches=st, plain_calls=0,
+        wall_s=wall, pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
         max_err_vs_exact_64_rows=vs_exact, tol=tol)
-    return launches, (MP, MPI), wall
+    return launches, st, (MP, MPI), wall
 
 
 def phase_parity(torch, k1_profile) -> int:
@@ -3649,7 +3814,9 @@ def phase_runtime_version(torch, banner_proc):
     banner = out.splitlines()
     require(proc.returncode == 0 and banner[0].startswith("mpx_torch ")
             and torch.cuda.get_device_name(0) in banner[2]
-            and "kernel library (K1, K3): built" in banner[3], f"--version: {out}{err}")
+            and "kernel library (K1, K3, stats): built" in banner[3]
+            and banner[4] == "  native host library: built"
+            and banner[5] == "  statistics backend (auto): device", f"--version: {out}{err}")
     say("48 runtime, --version", finish_ns=ns, devices=[str(x) for x in devices()],
         allocated_bytes=stats["allocated_bytes.all.current"], version_lines=banner,
         version_subprocess_s=version_s)
@@ -3969,10 +4136,12 @@ def main() -> int:
     launches = {"mxu_fused": {"float32": p4["launches"]}}
     tf32_kept("4")
     phase_cli()
+    stats_times = phase_stats_backends(torch, p4["T"])
+    tf32_kept("51")
     band_k3 = {dt: phase_band_k3(torch, dt) for dt in ("float32", "float64")}
     tf32_kept("6")
     k3_w32768 = {dt: band_k3[dt].pop("_w32768") for dt in band_k3}
-    k3_launches, k3_profile, k3_wall = phase_showcase(
+    k3_launches, st7, k3_profile, k3_wall = phase_showcase(
         torch, "7 showcase f64 K3", "pallas", "k3", SEED + 2, k3_w32768["float64"])
     tf32_kept("7")
     launches["band_recurrence"] = {"float64": k3_launches,
@@ -3980,8 +4149,9 @@ def main() -> int:
     tf32_kept("8")
     phase_auto_large_m(torch)
     tf32_kept("9")
-    launches["mxu_fused"]["float64"], _, k1_wall = phase_showcase(
+    launches["mxu_fused"]["float64"], st10, _, k1_wall = phase_showcase(
         torch, "10 showcase f64 auto (K1)", "auto", "k1", SEED + 4)
+    launches["window_stats"] = {"float64": p4["stats_launches"] + st7 + st10}
     tf32_kept("10")
     phase_margin_probe(torch)
     tf32_kept("11")
@@ -4095,7 +4265,9 @@ def main() -> int:
             ("mxu_fused", K1_SOURCE, K1_REPLACES, band),
             ("band_recurrence", K3_SOURCE, K3_REPLACES, band_k3))
         for dt in ("float32", "float64")
-    ]
+    ] + [{"name": "window_stats[float64]", "route": "cuda", "source": STATS_SOURCE,
+          "replaces": STATS_REPLACES, "launches": launches["window_stats"]["float64"],
+          **stats_times}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

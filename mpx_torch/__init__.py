@@ -35,7 +35,10 @@ too) command lines (``python -m mpx_torch ...``, ``--version``); and the
 surfaces: the device runtime (``runtime.py``), the NDJSON serving loop
 over stdin or TCP with its stream sessions (``serve.py``), the benchmark
 suite with every runner (``bench.py``) and the pyscamp and STUMPY
-compatibility layers (``compat/``).
+compatibility layers (``compat/``); and the host C++ library
+(``native/``) beside the statistics backends of ``ops/precompute.py``,
+whose ``device`` backend is the window statistics kernel
+(``kernels/stats.py``, ``csrc/precompute.cu``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile

@@ -33,7 +33,7 @@ from mpx_torch.config import MatrixProfileConfig, config_for
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
 from mpx_torch.kernels.common import NO_EXCL, band_geometry
 from mpx_torch.ops.aggregates import init_aggregates, merge_window, pearson_to_euclidean
-from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
+from mpx_torch.ops.precompute import host_statistics, precompute_statistics
 from mpx_torch.utils.profile import phase
 
 _AB_KERNELS = ("auto", "mxu", "mxu_fused", "hybrid")
@@ -112,7 +112,7 @@ def unit_windows(X: np.ndarray, m: int) -> np.ndarray:
     """Exact float64 unit-normalized windows of a series, NaN rows where
     the window has zero variance by the statistics' rule (the oracles'
     operand)."""
-    s = precompute_statistics_numpy(X, m)
+    s = host_statistics(X, m, matmul_only=True, device="cpu")
     fin = np.isfinite(s["inv"])
     Z = (np.lib.stride_tricks.sliding_window_view(X, m) - s["mu"][:, None]) \
         * np.where(fin, s["inv"], 0.0)[:, None]

@@ -267,7 +267,7 @@ def mass(Q, T, method: str = "auto", normalize: bool = True) -> np.ndarray:
     direct up to n m = 2^26.  Flat windows of T get +inf; a flat query
     raises.  ``normalize=False`` returns raw Euclidean distances (the
     AAMP analog): flat windows and queries are valid there."""
-    from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, precompute_statistics_numpy
+    from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, host_statistics
 
     Q = np.asarray(Q, np.float64)
     T = np.asarray(T, np.float64)
@@ -284,7 +284,7 @@ def mass(Q, T, method: str = "auto", normalize: bool = True) -> np.ndarray:
     if not normalize:
         return _mass_raw(Q, T, m, n, w)
 
-    s = precompute_statistics_numpy(T, m)
+    s = host_statistics(T, m, matmul_only=True, device="cpu")
     inv = s["inv"]
     qc = Q - float(Q.mean())
     ssqQ = float(qc @ qc)

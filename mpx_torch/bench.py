@@ -148,9 +148,9 @@ def _device_name(device) -> str:
 def _stats64(T64: np.ndarray, m: int, device):
     """Host float64 statistics of ``T64`` and the series, ``mu`` and
     ``inv`` as float64 tensors on ``device`` (the oracles' inputs)."""
-    from mpx_torch.ops.precompute import precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics
 
-    s = precompute_statistics_numpy(T64, m)
+    s = host_statistics(T64, m, matmul_only=True, device=device)
     return s, [torch.as_tensor(np.asarray(x, np.float64), device=device)
                for x in (T64, s["mu"], s["inv"])]
 
@@ -237,7 +237,7 @@ def run_contrast_benchmark(n: int, m: int, dtype: str = "double",
     from mpx_torch.contrast import contrast_profile
     from mpx_torch.dtypes import canonical_dtype
     from mpx_torch.hybrid import _row_scan, _row_scan_ab
-    from mpx_torch.ops.precompute import precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics
 
     rng = np.random.default_rng(seed)
     Tp = np.cumsum(rng.standard_normal(n))
@@ -258,7 +258,7 @@ def run_contrast_benchmark(n: int, m: int, dtype: str = "double",
 
     val = None
     if validate:
-        sp, sm = precompute_statistics_numpy(Tp, m), precompute_statistics_numpy(Tm, m)
+        sp, sm = (host_statistics(X, m, matmul_only=True, device=device) for X in (Tp, Tm))
         rows = np.sort(np.random.default_rng(seed + 1).choice(
             w, size=min(validate, w), replace=False)).astype(np.int32)
 
@@ -489,7 +489,7 @@ def run_thresh_benchmark(n: int, m: int, dtype: str = "float32",
     between the oracle's at threshold + delta and at threshold - delta
     (plus an accumulation tolerance); float64 is exact (delta 0)."""
     from mpx_torch import MatrixProfileConfig
-    from mpx_torch.ops.precompute import precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics
     from mpx_torch.thresh import compute_sum_thresh
 
     T = np.cumsum(np.random.default_rng(seed).standard_normal(n))
@@ -509,7 +509,7 @@ def run_thresh_benchmark(n: int, m: int, dtype: str = "float32",
     if validate:
         f64 = dtype in ("double", "float64")
         T64 = np.asarray(T, np.float64)
-        s = precompute_statistics_numpy(T64, m)
+        s = host_statistics(T64, m, matmul_only=True, device=device)
         mu = np.asarray(s["mu"], np.float64)
         inv = np.asarray(s["inv"], np.float64)
         rows = np.sort(np.random.default_rng(seed + 1).choice(
@@ -567,7 +567,7 @@ def run_damp_benchmark(n: int, m: int, dtype: str = "double",
     earlier columns."""
     from mpx_torch import MatrixProfileConfig
     from mpx_torch.damp import compute_damp
-    from mpx_torch.ops.precompute import precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics
 
     T = np.cumsum(np.random.default_rng(seed).standard_normal(n))
     w = n - m + 1
@@ -583,7 +583,7 @@ def run_damp_benchmark(n: int, m: int, dtype: str = "double",
     val = None
     if validate:
         T64 = np.asarray(T, np.float64)
-        s = precompute_statistics_numpy(T64, m)
+        s = host_statistics(T64, m, matmul_only=True, device=device)
         mu = np.asarray(s["mu"], np.float64)
         inv = np.asarray(s["inv"], np.float64)
         excl = m // 4
@@ -903,8 +903,12 @@ def _provenance(device="cuda") -> dict:
     """Measurement provenance, the analog of the reference's generated
     build-info.txt (CMakeLists.txt:145-149): the versions, the card's name
     and power limit, whether TF32 was allowed for the caller's float32
-    products, and when and on which commit the row was measured."""
+    products, whether the host C++ library loads (``native``), the
+    statistics backend ``auto`` takes on ``device``, and when and on which
+    commit the row was measured."""
     import mpx_torch
+    from mpx_torch import native
+    from mpx_torch.ops.precompute import resolve_backend
 
     return {
         "mpx_torch": mpx_torch.__version__,
@@ -913,6 +917,8 @@ def _provenance(device="cuda") -> dict:
         "device": device_line(device),
         "device_count": torch.cuda.device_count() if torch.device(device).type == "cuda" else 1,
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "native": native.is_available(),
+        "stats_backend": resolve_backend("auto", device),
         "measured_at": datetime.datetime.now(datetime.timezone.utc)
         .strftime("%Y-%m-%dT%H:%M:%SZ"),
         "commit": _git_commit(),

@@ -1160,18 +1160,24 @@ def _print_version() -> int:
     import torch
 
     import mpx_torch
+    from mpx_torch import native
     from mpx_torch.bench import device_line
     from mpx_torch.kernels import _build
+    from mpx_torch.ops.precompute import resolve_backend
 
     print(f"mpx_torch {mpx_torch.__version__}")
     print(f"  torch {torch.__version__} (CUDA build: {torch.version.cuda or 'none'})")
-    if torch.cuda.is_available():
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    if device == "cuda":
         print(f"  device: {device_line('cuda')} ({torch.cuda.device_count()} card(s))")
     else:
         print("  device: cpu (no CUDA device)")
     so = _build.library_path()
-    print(f"  kernel library (K1, K3): "
+    print(f"  kernel library (K1, K3, stats): "
           f"{'built' if os.path.exists(so) else 'not built'} ({os.path.relpath(so)})")
+    err = native.build_error()
+    print(f"  native host library: {'built' if err is None else f'not built ({err})'}")
+    print(f"  statistics backend (auto): {resolve_backend('auto', device)}")
     return 0
 
 

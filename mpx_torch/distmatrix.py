@@ -30,7 +30,7 @@ from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.kernels.mxu import job_correlations
-from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
+from mpx_torch.ops.precompute import host_statistics, precompute_statistics
 
 
 def _pool(X: torch.Tensor, o: int, pool: int) -> torch.Tensor:
@@ -98,9 +98,8 @@ def pooled_matrix(A, m: Optional[int] = None, *, mwidth: int = 50, mheight: int 
     else:
         jobs = ((r0, c0) for r0 in range(0, w, S) for c0 in range(0, wc, S))
         excl, mirror = 0, False
-    stats = precompute_statistics(A, m, band=S, chunk=S, dtype="float32", device=dev)
-    stats_c = None if B is None else precompute_statistics(B, m, band=S, chunk=S,
-                                                            dtype="float32", device=dev)
+    stats, stats_c = (None if X is None else precompute_statistics(
+        X, m, band=S, chunk=S, dtype="float32", device=dev, matmul_only=True) for X in (A, B))
     geom = band_geometry(S, S, m, w, config.tile_rows, config.tile_cols, wc=wc, excl=excl)
     out = torch.full((mheight, mwidth), AGGREGATE_INIT, dtype=torch.float32, device=dev)
     for r0, c0 in jobs:
@@ -122,7 +121,7 @@ def brute_force_pooled_matrix(A, m: int, *, mwidth: int = 50, mheight: int = 50,
     """O(w * wc * m) numpy oracle (mpx's): exact pooled maxima of the dense
     float64 correlation matrix."""
     def units(X):
-        s = precompute_statistics_numpy(X, m)
+        s = host_statistics(X, m, matmul_only=True, device="cpu")
         fin = np.isfinite(s["inv"])
         U = (np.lib.stride_tricks.sliding_window_view(X, m) - s["mu"][:, None]) \
             * np.where(fin, s["inv"], 0.0)[:, None]

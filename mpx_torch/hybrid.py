@@ -72,7 +72,7 @@ from mpx_torch.kernels.mxu_fused import sweep_band_max_fused
 from mpx_torch.ops.precompute import (
     build_windows,
     precompute_statistics,
-    precompute_statistics_numpy,
+    host_statistics,
 )
 from mpx_torch.types import Stats
 from mpx_torch.utils.logging import Logger
@@ -745,7 +745,8 @@ def hybrid_statistics(T64, m: int, *, band: int, chunk: int, device, host_stats=
     level and scale.  Returns (float32 Stats, float64 Stats without
     windows)."""
     exact = precompute_statistics(T64, m, band=band, chunk=chunk, dtype="float64",
-                                  device=device, windows=False, host_stats=host_stats)
+                                  device=device, windows=False, host_stats=host_stats,
+                                  matmul_only=True)
     stats = Stats(*(x.float() for x in exact[:6]),
                   windows=build_windows(exact, m, torch.float32))
     return stats, exact
@@ -834,7 +835,7 @@ def _run(T, config: MatrixProfileConfig, *, margin, profile, left_right: bool, c
     dev = torch.device(config.device)
 
     with phase(profile, "1. Pre-Computation [host f64]"):
-        s64 = precompute_statistics_numpy(T64, m)
+        s64 = host_statistics(T64, m, matmul_only=True, device=dev)
     with phase(profile, "1. Pre-Computation [device]", device=dev):
         stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
 
@@ -896,7 +897,7 @@ def compute_ab_join_f64_hybrid(A, B, config: MatrixProfileConfig, *,
     dev = torch.device(config.device)
 
     with phase(profile, "1. Pre-Computation [host f64]"):
-        sa, sb = (precompute_statistics_numpy(X, m) for X in (A64, B64))
+        sa, sb = (host_statistics(X, m, matmul_only=True, device=dev) for X in (A64, B64))
     with phase(profile, "1. Pre-Computation [device]", device=dev):
         (stats_a, exact_a), (stats_b, exact_b) = (
             hybrid_statistics(X, m, band=S, chunk=W, device=dev, host_stats=s)
@@ -1075,7 +1076,7 @@ def compute_topk_profile_f64_hybrid(T, k: int = 4, config: Optional[MatrixProfil
     dev = torch.device(config.device)
 
     with phase(profile, "1. Pre-Computation [host f64]"):
-        s64 = precompute_statistics_numpy(T64, m)
+        s64 = host_statistics(T64, m, matmul_only=True, device=dev)
     with phase(profile, "1. Pre-Computation [device]", device=dev):
         stats, exact = hybrid_statistics(T64, m, band=S, chunk=W, device=dev, host_stats=s64)
     grid = make_job_grid(w, S, W)

@@ -16,7 +16,10 @@ Four implementations of the same band-sweep contract
 ``auto`` follows mpx's policy for large m: float64 with ``m > MXU_MAX_M``
 takes the recurrence (K3 on the card, the plain version on the CPU).
 ``hybrid`` (:mod:`mpx_torch.hybrid`) is not a band sweep: the driver hands
-it the whole self-join, and it is reached by name only.
+it the whole self-join, and it is reached by name only.  Beside the
+sweeps, :mod:`mpx_torch.kernels.stats` holds the window statistics kernel
+(``csrc/precompute.cu``) behind ``precompute_statistics``' ``device``
+backend.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of ``mpx_torch/csrc``.
+"""Build and load the CUDA kernels of ``mpx_torch/csrc`` (K1, K3 and the
+window statistics).
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process for
 each source, all started together, and linked into one shared library with
@@ -124,5 +125,9 @@ def load() -> ctypes.CDLL:
                 getattr(lib, name).restype = i
             lib.mpx_k3_resident_blocks.argtypes = [i, i]  # f64, which kernel
             lib.mpx_k3_resident_blocks.restype = i
+            lib.mpx_window_stats.argtypes = [p, p, i, i,  # T, mu, w, m
+                                             p, p, p,     # inv, qt0, resid (or null)
+                                             p]           # stream
+            lib.mpx_window_stats.restype = i
             _LIB = lib
         return _LIB

@@ -74,10 +74,10 @@ def _exact_row_rescore(T64, m: int, rows: np.ndarray, device="cuda"):
     arrays: host float64 statistics, the row scan as float64 tensors on
     ``device``."""
     from mpx_torch.hybrid import _row_scan
-    from mpx_torch.ops.precompute import precompute_statistics_numpy
+    from mpx_torch.ops.precompute import host_statistics
 
     w = T64.shape[0] - m + 1
-    s = precompute_statistics_numpy(T64, m)
+    s = host_statistics(T64, m, matmul_only=True, device=device)
     P, I = _row_scan(*(torch.as_tensor(np.asarray(x, np.float64), device=device)
                        for x in (T64, s["mu"], s["inv"])),
                      m, w, m // 4, torch.as_tensor(np.asarray(rows, np.int64), device=device))

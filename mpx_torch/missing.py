@@ -27,7 +27,7 @@ import torch
 from mpx_torch.config import MatrixProfileConfig, config_for
 from mpx_torch.driver import compute_matrix_profile
 from mpx_torch.kernels import is_recurrence, needs_windows, resolve_kernel
-from mpx_torch.ops.precompute import precompute_statistics, precompute_statistics_numpy
+from mpx_torch.ops.precompute import host_statistics, precompute_statistics
 
 
 def missing_window_mask(T, m: int) -> np.ndarray:
@@ -91,7 +91,7 @@ def compute_matrix_profile_masked(
     config = config.shrink_to(w)
     device = torch.device(config.device)
     kernel = resolve_kernel(config.kernel, device, config.dtype, m)
-    s = precompute_statistics_numpy(T_fill, m, exact_mean=is_recurrence(kernel))
+    s = host_statistics(T_fill, m, exact_mean=is_recurrence(kernel), device=device)
     s["inv"] = np.where(bad, np.inf, s["inv"])
     stats = precompute_statistics(T_fill, m, band=config.band, chunk=config.chunk,
                                   dtype=config.dtype, device=device,

@@ -39,7 +39,7 @@ import torch
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import INDEX_INIT, full_precision_matmul, torch_dtype
 from mpx_torch.ops.aggregates import merge_window, reduce_first
-from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, _padded_width, precompute_statistics_numpy
+from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, _padded_width, host_statistics
 from mpx_torch.types import Aggregates
 
 # Bytes of one (d, S', W) tensor of a job's sub-band (a job's epilogue
@@ -72,7 +72,7 @@ def _stack_stats(T: np.ndarray, m: int, pw: int, dt: torch.dtype, device) -> _Pa
     invb = np.zeros((d, pw), npdt)
     finb = np.zeros((d, pw), bool)
     for t in range(d):
-        s = precompute_statistics_numpy(T[t].astype(np.float64), m)
+        s = host_statistics(T[t].astype(np.float64), m, matmul_only=True, device=device)
         fin = np.isfinite(s["inv"])
         Tb[t, :n] = T[t].astype(npdt)
         mub[t, :w] = s["mu"].astype(npdt)

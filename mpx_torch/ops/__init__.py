@@ -4,12 +4,14 @@ from mpx_torch.ops.aggregates import (
     postcompute,
 )
 from mpx_torch.ops.precompute import (
+    host_statistics,
     precompute_statistics,
     precompute_statistics_numpy,
     stats_from_numpy,
 )
 
 __all__ = [
+    "host_statistics",
     "precompute_statistics",
     "precompute_statistics_numpy",
     "stats_from_numpy",

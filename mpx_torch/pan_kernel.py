@@ -36,7 +36,7 @@ mpx computes this in XLA, not Pallas, so it runs as torch ops here, on
   each.
 
 The statistics are float64 on the host (one
-:func:`~mpx_torch.ops.precompute.precompute_statistics_numpy` per level),
+:func:`~mpx_torch.ops.precompute.host_statistics` per level),
 with ``dmu`` taken in float64 before the cast, as mpx.  mpx's blocked
 raw-panel build (``_PANEL_BLOCK``, which bounds XLA's program size) and its
 watchdog-safe dispatch groups (``group_pairs``, ``pad_job_grid``) are not
@@ -53,7 +53,7 @@ import torch
 from mpx_torch.config import make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul
 from mpx_torch.ops.aggregates import merge_window, postcompute, reduce_first
-from mpx_torch.ops.precompute import _padded_width, precompute_statistics_numpy
+from mpx_torch.ops.precompute import _padded_width, host_statistics
 from mpx_torch.types import Aggregates
 from mpx_torch.utils.profile import phase
 
@@ -83,7 +83,7 @@ def build_pan_stats(T, ms: Sequence[int], band: int, chunk: int, device="cuda") 
     mu = np.zeros((R, pw), np.float64)
     inv = np.full((R, pw), np.inf, np.float64)
     for r, m in enumerate(ms):
-        s = precompute_statistics_numpy(T64, m)
+        s = host_statistics(T64, m, matmul_only=True, device=device)
         wr = n - m + 1
         mu[r, :wr] = s["mu"]
         inv[r, :wr] = s["inv"]

@@ -54,7 +54,7 @@ from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
 from mpx_torch.kernels import band_geometry
 from mpx_torch.kernels.mxu import SUSPECT_MAX_INIT, SUSPECT_MIN_INIT, SuspectWindow
 from mpx_torch.ops.aggregates import init_aggregates, merge_window, pearson_to_euclidean
-from mpx_torch.ops.precompute import build_windows, precompute_statistics_numpy
+from mpx_torch.ops.precompute import build_windows, host_statistics
 from mpx_torch.parallel.mesh import mesh_for
 from mpx_torch.parallel.sharding import interleave
 from mpx_torch.types import Aggregates, Stats
@@ -146,11 +146,11 @@ def _ring_setup(T, m: int, D: int, band: int, chunk: int, mesh, host_stats, devi
     the job grids and the shards' valid widths."""
     T64 = np.asarray(T, np.float64)
     w = T64.shape[0] - m + 1
+    mesh = mesh_for(D, mesh, device)
     if host_stats is None:
-        host_stats = precompute_statistics_numpy(T64, m)
+        host_stats = host_statistics(T64, m, matmul_only=True, device=mesh[0])
     shard_w = _shard_layout(w, D, band, chunk)
     _check_budget(shard_w, m)
-    mesh = mesh_for(D, mesh, device)
     S, W = min(band, shard_w), min(chunk, shard_w)
     Tb, mub, invb = _stage_shards(T64, host_stats, w, m, D, shard_w, dt, tail=max(S, W))
     blocks = [tuple(torch.as_tensor(x[d]).to(mesh[d]) for x in (Tb, mub, invb))

@@ -48,7 +48,7 @@ from mpx_torch.dtypes import (
     torch_dtype,
 )
 from mpx_torch.ops.aggregates import reduce_first
-from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, precompute_statistics_numpy
+from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, host_statistics
 
 _MIN_CAP = 1024
 # Bytes of one block of the (rows, w) product of an append: a long append
@@ -90,7 +90,7 @@ class StreamingMatrixProfile:
         # instrumentation: elements moved host -> device, capacity doublings
         self.staged_elements: int = 0
         self.capacity_doublings: int = 0
-        s = precompute_statistics_numpy(T, m)
+        s = host_statistics(T, m, matmul_only=True, device=self._device)
         self._bootstrap(s["mu"], s["inv"])
 
     # -- host-side bookkeeping -------------------------------------------

@@ -66,7 +66,8 @@ def compute_sum_thresh(T, m: Optional[int] = None, *,
     S, W = config.band, config.chunk
     dt = torch_dtype(config.dtype)
     device = torch.device(config.device)
-    stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device)
+    stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
+                                  matmul_only=True)
     geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
     thr = torch.tensor(float(threshold), dtype=dt, device=device)
     sums = torch.zeros(w + S + W, dtype=dt, device=device)
@@ -91,8 +92,8 @@ def compute_sum_thresh_ab(A, B, m: Optional[int] = None, *,
     S, W = config.band, config.chunk
     dt = torch_dtype(config.dtype)
     device = torch.device(config.device)
-    stats_a, stats_b = (precompute_statistics(X, m, band=S, chunk=W, dtype=dt, device=device)
-                        for X in (A, B))
+    stats_a, stats_b = (precompute_statistics(X, m, band=S, chunk=W, dtype=dt, device=device,
+                                              matmul_only=True) for X in (A, B))
     geom = band_geometry(S, W, m, wa, config.tile_rows, config.tile_cols, wc=wb,
                          excl=NO_EXCL)
     thr = torch.tensor(float(threshold), dtype=dt, device=device)

@@ -117,7 +117,8 @@ def compute_topk_profile(T, m: Optional[int] = None, k: int = 4,
         return compute_topk_profile_f64_hybrid(T, k, config, profile=profile)
     device = torch.device(config.device)
     with phase(profile, "1. Pre-Computation", device=device):
-        stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device)
+        stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt, device=device,
+                                      matmul_only=True)
     geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
     grid = make_job_grid(w, S, W)
     rows_v, rows_i = _init_topk(w + S + W, k, dt, device)
@@ -156,8 +157,8 @@ def compute_topk_ab(A, B, m: Optional[int] = None, k: int = 4,
         raise ValueError(f"k={k} exceeds the job extent chunk={W}")
     dt = torch_dtype(config.dtype)
     device = torch.device(config.device)
-    stats_a, stats_b = (precompute_statistics(X, m, band=S, chunk=W, dtype=dt, device=device)
-                        for X in (A, B))
+    stats_a, stats_b = (precompute_statistics(X, m, band=S, chunk=W, dtype=dt, device=device,
+                                              matmul_only=True) for X in (A, B))
     geom = band_geometry(S, W, m, wa, config.tile_rows, config.tile_cols, wc=wb,
                          excl=NO_EXCL)
     rows_v, rows_i = _init_topk(wa + S, k, dt, device)

@@ -134,6 +134,7 @@ def test_suite_only_runs_the_named_row_and_writes_table_and_out(capsys, tmp_path
     assert {"mpx_torch", "torch", "cuda", "device", "allow_tf32", "measured_at",
             "commit"} <= set(prov)
     assert prov["device"] == "device: cpu"
+    assert prov["native"] is True and prov["stats_backend"] == "numpy"
     assert "| vanilla-f32-8192 | 8,192 | 32 | float32 |" in cap.err
 
 

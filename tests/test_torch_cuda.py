@@ -1,6 +1,7 @@
-"""mpx_torch on an NVIDIA GPU: K1 and K3 against their plain versions,
-the self-join end to end against the numpy golden oracle, and the hybrid
-tier on the card against the same code on the CPU.
+"""mpx_torch on an NVIDIA GPU: K1, K3 and the window statistics kernel
+against their plain versions, the self-join end to end against the numpy
+golden oracle, and the hybrid tier on the card against the same code on
+the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither JAX nor mpx, so it also runs where JAX is not installed:
@@ -437,15 +438,21 @@ def test_k1_no_exclusion_bound(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,dtype", [("auto", "float32"), ("auto", "float64"),
                                           ("hybrid", "float64")])
-def test_ab_join_on_card_matches_cpu(card, kernel, dtype):
+def test_ab_join_on_card_matches_cpu(card, monkeypatch, kernel, dtype):
     """The AB-join on the card (K1, or the hybrid with K1 as pass A)
     against the same code on the CPU: distances within the profile
     tolerance, indices equal or equidistant; one K1 launch a job.  The two
     constant runs give both series identical step windows (distance 0),
     where sqrt(2m(1 - P)) turns float32's 1e-6 on P into 5e-3: float32 is
-    held in correlation there, 1e-5 (K1's band tolerance)."""
+    held in correlation there, 1e-5 (K1's band tolerance).  In float64
+    the same windows read ~4e-7, rounding alone, which moves by ~2e-8
+    when ``inv`` moves by one ulp; so both sides stage the same (numpy)
+    statistics, and the card's statistics backend is tested on its own
+    (``test_device_statistics_backend_on_card``)."""
     from mpx_torch.abjoin import ab_jobs, compute_ab_join
+    from mpx_torch.ops import precompute
 
+    monkeypatch.setattr(precompute, "CUDA_AUTO_BACKEND", "numpy")
     A, B = _ab_series()
     m, band, chunk = 64, 512, 1024
     out = {}
@@ -950,3 +957,61 @@ def test_device_context_finish_on_card(card):
                                atol=1e-10)
     assert ctx.memory_stats()["allocation.all.current"] >= 2
     assert devices()[0] == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [5, 64, 100, 256, 4097])
+def test_window_stats_kernel_matches_plain_on_card(card, m):
+    """The window statistics kernel (one launch, counted) against its plain
+    version on the same card tensors: ``inv`` within 1e-14 relative (up
+    to m = 256; at m = 4097 within (m / 2) 2^-53, the worst-case relative
+    error of the kernel's two chains of m / 2 positive terms) with the
+    same zero-variance windows, ``qt0`` within 1e-12 of ``m * max(T^2)``,
+    the residuals within 1e-13 of ``m * max|T|``; m = 4097 crosses the
+    kernel's shared-memory tiles with an odd count."""
+    from mpx_torch.kernels import stats
+    from mpx_torch.ops.precompute import _running_mean
+
+    T = _series(20000, 31, constant_run=False)
+    T[6000:11000] = T[6000]  # zero-variance windows at every m here
+    Tt = torch.as_tensor(T, device=card)
+    mut = torch.as_tensor(_running_mean(T, m), device=card)
+    before = stats.LAUNCHES
+    inv, qt0, resid = stats.window_stats_cuda(Tt, mut, m, qt0=True, resid=True)
+    torch.cuda.synchronize()
+    assert stats.LAUNCHES == before + 1
+    rinv, rqt0, rresid = stats.window_stats_torch(Tt, mut, m, qt0=True, resid=True)
+    fin = torch.isfinite(rinv)
+    assert torch.equal(torch.isfinite(inv), fin) and not bool(fin.all())
+    assert ((inv[fin] / rinv[fin] - 1).abs().max().item()) <= (1e-14 if m <= 256 else m // 2 * 2.0**-53)
+    assert (qt0 - rqt0).abs().max().item() <= 1e-12 * m * float(np.max(T * T))
+    assert (resid - rresid).abs().max().item() <= 1e-13 * m * float(np.max(np.abs(T)))
+    alone = stats.window_stats_cuda(Tt, mut, m)
+    assert alone[1] is None and torch.equal(alone[0], inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_mean", [False, True])
+def test_device_statistics_backend_on_card(card, exact_mean):
+    """``auto`` on the card is the ``device`` backend: one kernel launch,
+    and the statistics of the numpy backend to rounding (``mu``, ``df``,
+    ``dg`` bit-equal without the correction)."""
+    from mpx_torch.kernels import stats
+    from mpx_torch.ops.precompute import host_statistics
+
+    T, m = _series(8192, 32), 100
+    before = stats.LAUNCHES
+    got = host_statistics(T, m, device=card, exact_mean=exact_mean)
+    assert stats.LAUNCHES == before + 1
+    ref = host_statistics(T, m, backend="numpy", device="cpu", exact_mean=exact_mean)
+    for name in ("mu", "df", "dg"):
+        if exact_mean:
+            np.testing.assert_allclose(got[name], ref[name], rtol=0,
+                                       atol=1e-14 * np.max(np.abs(T)), err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+    fin = np.isfinite(ref["inv"])
+    np.testing.assert_array_equal(np.isfinite(got["inv"]), fin)
+    np.testing.assert_allclose(got["inv"][fin], ref["inv"][fin], rtol=1e-14, atol=0)
+    np.testing.assert_allclose(got["qt0"], ref["qt0"], rtol=0,
+                               atol=1e-12 * m * np.max(T * T))

@@ -26,6 +26,7 @@ from mpx_torch.config import make_job_grid
 from mpx_torch.dtypes import full_precision_matmul
 from mpx_torch.io.tsb import read_binary, read_series
 from mpx_torch.kernels import mxu, mxu_fused
+from mpx_torch.ops.precompute import precompute_statistics_numpy
 from mpx_torch.utils.profile import BenchmarkProfile
 from tests.conftest import DATA_DIR, random_walk
 from tests.helpers import assert_profile_close
@@ -161,7 +162,7 @@ def test_sided_row_scan_matches_numpy():
     m = 24
     w = T.shape[0] - m + 1
     excl = m // 4
-    s = hybrid.precompute_statistics_numpy(T, m)
+    s = precompute_statistics_numpy(T, m)
     ops = tuple(torch.from_numpy(np.asarray(a, np.float64)) for a in (T, s["mu"], s["inv"]))
     rows = np.array([0, 1, excl, 300, 320, 350, w // 2, w - excl, w - 1])
     win = np.lib.stride_tricks.sliding_window_view(T, m) - s["mu"][:, None]

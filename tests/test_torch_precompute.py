@@ -1,7 +1,8 @@
 """mpx_torch statistics and unit windows against mpx.ops.precompute.
 
 Tolerances: the host window mean is mpx's native backend's running mean,
-so ``mu`` (and with it ``df`` and ``dg``) agrees bit for bit, and the
+on every backend (``numpy``, ``native``, ``device``), so ``mu`` (and with
+it ``df`` and ``dg``) agrees bit for bit with that backend's, and the
 staged, padded ``T``, ``mu``, ``df`` and ``dg`` are the same casts, so they
 agree exactly too.  ``inv`` and ``qt0`` sum in another order than that
 backend's C loop: 1e-14 relative, and 1e-12 of ``m * max(T^2)``, the scale
@@ -10,16 +11,22 @@ float32 step apart.  The window matrix is built on each package's device
 from the staged vectors: within 1e-12 (float64) and 1e-6 (float32).
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from mpx import native as mpx_native
 from mpx.ops.precompute import precompute_statistics as mpx_precompute
+from mpx_torch.kernels.stats import window_stats_cuda, window_stats_torch
 from mpx_torch.ops.precompute import (
     build_windows,
+    host_statistics,
     precompute_statistics,
     precompute_statistics_numpy,
+    resolve_backend,
     stats_from_numpy,
 )
 from tests.conftest import random_walk
@@ -35,6 +42,9 @@ def _series(kind: str) -> np.ndarray:
         T = random_walk(3000, seed=6)
         T[1200:1400] = T[1200]
         return T
+    if kind == "tanh-step":
+        t = np.arange(1024.0)
+        return 1000 + np.tanh((t - 512) / 80) + 1e-3 * np.sin(t / 11)
     return np.loadtxt("data/test/1024.txt")
 
 
@@ -148,3 +158,191 @@ def test_precompute_statistics_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             precompute_statistics(random_walk(200, seed=3), 16, band=64, chunk=64)
+
+
+# ------------------------------------------------------------ the backends
+SERIES = ["walk", "constant-run", "1024", "tanh-step"]
+PORT_BACKENDS = ["numpy", "native", "device"]
+
+
+def _mpx_stats64(T, m, backend, matmul_only=False) -> dict:
+    """mpx's float64 statistics of the unpadded windows on ``backend``."""
+    s = mpx_precompute(T, m, band=64, chunk=64, dtype=np.float64, backend=backend,
+                       windows=False, matmul_only=matmul_only)
+    w = T.shape[0] - m + 1
+    return {f: np.asarray(getattr(s, f))[:w] for f in ("mu", "df", "dg", "inv", "qt0")}
+
+
+@pytest.mark.parametrize("kind", SERIES)
+@pytest.mark.parametrize("m", [16, 100])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_backends_against_mpx(backend, kind, m):
+    """Each backend (``device`` through the kernel's plain version here)
+    against mpx's ``native`` and ``jax`` backends: ``mu``, ``df`` and
+    ``dg`` bit-equal to native's (mpx's ``jax`` backend takes a
+    prefix-sum mean instead, so there only ``inv`` and ``qt0`` are held),
+    ``inv`` within 1e-14 relative with the same zero-variance windows,
+    ``qt0`` within 1e-12 of ``m * max(T^2)``."""
+    T = _series(kind)
+    ours = host_statistics(T, m, backend=backend, device="cpu")
+    for ref_backend in ("native", "jax"):
+        ref = _mpx_stats64(T, m, ref_backend)
+        if ref_backend == "native":
+            for name in ("mu", "df", "dg"):
+                np.testing.assert_array_equal(ours[name], ref[name], err_msg=name)
+        _assert_inv_qt0(ours["inv"], ours["qt0"], ref["inv"], ref["qt0"], T, m)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_matmul_only_zero_fill_as_mpx(backend, dtype):
+    """``matmul_only`` stages ``T``, ``mu`` and ``inv`` and zero-fills
+    ``df``, ``dg`` and ``qt0``, as mpx does."""
+    T = _series("constant-run")
+    m, band, chunk = 32, 256, 512
+    ours = precompute_statistics(T, m, band=band, chunk=chunk, dtype=dtype, device="cpu",
+                                 backend=backend, matmul_only=True, windows=False)
+    ref = mpx_precompute(T, m, band=band, chunk=chunk, dtype=dtype, backend="native",
+                         windows=False, matmul_only=True)
+    for name in ("df", "dg", "qt0"):
+        assert not np.asarray(getattr(ref, name)).any()
+        np.testing.assert_array_equal(getattr(ours, name).numpy(), np.asarray(getattr(ref, name)))
+    for name in ("T", "mu"):
+        np.testing.assert_array_equal(getattr(ours, name).numpy(), np.asarray(getattr(ref, name)))
+    inv, ref_inv = ours.inv.numpy().astype(np.float64), np.asarray(ref.inv, np.float64)
+    np.testing.assert_array_equal(np.isfinite(inv), np.isfinite(ref_inv))
+    live = np.isfinite(ref_inv)
+    f32_step = np.finfo(np.float32).eps if dtype == "float32" else 0.0
+    np.testing.assert_allclose(inv[live], ref_inv[live], rtol=1e-14 + f32_step, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("exact_mean", [False, True])
+@pytest.mark.parametrize("kind", ["constant-run", "tanh-step"])
+def test_device_backend_stages_as_the_host_backends(kind, exact_mean, dtype):
+    """``precompute_statistics(backend='device')`` stages on the device
+    what the host backends stage from numpy: ``T``, ``mu``, ``df`` and
+    ``dg`` equal to the numpy backend's without the correction (within
+    1e-14 of max |T| with it), ``inv`` and ``qt0`` to rounding, the window
+    matrix within the window tolerance."""
+    T = _series(kind)
+    m, band, chunk = 16, 128, 256
+    kw = dict(band=band, chunk=chunk, dtype=dtype, device="cpu", exact_mean=exact_mean)
+    dev = precompute_statistics(T, m, backend="device", **kw)
+    ref = precompute_statistics(T, m, backend="numpy", **kw)
+    for name in FIELDS:
+        assert getattr(dev, name).dtype == getattr(ref, name).dtype
+        assert getattr(dev, name).shape == getattr(ref, name).shape
+    f32_step = np.finfo(np.float32).eps if dtype == "float32" else 0.0
+    np.testing.assert_array_equal(dev.T.numpy(), ref.T.numpy())
+    for name in ("mu", "df", "dg"):
+        a, b = getattr(dev, name).numpy(), getattr(ref, name).numpy()
+        if exact_mean:
+            np.testing.assert_allclose(a, b, rtol=f32_step, atol=1e-14 * np.max(np.abs(T)),
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    _assert_inv_qt0(dev.inv.numpy().astype(np.float64), dev.qt0.numpy().astype(np.float64),
+                    ref.inv.numpy().astype(np.float64), ref.qt0.numpy().astype(np.float64),
+                    T, m, rtol=f32_step)
+    np.testing.assert_allclose(dev.windows.numpy(), ref.windows.numpy(), rtol=0,
+                               atol=WINDOW_TOL[dtype])
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_matmul_only_keeps_mu_and_inv(backend):
+    T = _series("tanh-step")
+    full = host_statistics(T, 16, backend=backend, device="cpu")
+    only = host_statistics(T, 16, backend=backend, device="cpu", matmul_only=True)
+    np.testing.assert_array_equal(only["mu"], full["mu"])
+    for name in ("df", "dg", "qt0"):
+        assert only[name].shape == full[name].shape and not only[name].any()
+    if backend == "native":  # precompute_stats: another summation order
+        np.testing.assert_allclose(only["inv"], full["inv"], rtol=1e-14, atol=0)
+    else:
+        np.testing.assert_array_equal(only["inv"], full["inv"])
+
+
+@pytest.mark.parametrize("kind", SERIES)
+@pytest.mark.parametrize("m", [16, 100])
+def test_exact_mean_numpy_and_device_agree(kind, m):
+    """The corrected mean on ``numpy`` and ``device``: the residuals sum
+    in another order, so ``mu`` and ``dg`` agree within 1e-14 of max |T|,
+    ``qt0`` within its tolerance, ``inv`` exactly as without the
+    correction."""
+    T = _series(kind)
+    a = host_statistics(T, m, backend="numpy", device="cpu", exact_mean=True)
+    d = host_statistics(T, m, backend="device", device="cpu", exact_mean=True)
+    scale = np.max(np.abs(T))
+    for name in ("mu", "dg"):
+        np.testing.assert_allclose(d[name], a[name], rtol=0, atol=1e-14 * scale, err_msg=name)
+    np.testing.assert_array_equal(d["df"], a["df"])
+    _assert_inv_qt0(d["inv"], d["qt0"], a["inv"], a["qt0"], T, m)
+    np.testing.assert_array_equal(
+        d["inv"], host_statistics(T, m, backend="device", device="cpu")["inv"])
+
+
+def test_backend_refusals():
+    T = _series("walk")
+    with pytest.raises(ValueError, match="'device'"):
+        host_statistics(T, 16, backend="jax", device="cpu")
+    with pytest.raises(ValueError, match="'device'"):
+        precompute_statistics(T, 16, band=64, chunk=64, device="cpu", backend="jax")
+    with pytest.raises(ValueError, match="exact_mean"):
+        host_statistics(T, 16, backend="native", device="cpu", exact_mean=True)
+    with pytest.raises(ValueError, match="unknown precompute backend"):
+        host_statistics(T, 16, backend="gpu", device="cpu")
+    with pytest.raises(ValueError, match="m must be"):
+        host_statistics(T, 3, backend="native", device="cpu")
+
+
+def test_auto_resolves_from_the_device():
+    """``auto`` is ``numpy`` on the CPU (no CPU number moves) and
+    ``device`` on a CUDA device, whatever builds."""
+    assert resolve_backend("auto", "cpu") == "numpy"
+    assert resolve_backend("auto", torch.device("cuda", 0)) == "device"
+    assert resolve_backend("native", "cuda") == "native"
+    T = _series("1024")
+    auto = host_statistics(T, 16, device="cpu")
+    for name, x in precompute_statistics_numpy(T, 16).items():
+        np.testing.assert_array_equal(auto[name], x, err_msg=name)
+
+
+@pytest.mark.parametrize("m", [5, 16, 100])
+def test_window_stats_plain_version(m):
+    """The kernel's wrapper on CPU tensors is its plain version: ``inv``
+    as the numpy backend's, ``qt0`` the centered first-row product
+    (native's), the residuals ``sum_k (T[i+k] - mu[i])``."""
+    T = _series("constant-run")[:1500]
+    ref = mpx_native.precompute(T, m)
+    Tt, mut = torch.as_tensor(T), torch.as_tensor(ref["mu"])
+    inv, qt0, resid = window_stats_cuda(Tt, mut, m, qt0=True, resid=True)
+    plain = window_stats_torch(Tt, mut, m, qt0=True, resid=True)
+    for a, b in zip((inv, qt0, resid), plain):
+        assert torch.equal(a, b)
+    _assert_inv_qt0(inv.numpy(), qt0.numpy(), ref["inv"], ref["qt0"], T, m)
+    cent = np.lib.stride_tricks.sliding_window_view(T, m) - ref["mu"][:, None]
+    np.testing.assert_allclose(resid.numpy(), cent.sum(1), rtol=0,
+                               atol=1e-13 * m * np.max(np.abs(T)))
+    inv_only = window_stats_cuda(Tt, mut, m)
+    assert inv_only[1] is None and inv_only[2] is None and torch.equal(inv_only[0], inv)
+    with pytest.raises(ValueError, match="float64"):
+        window_stats_cuda(Tt.float(), mut, m)
+    with pytest.raises(ValueError, match="window means"):
+        window_stats_cuda(Tt, mut[:-1], m)
+
+
+def test_kernel_library_covers_the_stats_source(tmp_path, monkeypatch):
+    """The kernel build globs ``csrc/*.cu``: the window statistics source
+    is the third, and the library's name (a hash of every source) changes
+    with it."""
+    from mpx_torch.kernels import _build
+
+    sources = _build._sources()
+    assert [os.path.basename(p) for p in sources] == [
+        "band_recurrence.cu", "mxu_fused.cu", "precompute.cu"]
+    full = _build.library_path()
+    for src in sources[:2]:
+        shutil.copy(src, tmp_path)
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    assert _build.library_path() != full

@@ -54,8 +54,10 @@ def test_enable_compilation_cache_points_the_build_directory(tmp_path, monkeypat
 
 @pytest.mark.parametrize("flag", ["--version", "-v"])
 def test_version_banner(flag, capsys):
-    """``python -m mpx_torch --version``: the versions, the device and
-    whether the kernel library for the current sources is built."""
+    """``python -m mpx_torch --version``: the versions, the device,
+    whether the kernel library for the current sources is built, whether
+    the native host library loads, and the statistics backend ``auto``
+    takes here."""
     import mpx_torch
     from mpx_torch.cli import main
     from mpx_torch.kernels import _build
@@ -67,5 +69,9 @@ def test_version_banner(flag, capsys):
     if not torch.cuda.is_available():
         assert lines[2] == "  device: cpu (no CUDA device)"
     built = os.path.exists(_build.library_path())
-    assert lines[3].startswith(f"  kernel library (K1, K3): {'built' if built else 'not built'} (")
+    assert lines[3].startswith(f"  kernel library (K1, K3, stats): "
+                               f"{'built' if built else 'not built'} (")
     assert os.path.basename(_build.library_path()) in lines[3]
+    assert lines[4] == "  native host library: built"
+    assert lines[5] == ("  statistics backend (auto): "
+                        f"{'device' if torch.cuda.is_available() else 'numpy'}")
