@@ -235,12 +235,23 @@ script exits nonzero without the final line):
     ``real-sudden-cardiac-death``, ``real-italian-power-f64`` and
     ``streaming-f32-262144``: each row measured and validated, the table
     printed;
+52. ``mpx_torch.entry()`` on the card (n=1024, m=32, band 128, chunk 256,
+    f32): one call of ``fn(*example_args)``, one K1 launch a job, against
+    the same call of ``entry(device="cpu")`` after ``postcompute`` (2e-3);
+53. ``mpx_torch.dryrun_multichip(4)`` on the card: job shards, the ring,
+    the f64 hybrid, mSTAMP and the fleet on four virtual shards of cuda:0,
+    then two processes of two virtual shards in one Gloo group with their
+    tensors on the card; every ``OK`` line, the time before each;
+54. ``python -m mpx_torch.bench_line``'s showcase job (f64, n=2^20,
+    m=256, ``auto`` = K1; a warm-up, a timed run, 64 validated rows)
+    through its ``main``: the JSON line parsed, checked and printed;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
 
 The line before the last but one is a JSON object with one entry per
 kernel and dtype (launches counted in that kernel's main-path runs: the
-window statistics kernel in phases 4, 7 and 10, one a run; K1 in
+window statistics kernel in phases 4, 7, 10 and 52-54, one a
+statistics call; K1 in
 phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
 pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
 pan of phase 30, phases 33–38's runs of the new entry points (the
@@ -248,7 +259,9 @@ checkpointed hybrids' pass A in phase 35 included), the contrast
 profile's joins in phase 40 (f64) and phase 41's compositions (chains and
 snippets f32, ostinato and the clustering's AB-joins f64), and (f32) the
 sharded runs of phases 44-47 (the ring hybrid's pass A in 46) and the
-served requests and stream bootstraps of phase 49; K3 in
+served requests and stream bootstraps of phase 49, the entry step of
+phase 52 and this process's dry run of phase 53, (f64) the bench line of
+phase 54; K3 in
 phases 7, 8 and (f64) 30, 35, 37 and 44; the bound and the library call's time at the
 band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
@@ -4111,6 +4124,138 @@ def phase_bench_suite(torch):
         print(ln, flush=True)
 
 
+# ---------------------------------------------------------------- slice 17
+class TimedLines:
+    """A stdout stand-in that keeps each line written with the script's
+    clock reading when it was written."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text: str) -> int:
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines += [(time.perf_counter(), ln) for ln in done]
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+
+def phase_entry(torch) -> dict:
+    """Phase 52: ``mpx_torch.entry()`` on the card (n = 1024, m = 32, band
+    128, chunk 256, f32): its statistics (one window statistics launch),
+    then one call of ``fn(*example_args)``, one K1 launch a job, against the
+    same call of ``entry(device="cpu")`` (the plain sweep) after
+    ``postcompute``: distances within 2e-3, indices equal or equidistant.
+    Returns the launches."""
+    from mpx_torch import entry
+    from mpx_torch.ops.aggregates import postcompute
+
+    n, m = 1024, 32
+    w = n - m + 1
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows, cols = fn(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    jobs = len(args[1].r0)
+    launches = require_only(counts(), "k1", "entry()'s step", launches=jobs)
+    st = stats_launches()
+    require(st == 1 and args[1].r0.is_cuda and fn.keywords["kernel"] == "mxu_fused",
+            f"entry(): {st} statistics launches, grid on {args[1].r0.device}, "
+            f"kernel {fn.keywords['kernel']}")
+    MP, MPI = (o.cpu().numpy() for o in postcompute(rows, cols, m, w))
+    fc, ac = entry(device="cpu")
+    MPc, MPIc = (o.numpy() for o in postcompute(*fc(*ac), m, w))
+    T = np.cumsum(np.random.default_rng(0).standard_normal(n))
+    err = check_profiles_agree(T, m, MP, MPI, MPc, MPIc, DIST_TOL["float32"])
+    say("52 entry()", card=torch.cuda.get_device_name(0), n=n, m=m, band=128, chunk=256,
+        kernel=fn.keywords["kernel"], jobs=jobs, k1_launches=launches, stats_launches=st,
+        entry_s=t1 - t0, step_s=t2 - t1, max_err_vs_cpu_plain=err, tol=DIST_TOL["float32"],
+        index_differences=int((MPI != MPIc).sum()))
+    return {"k1": launches, "stats": st}
+
+
+DRYRUN_OK = ("dryrun_multichip(4): OK", "dryrun ring(4): OK",
+             "dryrun hybrid-f64 sharded(4): OK", "dryrun mstamp sharded(4): OK",
+             "dryrun batch sharded(4): OK", "dryrun multiprocess(2x2): OK")
+
+
+def phase_dryrun(torch) -> dict:
+    """Phase 53: ``mpx_torch.dryrun_multichip(4)`` on the card: job shards,
+    the ring, the f64 hybrid, mSTAMP and the fleet on four virtual shards
+    of cuda:0 (K1 in all but mSTAMP's torch ops), then two processes of
+    two virtual shards each in one Gloo group with their tensors on the
+    card; every ``OK`` line printed, with the script's time since the
+    previous line.  Returns this process's launches (the two processes'
+    are their own)."""
+    from mpx_torch import dryrun_multichip
+
+    out = TimedLines()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(4)
+    wall = time.perf_counter() - t0
+    c, st = counts(), stats_launches()
+    require(c["k1"] > 0 and not c["k3"] and not c["xla"],
+            f"dryrun_multichip: counts {c}, expected K1 and no K3")
+    texts = [ln for _, ln in out.lines]
+    for want in DRYRUN_OK:
+        require(any(ln.startswith(want) for ln in texts),
+                f"dryrun_multichip printed no '{want}' line: {texts}")
+    prev, split = t0, []
+    for when, ln in out.lines:
+        print(ln, flush=True)
+        split.append({"line": ln, "s": when - prev})
+        prev = when
+    say("53 dryrun_multichip(4)", card=torch.cuda.get_device_name(0),
+        mesh="4 x cuda:0", processes="2 x 2 virtual shards, Gloo", wall_s=wall,
+        k1_launches=c["k1"], plain_calls=c["mxu"], stats_launches=st, lines=split)
+    return {"k1": c["k1"], "stats": st}
+
+
+def phase_bench_line(torch, smi: str) -> dict:
+    """Phase 54: ``python -m mpx_torch.bench_line``'s job at the showcase
+    shape (f64, n = 2^20, m = 256, band 4096, chunk 32768, ``auto`` = K1; a
+    warm-up run, a timed run, 64 rows against the exact oracle), through
+    its ``main``: one JSON line with the root script's keys, the card's
+    name and power limit those of nvidia-smi, ``vs_baseline`` the value
+    over the roofline.  Returns the launches."""
+    import io
+
+    from mpx_torch import make_job_grid
+    from mpx_torch.bench import BASELINE_PAIRS_PER_SEC
+    from mpx_torch.bench_line import SHOWCASE, main as bench_line_main
+
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench_line_main([])
+    wall = time.perf_counter() - t0
+    w = SHOWCASE["n"] - SHOWCASE["m"] + 1
+    jobs = len(make_job_grid(w, SHOWCASE["band"], SHOWCASE["chunk"]).r0)
+    launches = require_only(counts(), "k1", "bench line", launches=2 * jobs)
+    st = stats_launches()
+    lines = out.getvalue().splitlines()
+    require(rc == 0 and len(lines) == 1, f"bench line: rc {rc}, output {lines}")
+    line = json.loads(lines[0])
+    require({"metric", "value", "unit", "vs_baseline"} <= set(line)
+            and line["value"] > 0 and line["unit"] == "pairs/s"
+            and line["vs_baseline"] == line["value"] / BASELINE_PAIRS_PER_SEC
+            and f"{line['device']}, {line['power_limit']}" == smi,
+            f"bench line {line} (nvidia-smi: {smi})")
+    print(lines[0], flush=True)
+    say("54 bench line", card=torch.cuda.get_device_name(0), k1_launches=launches,
+        stats_launches=st, subprocess=False, wall_s=wall, line=line)
+    return {"k1": launches, "stats": st}
+
+
 def main() -> int:
     import torch
 
@@ -4256,6 +4401,15 @@ def main() -> int:
         tf32_kept("48")
     phase_bench_suite(torch)
     tf32_kept("50")
+    p52 = phase_entry(torch)
+    tf32_kept("52")
+    p53 = phase_dryrun(torch)
+    tf32_kept("53")
+    p54 = phase_bench_line(torch, smi)
+    tf32_kept("54")
+    launches["mxu_fused"]["float32"] += p52["k1"] + p53["k1"]
+    launches["mxu_fused"]["float64"] += p54["k1"]
+    launches["window_stats"]["float64"] += p52["stats"] + p53["stats"] + p54["stats"]
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)
     kernels = [

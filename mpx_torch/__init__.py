@@ -38,7 +38,10 @@ suite with every runner (``bench.py``) and the pyscamp and STUMPY
 compatibility layers (``compat/``); and the host C++ library
 (``native/``) beside the statistics backends of ``ops/precompute.py``,
 whose ``device`` backend is the window statistics kernel
-(``kernels/stats.py``, ``csrc/precompute.cu``).
+(``kernels/stats.py``, ``csrc/precompute.cu``); and the repo's root
+entry points: ``entry`` and ``dryrun_multichip`` (``graft_entry.py``,
+``python -m mpx_torch dryrun``) and the one-line benchmark
+(``python -m mpx_torch.bench_line``).
 """
 
 from mpx_torch.aamp import compute_aamp_ab_join, compute_aamp_profile
@@ -74,6 +77,7 @@ from mpx_torch.distmatrix import pooled_matrix
 from mpx_torch.driver import compute_matrix_profile, matrix_profile
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
 from mpx_torch.floss import Floss
+from mpx_torch.graft_entry import dryrun_multichip, entry
 from mpx_torch.merlin import (
     LengthDiscord,
     MerlinResult,
@@ -166,6 +170,8 @@ __all__ = [
     "Aggregates",
     "JobGrid",
     "Stats",
+    "entry",
+    "dryrun_multichip",
     "AGGREGATE_INIT",
     "INDEX_INIT",
     "__version__",

@@ -41,7 +41,9 @@
 * ``datasets`` — list the datasets under ``data/``;
 * ``serve``    — the persistent NDJSON request loop over stdin/stdout or
   TCP (:mod:`mpx_torch.serve`);
-* ``bench``    — the benchmark: one run, or ``--suite`` (:mod:`mpx_torch.bench`).
+* ``bench``    — the benchmark: one run, or ``--suite`` (:mod:`mpx_torch.bench`);
+* ``dryrun``   — the multi-device step on an n-device mesh and two
+  processes (:func:`mpx_torch.graft_entry.dryrun_multichip`).
 
 ``python -m mpx_torch --version`` prints the versions, the device and
 whether the kernel library is built.
@@ -1181,6 +1183,21 @@ def _print_version() -> int:
     return 0
 
 
+def _add_dryrun(sub):
+    p = sub.add_parser("dryrun", help="the multi-device step on an n-device mesh, "
+                                      "then two processes (prints OK lines)")
+    p.add_argument("-n", type=int, default=4, help="devices of the mesh")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
+    return p
+
+
+def _cmd_dryrun(args) -> int:
+    from mpx_torch.graft_entry import dryrun_multichip
+
+    dryrun_multichip(args.n, device=args.device)
+    return 0
+
+
 def _cmd_datasets(args) -> int:
     from mpx_torch.io.datasets import list_datasets
 
@@ -1227,6 +1244,7 @@ def main(argv=None) -> int:
     _add_tsbin(sub)
     _add_golden(sub)
     _add_serve(sub)
+    _add_dryrun(sub)
     sub.add_parser("datasets", help="list the datasets under data/")
     sub.add_parser("bench", help="run the benchmark (python -m mpx_torch bench -h)")
     args = parser.parse_args(argv)
@@ -1243,7 +1261,7 @@ def main(argv=None) -> int:
                 "chains": _cmd_chains, "contrast": _cmd_contrast, "ostinato": _cmd_ostinato,
                 "snippets": _cmd_snippets, "cluster": _cmd_cluster,
                 "motiflets": _cmd_motiflets, "query": _cmd_query, "tsbin": _cmd_tsbin,
-                "golden": _cmd_golden, "serve": _cmd_serve,
+                "golden": _cmd_golden, "serve": _cmd_serve, "dryrun": _cmd_dryrun,
                 "datasets": _cmd_datasets}[args.command](args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

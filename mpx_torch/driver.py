@@ -41,6 +41,11 @@ def _agg_length(w: int, S: int, W: int) -> int:
     return w + S + W
 
 
+def _ints(x) -> list:
+    """Job offsets (an array, a list or a tensor on any device) as ints."""
+    return x.tolist() if isinstance(x, torch.Tensor) else np.asarray(x).tolist()
+
+
 def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
                rows, cols, stats_c: Optional[Stats] = None):
     """Sweep the jobs (r0s[j], k0s[j]) one at a time with ``kernel``,
@@ -50,7 +55,7 @@ def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
     ``stats_c`` is the columns' statistics (a ring's visiting shard)."""
     sweep = get_sweep_fn(kernel)
     kw = {} if stats_c is None else {"stats_c": stats_c}
-    for r0, k0 in zip(np.asarray(r0s).tolist(), np.asarray(k0s).tolist()):
+    for r0, k0 in zip(_ints(r0s), _ints(k0s)):
         out = sweep(stats, r0, k0, geom, dtype, **kw)
         merge_window(rows, out.row, r0)
         merge_window(cols, out.col, r0 + k0)
@@ -58,8 +63,9 @@ def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
 
 
 def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
-    """Sweep every job of ``grid`` and merge the outputs.  Returns (row
-    Aggregates, column Aggregates), each (w + S + W,)."""
+    """Sweep every job of ``grid`` (its ``r0``/``k0`` arrays or tensors)
+    and merge the outputs.  Returns (row Aggregates, column Aggregates),
+    each (w + S + W,)."""
     L = _agg_length(geom.w, geom.S, geom.W)
     dev = stats.T.device
     rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)

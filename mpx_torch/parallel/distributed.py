@@ -51,12 +51,15 @@ def initialize(
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    backend: Optional[str] = None,
 ) -> bool:
     """Join the process group.  Arguments fall back to MPX_COORDINATOR /
     MPX_NUM_PROCESSES / MPX_PROCESS_ID.  Returns True when running
     distributed, False for the single-process no-op.  Safe to call twice.
-    The group's backend is NCCL for CUDA tensors beside Gloo for CPU
-    tensors where NCCL is available, else Gloo."""
+    The group's backend is ``backend`` when given (``"gloo"`` carries CUDA
+    tensors too, where several processes share one card, which NCCL
+    refuses), else NCCL for CUDA tensors beside Gloo for CPU tensors where
+    NCCL is available, else Gloo."""
     if is_initialized():
         return True
     coordinator = coordinator or os.environ.get(_ENV_COORD)
@@ -66,9 +69,11 @@ def initialize(
         process_id = int(os.environ[_ENV_PID])
     if not coordinator or not num_processes or num_processes <= 1:
         return False
-    nccl = torch.cuda.is_available() and dist.is_nccl_available()
+    if backend is None:
+        nccl = torch.cuda.is_available() and dist.is_nccl_available()
+        backend = "cpu:gloo,cuda:nccl" if nccl else "gloo"
     dist.init_process_group(
-        backend="cpu:gloo,cuda:nccl" if nccl else "gloo",
+        backend=backend,
         init_method=f"tcp://{coordinator}",
         world_size=num_processes,
         rank=process_id,

@@ -1015,3 +1015,53 @@ def test_device_statistics_backend_on_card(card, exact_mean):
     np.testing.assert_allclose(got["inv"][fin], ref["inv"][fin], rtol=1e-14, atol=0)
     np.testing.assert_allclose(got["qt0"], ref["qt0"], rtol=0,
                                atol=1e-12 * m * np.max(T * T))
+
+
+@pytest.mark.cuda
+def test_entry_step_on_card_matches_cpu(card):
+    """``mpx_torch.entry()``'s step through K1 (one launch a job) against
+    the same step through the plain sweep on the CPU: distances within
+    2e-3 after ``postcompute``, indices equal or tied."""
+    from mpx_torch import entry
+    from mpx_torch.ops.aggregates import postcompute
+
+    fn, args = entry()
+    assert fn.keywords["kernel"] == "mxu_fused" and args[1].r0.device.type == "cuda"
+    before = mxu_fused.LAUNCHES
+    MP, MPI = (o.cpu().numpy() for o in postcompute(*fn(*args), 32, 993))
+    assert mxu_fused.LAUNCHES - before == len(args[1].r0)
+    fc, ac = entry(device="cpu")
+    MPc, MPIc = (o.numpy() for o in postcompute(*fc(*ac), 32, 993))
+    np.testing.assert_allclose(MP, MPc, atol=DIST_TOL["float32"], rtol=0)
+    T = np.cumsum(np.random.default_rng(0).standard_normal(1024))
+    for i in np.nonzero(MPI != MPIc)[0]:
+        assert abs(_znorm_distance(T, 32, i, MPI[i]) - _znorm_distance(T, 32, i, MPIc[i])) \
+            <= DIST_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_virtual_shards_of_the_card(card, capsys):
+    """``dryrun_multichip(4)`` on the card: every phase's OK line, the
+    in-process tiers through K1, the two processes sharing the card."""
+    from mpx_torch import dryrun_multichip
+
+    before = mxu_fused.LAUNCHES
+    dryrun_multichip(4)
+    assert mxu_fused.LAUNCHES > before
+    out = capsys.readouterr().out
+    for line in ("dryrun_multichip(4): OK", "dryrun ring(4): OK",
+                 "dryrun hybrid-f64 sharded(4): OK", "dryrun mstamp sharded(4): OK",
+                 "dryrun batch sharded(4): OK", "dryrun multiprocess(2x2): OK"):
+        assert line in out, out
+
+
+@pytest.mark.cuda
+def test_bench_line_on_card(card):
+    """The one-line benchmark at n = 2^14 on the card: the root script's
+    keys, and the card's name and power limit beside them."""
+    from mpx_torch.bench_line import bench_line
+
+    line = bench_line(1 << 14)
+    assert {"metric", "value", "unit", "vs_baseline"} <= set(line) and line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["power_limit"].endswith(" W")
