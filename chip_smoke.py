@@ -677,27 +677,34 @@ def stats_bound(n: int, m: int, qt0: bool, resid: bool) -> dict:
     return bound_of(nbytes, ops, K3_OPS_PER_S["float64"])
 
 
-def reset_counts():
-    from mpx_torch.kernels import mxu, mxu_fused, recurrence, stats, xla
+# The port's counters (``mpx_torch.utils.profile.counters()``) at the last
+# reset_counts(): the counts below are differences from it.
+_COUNTS_AT_RESET: dict = {}
 
-    mxu.CALLS = xla.CALLS = 0
-    mxu_fused.LAUNCHES = recurrence.LAUNCHES = stats.LAUNCHES = 0
+
+def reset_counts():
+    global _COUNTS_AT_RESET
+    from mpx_torch.utils.profile import counters
+
+    _COUNTS_AT_RESET = counters()
+
+
+def _since_reset(name: str) -> int:
+    from mpx_torch.utils.profile import counters
+
+    return counters()[name] - _COUNTS_AT_RESET.get(name, 0)
 
 
 def stats_launches() -> int:
     """Launches of the window statistics kernel since the last reset (kept
     out of ``counts()``: every sweep path launches it once a run)."""
-    from mpx_torch.kernels import stats
-
-    return stats.LAUNCHES
+    return _since_reset("launches.window_stats")
 
 
 def counts() -> dict:
     """Launches of K1 and K3, calls of their plain versions."""
-    from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
-
-    return {"k1": mxu_fused.LAUNCHES, "mxu": mxu.CALLS,
-            "k3": recurrence.LAUNCHES, "xla": xla.CALLS}
+    return {"k1": _since_reset("launches.k1"), "mxu": _since_reset("calls.mxu"),
+            "k3": _since_reset("launches.k3"), "xla": _since_reset("calls.xla")}
 
 
 def require_only(c: dict, kernel: str, what: str, launches=None) -> int:
@@ -3839,10 +3846,10 @@ def phase_runtime_version(torch, banner_proc):
 # (the counters live in the server's process).
 _SERVE_WRAPPER = (
     "import atexit, json, runpy, sys\n"
-    "from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla\n"
-    "atexit.register(lambda: print('COUNTS ' + json.dumps({'k1': mxu_fused.LAUNCHES, "
-    "'mxu': mxu.CALLS, 'k3': recurrence.LAUNCHES, 'xla': xla.CALLS}), file=sys.stderr, "
-    "flush=True))\n"
+    "from mpx_torch.utils.profile import counters\n"
+    "atexit.register(lambda: print('COUNTS ' + json.dumps({k: counters()[c] for k, c in ("
+    "('k1', 'launches.k1'), ('mxu', 'calls.mxu'), ('k3', 'launches.k3'), "
+    "('xla', 'calls.xla'))}), file=sys.stderr, flush=True))\n"
     "sys.argv = ['mpx_torch', 'serve', *sys.argv[1:]]\n"
     "runpy.run_module('mpx_torch', run_name='__main__', alter_sys=True)\n"
 )

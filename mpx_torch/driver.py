@@ -33,7 +33,7 @@ from mpx_torch.ops.aggregates import (
 )
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.types import Stats
-from mpx_torch.utils.profile import phase
+from mpx_torch.utils.profile import phase, span
 
 
 def _agg_length(w: int, S: int, W: int) -> int:
@@ -132,7 +132,7 @@ def compute_matrix_profile(
     windows = needs_windows(kernel)
 
     if stats is None:
-        with phase(profile, "1. Pre-Computation", device=device):
+        with phase(profile, "1. Pre-Computation", device=device, span="statistics"):
             stats = precompute_statistics(T, m, band=S, chunk=W, dtype=dt,
                                           device=device, windows=windows,
                                           exact_mean=is_recurrence(kernel))
@@ -146,16 +146,17 @@ def compute_matrix_profile(
     if num_shards > 1:
         from mpx_torch.parallel.sharding import run_jobs_sharded
 
-        with phase(profile, f"2. Compute [{kernel}, sharded x{num_shards}]", device=device):
+        with phase(profile, f"2. Compute [{kernel}, sharded x{num_shards}]", device=device,
+                   span="jobs"):
             rows, cols = run_jobs_sharded(stats, grid, num_shards=num_shards, S=S, W=W, m=m,
                                           w=w, kernel=kernel, dtype=config.dtype,
                                           tr=config.tile_rows, tc=config.tile_cols)
     else:
         geom = band_geometry(S, W, m, w, config.tile_rows, config.tile_cols)
-        with phase(profile, f"2. Compute [{kernel}]", device=device):
+        with phase(profile, f"2. Compute [{kernel}]", device=device, span="jobs"):
             rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel=kernel)
 
-    with phase(profile, "3. Post-Computation", device=device):
+    with phase(profile, "3. Post-Computation", device=device, span="post"):
         if left_right:
             return postcompute_left_right(rows, cols, m, w)
         return postcompute(rows, cols, m, w)
@@ -212,6 +213,7 @@ def _ring(T, config: MatrixProfileConfig, *, stats, profile, left_right: bool):
 
 def matrix_profile(T, m: int, **kwargs):
     """Convenience wrapper: numpy in, numpy out."""
-    config = MatrixProfileConfig(m=m, **kwargs)
-    MP, MPI = compute_matrix_profile(T, config=config)
-    return MP.cpu().numpy(), MPI.cpu().numpy()
+    with span("matrix_profile"):
+        config = MatrixProfileConfig(m=m, **kwargs)
+        MP, MPI = compute_matrix_profile(T, config=config)
+        return MP.cpu().numpy(), MPI.cpu().numpy()

@@ -32,10 +32,7 @@ import torch
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, full_precision_matmul, torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut
 from mpx_torch.types import Aggregates, Stats
-
-# Calls of sweep_band_mxu and sweep_band_max, the plain versions of K1's
-# sweep (a plain count; reset by whoever reads it).
-CALLS = 0
+from mpx_torch.utils.profile import count
 
 # Sentinels for suspect-index capture (min-merged / max-merged).
 SUSPECT_MIN_INIT = 2**30
@@ -106,8 +103,7 @@ def _mask(P: torch.Tensor, stats: Stats, r0: int, c0: int, geom: BandGeometry,
 
 def sweep_band_mxu(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                    dtype, stats_c: Stats | None = None) -> BandOut:
-    global CALLS
-    CALLS += 1
+    count("calls.mxu")
     r0 = int(r0)
     c0 = r0 + int(k0)
     return _reduce(job_correlations(stats, r0, c0, geom, dtype, stats_c), r0, c0)
@@ -164,8 +160,7 @@ def sweep_band_max(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     pass A: per-row and per-column max correlation of the masked tile, no
     index.  Returns ((S,) row maxima, (W,) column maxima), AGGREGATE_INIT
     where a row or column has no valid pair."""
-    global CALLS
-    CALLS += 1
+    count("calls.mxu")
     if stats.windows is None:
         raise ValueError("stats.windows is required (see ops.precompute)")
     r0 = int(r0)

@@ -28,9 +28,7 @@ from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import NO_EXCL, BandGeometry, BandOut
 from mpx_torch.kernels.mxu import sweep_band_max, sweep_band_mxu
 from mpx_torch.types import Aggregates, Stats
-
-# Launches of the CUDA kernel pair (a plain count; reset by whoever reads it).
-LAUNCHES = 0
+from mpx_torch.utils.profile import count
 
 
 def kernel_excl(excl: int, pw: int) -> int:
@@ -62,7 +60,6 @@ def sweep_band_mxu_fused(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     """One job through K1: rows ``[r0, r0+S)`` of ``stats`` against columns
     ``[c0, c0+W)``, ``c0 = r0 + k0``, of ``stats_c`` (an AB-join's second
     series, bounded by ``geom.wc``) or, without it, of ``stats`` again."""
-    global LAUNCHES
     sc = stats if stats_c is None else stats_c
     U, inv, Uc, inv_c = stats.windows, stats.inv, sc.windows, sc.inv
     if U is None or Uc is None:
@@ -110,7 +107,7 @@ def sweep_band_mxu_fused(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                  col_v.data_ptr(), col_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mxu_fused launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    count("launches.k1")
     return BandOut(row=Aggregates(row_v, row_i), col=Aggregates(col_v, col_i))
 
 

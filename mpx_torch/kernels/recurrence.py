@@ -27,17 +27,14 @@ from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut, seed_qt
 from mpx_torch.kernels.xla import sweep_band_xla
 from mpx_torch.types import Aggregates, Stats
+from mpx_torch.utils.profile import count
 
-# Launches of the CUDA kernels of one job (a plain count; reset by whoever
-# reads it).
-LAUNCHES = 0
 # Rows per segment, the kernel's R (checked against the built library).
 SEGMENT_ROWS = 256
 
 
 def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                           dtype) -> BandOut:
-    global LAUNCHES
     if stats.df.device.type == "cpu":
         return sweep_band_xla(stats, r0, k0, geom, dtype)
     launch, out = prepare_launch(stats, r0, k0, geom, dtype)
@@ -45,7 +42,7 @@ def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
         err = launch(torch.cuda.current_stream(stats.df.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    count("launches.k3")
     return out
 
 

@@ -19,9 +19,8 @@ from __future__ import annotations
 import torch
 
 from mpx_torch.ops.precompute import ZERO_VARIANCE_REL
+from mpx_torch.utils.profile import count
 
-# Launches of the CUDA kernel (a plain count; reset by whoever reads it).
-LAUNCHES = 0
 # Bytes of one block of windows in the plain version.
 _BLOCK_BYTES = 128 << 20
 
@@ -67,9 +66,8 @@ def window_stats_cuda(T: torch.Tensor, mu: torch.Tensor, m: int, *, qt0: bool = 
                       resid: bool = False):
     """``inv`` and, on request, ``qt0`` and the residuals of the windows of
     ``T`` (float64) with means ``mu``.  A CUDA tensor launches the kernel
-    (counted in :data:`LAUNCHES`) or raises; a CPU tensor takes
+    (counted as ``launches.window_stats``) or raises; a CPU tensor takes
     :func:`window_stats_torch`."""
-    global LAUNCHES
     if T.device.type == "cpu":
         return window_stats_torch(T, mu, m, qt0=qt0, resid=resid)
     w = _check(T, mu, m)
@@ -91,5 +89,5 @@ def window_stats_cuda(T: torch.Tensor, mu: torch.Tensor, m: int, *, qt0: bool = 
                                    torch.cuda.current_stream(T.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window statistics kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    count("launches.window_stats")
     return inv, q, r

@@ -21,15 +21,12 @@ import torch
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT, torch_dtype
 from mpx_torch.kernels.common import BandGeometry, BandOut, seed_qt
 from mpx_torch.types import Aggregates, Stats
-
-# Calls of sweep_band_xla (a plain count; reset by whoever reads it).
-CALLS = 0
+from mpx_torch.utils.profile import count
 
 
 def sweep_band_xla(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                    dtype) -> BandOut:
-    global CALLS
-    CALLS += 1
+    count("calls.xla")
     S, W, m, w, excl = geom.S, geom.W, geom.m, geom.w, geom.excl
     dt = torch_dtype(dtype)
     if stats.df.dtype != dt:

@@ -23,6 +23,7 @@ import torch
 
 from mpx_torch.dtypes import full_precision_matmul, torch_dtype
 from mpx_torch.types import Stats
+from mpx_torch.utils.profile import span
 
 # A window's centered sum-of-squares below REL * (its raw sum-of-squares)
 # is numerically indistinguishable from a constant subsequence; those
@@ -169,16 +170,18 @@ def _window_sums(T: np.ndarray, m: int, device, *, matmul_only: bool,
     from mpx_torch.kernels.stats import window_stats_cuda
 
     _check_series(T.shape[0], m)
-    mu = _running_mean(T, m)
-    dev = torch.device(device)
-    Tt = torch.as_tensor(T, device=dev)
-    inv, qt0, resid = window_stats_cuda(Tt, torch.as_tensor(mu, device=dev), m,
-                                        qt0=not matmul_only, resid=exact_mean)
-    if exact_mean:
-        r = resid.cpu().numpy()
-        mu = mu + r / m
-        if qt0 is not None:
-            qt0 = qt0 - resid * (r[0] / m)
+    with span("statistics.host"):
+        mu = _running_mean(T, m)
+    with span("statistics.window_sums"):
+        dev = torch.device(device)
+        Tt = torch.as_tensor(T, device=dev)
+        inv, qt0, resid = window_stats_cuda(Tt, torch.as_tensor(mu, device=dev), m,
+                                            qt0=not matmul_only, resid=exact_mean)
+        if exact_mean:
+            r = resid.cpu().numpy()
+            mu = mu + r / m
+            if qt0 is not None:
+                qt0 = qt0 - resid * (r[0] / m)
     return mu, Tt, inv, qt0
 
 
@@ -308,12 +311,12 @@ def precompute_statistics(T, m: int, *, band: int, chunk: int,
     w = T64.shape[0] - m + 1
     pw = _padded_width(w, band, chunk)
     if host_stats is None and resolve_backend(backend, device) == "device":
-        stats = _stage_on_device(T64, m, pw, torch_dtype(dtype), device,
-                                 matmul_only=matmul_only, exact_mean=exact_mean)
-        return stats._replace(windows=build_windows(stats, m)) if windows else stats
+        return _stage_on_device(T64, m, pw, torch_dtype(dtype), device, windows=windows,
+                                matmul_only=matmul_only, exact_mean=exact_mean)
     if host_stats is None:
-        s = host_statistics(T64, m, backend=backend, matmul_only=matmul_only,
-                            exact_mean=exact_mean, device=device)
+        with span("statistics.host"):
+            s = host_statistics(T64, m, backend=backend, matmul_only=matmul_only,
+                                exact_mean=exact_mean, device=device)
     else:
         s = _zero_filled(host_stats) if matmul_only else host_stats
     npdt = np.float64 if torch_dtype(dtype) == torch.float64 else np.float32
@@ -323,21 +326,24 @@ def precompute_statistics(T, m: int, *, band: int, chunk: int,
         out[: x.shape[0]] = x.astype(npdt)
         return out
 
-    arrays = {"T": padn(T64, pw + m - 1)}
-    for name in ("mu", "df", "dg", "inv", "qt0"):
-        arrays[name] = padn(s[name], pw)
-    return stats_from_numpy(arrays, dtype, device, windows=windows)
+    with span("statistics.stage"):
+        arrays = {"T": padn(T64, pw + m - 1)}
+        for name in ("mu", "df", "dg", "inv", "qt0"):
+            arrays[name] = padn(s[name], pw)
+        return stats_from_numpy(arrays, dtype, device, windows=windows)
 
 
 def _stage_on_device(T: np.ndarray, m: int, pw: int, dt: torch.dtype, device, *,
-                     matmul_only: bool, exact_mean: bool) -> Stats:
+                     windows: bool, matmul_only: bool, exact_mean: bool) -> Stats:
     """The ``device`` backend staged where it was computed: ``inv`` and
     ``qt0`` from the kernel and ``T`` stay on the device; the host's
     ``mu``, ``df`` and ``dg`` go up once.  The same casts and zero pad as
-    the host backends' staging, so the same values."""
+    the host backends' staging, so the same values; the window matrix
+    built there when ``windows``."""
     mu, Tt, inv, qt0 = _window_sums(T, m, device, matmul_only=matmul_only,
                                     exact_mean=exact_mean)
-    df, dg = (None, None) if matmul_only else _df_dg(T, mu, m)
+    with span("statistics.host"):
+        df, dg = (None, None) if matmul_only else _df_dg(T, mu, m)
     dev = Tt.device
     npdt = np.float64 if dt == torch.float64 else np.float32
 
@@ -348,5 +354,7 @@ def _stage_on_device(T: np.ndarray, m: int, pw: int, dt: torch.dtype, device, *,
                                  else torch.as_tensor(x.astype(npdt), device=dev))
         return out
 
-    return Stats(T=pad(Tt, pw + m - 1), mu=pad(mu, pw), df=pad(df, pw), dg=pad(dg, pw),
-                 inv=pad(inv, pw), qt0=pad(qt0, pw))
+    with span("statistics.stage"):
+        stats = Stats(T=pad(Tt, pw + m - 1), mu=pad(mu, pw), df=pad(df, pw), dg=pad(dg, pw),
+                      inv=pad(inv, pw), qt0=pad(qt0, pw))
+        return stats._replace(windows=build_windows(stats, m)) if windows else stats

@@ -49,6 +49,7 @@ from mpx_torch.dtypes import (
 )
 from mpx_torch.ops.aggregates import reduce_first
 from mpx_torch.ops.precompute import ZERO_VARIANCE_REL, host_statistics
+from mpx_torch.utils.profile import count, span
 
 _MIN_CAP = 1024
 # Bytes of one block of the (rows, w) product of an append: a long append
@@ -230,6 +231,10 @@ class StreamingMatrixProfile:
         k = points.shape[0]
         if k == 0:
             return
+        with span("append"):
+            self._append(points, k)
+
+    def _append(self, points: np.ndarray, k: int):
         if self._n + k > self._T.shape[0]:
             buf = np.empty(_next_pow2(self._n + k), np.float64)
             buf[: self._n] = self.series
@@ -238,26 +243,32 @@ class StreamingMatrixProfile:
         self._T[old_n : old_n + k] = points
         self._n += k
         w = self._w
-        mu_new, inv_new = self._extend_stats(old_w)
+        with span("append.stats"):
+            mu_new, inv_new = self._extend_stats(old_w)
         if w > self._cap:
-            self._grow(w)
+            with span("append.grow"):
+                self._grow(w)
         dev, dt = self._device, self._dt
-        self._T_dev[old_n : old_n + k] = torch.as_tensor(points, device=dev).to(dt)
-        self._mu_dev[old_w:w] = torch.as_tensor(mu_new, device=dev).to(dt)
-        self._inv_dev[old_w:w] = torch.as_tensor(inv_new, device=dev).to(dt)
-        self.staged_elements += 3 * k
-        self._write_windows(old_w, w)
+        with span("append.stage"):
+            self._T_dev[old_n : old_n + k] = torch.as_tensor(points, device=dev).to(dt)
+            self._mu_dev[old_w:w] = torch.as_tensor(mu_new, device=dev).to(dt)
+            self._inv_dev[old_w:w] = torch.as_tensor(inv_new, device=dev).to(dt)
+            count("copies.append_h2d", 3)
+            self.staged_elements += 3 * k
+            self._write_windows(old_w, w)
 
-        rv, ri, (cv, ci) = self._sweep(old_w, w)
-        # New rows own their slots (AGGREGATE_INIT / -1 where no pair is
-        # valid); then the columns max-merge, the new slots included.
-        self._val_dev[old_w:w] = torch.where(torch.isfinite(rv), rv, AGGREGATE_INIT)
-        self._idx_dev[old_w:w] = ri
-        if self.mode != "left":
-            val, idx = self._val_dev[:w], self._idx_dev[:w]
-            better = cv > val
-            val.copy_(torch.where(better, cv, val))
-            idx.copy_(torch.where(better, ci, idx))
+        with span("append.sweep"):
+            rv, ri, (cv, ci) = self._sweep(old_w, w)
+        with span("append.merge"):
+            # New rows own their slots (AGGREGATE_INIT / -1 where no pair
+            # is valid); then the columns max-merge, the new slots included.
+            self._val_dev[old_w:w] = torch.where(torch.isfinite(rv), rv, AGGREGATE_INIT)
+            self._idx_dev[old_w:w] = ri
+            if self.mode != "left":
+                val, idx = self._val_dev[:w], self._idx_dev[:w]
+                better = cv > val
+                val.copy_(torch.where(better, cv, val))
+                idx.copy_(torch.where(better, ci, idx))
 
     def trim_head(self, drop: int):
         """Drop the ``drop`` oldest points (= the ``drop`` oldest windows) and
@@ -304,8 +315,10 @@ class StreamingMatrixProfile:
         hi = min(hi, self._w)
         if hi <= lo:
             return np.zeros(0, np.float64)
-        val = self._val_dev[lo:hi].cpu().numpy().astype(np.float64)
-        return np.sqrt(np.maximum(2.0 * self.m * (1.0 - val), 0.0))
+        with span("row_values"):
+            val = self._val_dev[lo:hi].cpu().numpy().astype(np.float64)
+            count("copies.append_d2h")
+            return np.sqrt(np.maximum(2.0 * self.m * (1.0 - val), 0.0))
 
     def profile(self):
         """Current (MP float64, MPI int32) as numpy arrays."""

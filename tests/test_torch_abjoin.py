@@ -34,7 +34,7 @@ from mpx_torch.ops.precompute import (
     precompute_statistics_numpy,
     stats_from_numpy,
 )
-from mpx_torch.utils.profile import BenchmarkProfile
+from mpx_torch.utils.profile import BenchmarkProfile, counters
 from tests.conftest import random_walk
 
 EPS = {"float32": 2e-3, "float64": 1e-8}
@@ -273,12 +273,12 @@ def test_ab_join_counts_one_sweep_per_job():
     A, B = random_walk(700, seed=10), random_walk(500, seed=11)
     m, band, chunk = 16, 128, 256
     jobs = len(ab_jobs(700 - m + 1, 500 - m + 1, band, chunk)[0])
-    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
     _ours(A, B, m, "float32", band=band, chunk=chunk)
-    assert mxu.CALLS - calls == jobs and mxu_fused.LAUNCHES == launches
-    calls = mxu.CALLS
+    assert counters()["calls.mxu"] - calls == jobs and counters()["launches.k1"] == launches
+    calls = counters()["calls.mxu"]
     _ours(A, B, m, "float64", "hybrid", band=band, chunk=chunk)  # pass A: one sweep a job
-    assert mxu.CALLS - calls == jobs
+    assert counters()["calls.mxu"] - calls == jobs
 
 
 @pytest.mark.parametrize("kernel", ["xla", "pallas"])

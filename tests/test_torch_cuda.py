@@ -27,6 +27,7 @@ from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.reference import band_recurrence_exact, compute_matrix_profile_reference
+from mpx_torch.utils.profile import counters
 
 BAND_TOL = {"float32": 1e-5, "float64": 1e-12}
 K3_BAND_TOL = {"float32": 1e-4, "float64": 1e-12}
@@ -83,13 +84,13 @@ def test_k1_matches_plain_on_card(card, dtype):
                                   device=card)
     U64 = stats.windows.double()
     geom = band_geometry(S, W, M, W_PROFILE)
-    launches = mxu_fused.LAUNCHES
+    launches = counters()["launches.k1"]
     for r0, k0 in EDGE_JOBS:
         ours = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
         ref = mxu.sweep_band_mxu(stats, r0, k0, geom, dtype)
         torch.cuda.synchronize()
         _assert_band_close(ours, ref, U64, r0, k0, BAND_TOL[dtype])
-    assert mxu_fused.LAUNCHES == launches + len(EDGE_JOBS)
+    assert counters()["launches.k1"] == launches + len(EDGE_JOBS)
 
 
 @pytest.mark.cuda
@@ -108,13 +109,13 @@ def test_k1_ragged_shapes_match_plain_on_card(card, dtype, m):
     geom = band_geometry(band, chunk, m, w)
     jobs = [(0, 0), (n // 3 - 100, 0), (n // 3 - 100, band), (w - band // 2, 0),
             (w - chunk - band // 2, chunk)]
-    launches = mxu_fused.LAUNCHES
+    launches = counters()["launches.k1"]
     for r0, k0 in jobs:
         ours = mxu_fused.sweep_band_mxu_fused(stats, r0, k0, geom, dtype)
         ref = mxu.sweep_band_mxu(stats, r0, k0, geom, dtype)
         torch.cuda.synchronize()
         _assert_band_close(ours, ref, U64, r0, k0, BAND_TOL[dtype])
-    assert mxu_fused.LAUNCHES == launches + len(jobs)
+    assert counters()["launches.k1"] == launches + len(jobs)
 
 
 def exact_band(stats, r0, k0, geom):
@@ -176,7 +177,7 @@ def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
     geom = band_geometry(band, chunk, m, w)
     jobs = [(0, 0), (n // 3 - band // 2, 0), (w - band // 2, 0),
             (w - chunk - band // 2, chunk)]
-    launches = recurrence.LAUNCHES
+    launches = counters()["launches.k3"]
     k3_err = plain_err = 0.0
     for r0, k0 in jobs:
         ours = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dtype)
@@ -190,7 +191,7 @@ def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
         if dtype == "float64" and r0 >= n // 3 + 400:  # no near-constant window
             _assert_band_close(ours, ref, stats.windows.double(), r0, k0,
                                K3_BAND_TOL[dtype])
-    assert recurrence.LAUNCHES == launches + len(jobs)
+    assert counters()["launches.k3"] == launches + len(jobs)
     print(f"\nK3 readings {dtype} m={m} band={band} chunk={chunk}: "
           f"K3 vs exact {k3_err:.3e}, plain vs exact {plain_err:.3e}")
 
@@ -202,9 +203,9 @@ def test_auto_profile_on_card_matches_golden(card, dtype, left_right):
     T = _series(3000, 11, constant_run=False)
     m = 32
     cfg = MatrixProfileConfig(m=m, dtype=dtype, band=256, chunk=512, device="cuda")
-    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
     out = compute_matrix_profile(T, config=cfg, left_right=left_right)
-    assert mxu.CALLS == calls and mxu_fused.LAUNCHES > launches
+    assert counters()["calls.mxu"] == calls and counters()["launches.k1"] > launches
     assert all(o.device.type == "cuda" for o in out)
     out = [o.cpu().numpy() for o in out]
     MP_exp, MPI_exp = compute_matrix_profile_reference(T, m)
@@ -226,9 +227,9 @@ def test_pallas_profile_on_card_matches_golden(card, dtype):
     m = 32
     cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel="pallas", band=256, chunk=512,
                               device="cuda")
-    calls, launches = xla.CALLS, recurrence.LAUNCHES
+    calls, launches = counters()["calls.xla"], counters()["launches.k3"]
     MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
-    assert xla.CALLS == calls and recurrence.LAUNCHES > launches
+    assert counters()["calls.xla"] == calls and counters()["launches.k3"] > launches
     MP_exp, MPI_exp = compute_matrix_profile_reference(T, m)
     np.testing.assert_allclose(MP, MP_exp, rtol=0, atol=DIST_TOL[dtype])
     for i in np.nonzero(MPI != MPI_exp)[0]:
@@ -265,12 +266,12 @@ def test_hybrid_on_card_matches_cpu(card, series):
         prof = BenchmarkProfile()
         cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=band,
                                   chunk=chunk, device=dev)
-        calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+        calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
         MP, MPI = compute_matrix_profile(T, config=cfg, profile=prof)
         assert MP.device.type == dev and MP.dtype == torch.float64
         out[dev] = (MP.cpu().numpy(), MPI.cpu().numpy())
-        counts[dev] = dict(prof.counts, k1=mxu_fused.LAUNCHES - launches,
-                           plain=mxu.CALLS - calls)
+        counts[dev] = dict(prof.counts, k1=counters()["launches.k1"] - launches,
+                           plain=counters()["calls.mxu"] - calls)
     jobs = len(make_job_grid(n - m + 1, band, chunk).r0)
     assert counts["cuda"]["k1"] == jobs and counts["cuda"]["plain"] == 0
     if series == "tie_heavy":
@@ -320,13 +321,13 @@ def test_left_right_hybrid_on_card_matches_cpu(card):
     for dev in ("cuda", "cpu"):
         cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="hybrid", band=band,
                                   chunk=chunk, device=dev)
-        calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+        calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
         res = compute_matrix_profile(T, config=cfg, left_right=True)
         assert all(o.device.type == dev for o in res)
         if dev == "cuda":
-            assert mxu_fused.LAUNCHES - launches == len(make_job_grid(n - m + 1, band,
+            assert counters()["launches.k1"] - launches == len(make_job_grid(n - m + 1, band,
                                                                       chunk).r0)
-            assert mxu.CALLS == calls
+            assert counters()["calls.mxu"] == calls
         out[dev] = [o.cpu().numpy() for o in res]
     for side in (0, 2):
         MP, MPI = out["cuda"][side : side + 2]
@@ -382,13 +383,13 @@ def test_k1_with_column_operand_matches_plain_on_card(card, dtype, m):
     Ua, Ub = sa.windows.double(), sb.windows.double()
     geom = band_geometry(band, chunk, m, wa, wc=wb, excl=NO_EXCL)
     r0s, c0s = ab_jobs(wa, wb, band, chunk)
-    launches = mxu_fused.LAUNCHES
+    launches = counters()["launches.k1"]
     for r0, c0 in zip(r0s.tolist(), c0s.tolist()):
         ours = mxu_fused.sweep_band_mxu_fused(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
         ref = mxu.sweep_band_mxu(sa, r0, c0 - r0, geom, dtype, stats_c=sb)
         torch.cuda.synchronize()
         _assert_ab_band_close(ours, ref, Ua, Ub, r0, c0, BAND_TOL[dtype])
-    assert mxu_fused.LAUNCHES == launches + len(r0s)
+    assert counters()["launches.k1"] == launches + len(r0s)
 
 
 @pytest.mark.cuda
@@ -459,11 +460,12 @@ def test_ab_join_on_card_matches_cpu(card, monkeypatch, kernel, dtype):
     for dev in ("cuda", "cpu"):
         cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel=kernel, band=band, chunk=chunk,
                                   device=dev)
-        launches, calls = mxu_fused.LAUNCHES, mxu.CALLS
+        launches, calls = counters()["launches.k1"], counters()["calls.mxu"]
         res = compute_ab_join(A, B, config=cfg)
         if dev == "cuda":
             jobs = len(ab_jobs(A.shape[0] - m + 1, B.shape[0] - m + 1, band, chunk)[0])
-            assert mxu_fused.LAUNCHES - launches == jobs and mxu.CALLS == calls
+            c = counters()
+            assert c["launches.k1"] - launches == jobs and c["calls.mxu"] == calls
         out[dev] = [o.cpu().numpy() for o in res]
     tol = DIST_TOL[dtype]
     for (MP, MPI, MPc, MPIc), (Q, R) in (((*out["cuda"][:2], *out["cpu"][:2]), (A, B)),
@@ -571,11 +573,11 @@ def test_topk_hybrid_on_card_matches_strict_tile(card, k):
     n, m, band, chunk = 8192, 64, 1024, 4096
     T = _tie_heavy(n, 60, 9)
     prof = BenchmarkProfile()
-    launches = mxu_fused.LAUNCHES
+    launches = counters()["launches.k1"]
     D, I = (o.cpu().numpy() for o in compute_topk_profile(T, k=k, config=MatrixProfileConfig(
         m=m, dtype="float64", kernel="hybrid", band=band, chunk=chunk, device="cuda"),
         profile=prof))
-    assert mxu_fused.LAUNCHES - launches == len(make_job_grid(T.shape[0] - m + 1, band,
+    assert counters()["launches.k1"] - launches == len(make_job_grid(T.shape[0] - m + 1, band,
                                                               chunk).r0)
     assert sum(prof.counts["resolved_pass_c"]) + sum(prof.counts["resolved_narrow"]) > 0
     Ds, Is = (o.cpu().numpy() for o in compute_topk_profile(T, k=k, config=MatrixProfileConfig(
@@ -790,9 +792,9 @@ def test_k3_f64_holds_1e8_on_offset_walks(card, seed):
     T = np.cumsum(np.random.default_rng(seed).standard_normal(4096)) + 1e5
     cfg = MatrixProfileConfig(m=64, dtype="float64", kernel="pallas", band=512, chunk=1024,
                               device="cuda")
-    before = recurrence.LAUNCHES
+    before = counters()["launches.k3"]
     MP, _ = compute_matrix_profile(T, config=cfg)
-    assert recurrence.LAUNCHES > before
+    assert counters()["launches.k3"] > before
     exp, _ = brute_force_matrix_profile(T, 64)
     err = float(np.abs(MP.cpu().numpy() - exp).max())
     print(f"K3 f64 offset walk seed {seed}: max err {err:.3e}")
@@ -808,9 +810,9 @@ def test_contrast_on_card_matches_cpu(card, dtype):
 
     plus, minus = _series(3000, 91, constant_run=False), _series(2500, 92)
     kw = dict(m=64, dtype=dtype, band=512, chunk=1024)
-    before = mxu_fused.LAUNCHES
+    before = counters()["launches.k1"]
     got = contrast_profile(plus, minus, config=MatrixProfileConfig(device="cuda", **kw))
-    assert mxu_fused.LAUNCHES > before
+    assert counters()["launches.k1"] > before
     exp = contrast_profile(plus, minus, config=MatrixProfileConfig(device="cpu", **kw))
     for name in ("cp", "mp_aa", "mp_ab"):
         np.testing.assert_allclose(getattr(got, name), getattr(exp, name), rtol=0,
@@ -888,12 +890,12 @@ def test_four_virtual_shards_equal_one_device(card, dtype, kernel):
     MP1, MPI1 = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
     stats = stage(T, m, band=S, chunk=Wc, dtype=dtype, device=card, windows=kernel == "auto",
                   exact_mean=kernel == "pallas")
-    launches = (mxu_fused.LAUNCHES, recurrence.LAUNCHES)
+    launches = (counters()["launches.k1"], counters()["launches.k3"])
     rows, cols = run_jobs_sharded(stats, make_job_grid(w, S, Wc), num_shards=4, S=S, W=Wc,
                                   m=m, w=w, kernel="mxu_fused" if kernel == "auto" else kernel,
                                   dtype=dtype, mesh=(card,) * 4)
     MP4, MPI4 = (o.cpu().numpy() for o in postcompute(rows, cols, m, w))
-    assert (mxu_fused.LAUNCHES, recurrence.LAUNCHES) != launches
+    assert (counters()["launches.k1"], counters()["launches.k3"]) != launches
     np.testing.assert_array_equal(MP1, MP4)
     for i in np.nonzero(MPI1 != MPI4)[0]:
         assert abs(_znorm_distance(T, m, i, MPI1[i]) - _znorm_distance(T, m, i, MPI4[i])) \
@@ -915,10 +917,10 @@ def test_served_compute_equals_the_direct_call(card, dtype):
     MP, MPI = (o.cpu().numpy() for o in compute_matrix_profile(
         T, config=MatrixProfileConfig(device="cuda", **cfg)))
     server = Server(device="cuda")
-    before = mxu_fused.LAUNCHES
+    before = counters()["launches.k1"]
     resp = server.handle(json.dumps({"op": "compute", "series": T.tolist(), "id": 3, **cfg}))
     assert "error" not in resp, resp
-    assert mxu_fused.LAUNCHES > before and resp["id"] == 3
+    assert counters()["launches.k1"] > before and resp["id"] == 3
     np.testing.assert_array_equal(np.asarray(resp["mp"]), MP.astype(np.float64))
     np.testing.assert_array_equal(np.asarray(resp["mpi"]), MPI)
     assert server.handle('{"op": "ping"}')["devices"] == torch.cuda.device_count()
@@ -976,10 +978,10 @@ def test_window_stats_kernel_matches_plain_on_card(card, m):
     T[6000:11000] = T[6000]  # zero-variance windows at every m here
     Tt = torch.as_tensor(T, device=card)
     mut = torch.as_tensor(_running_mean(T, m), device=card)
-    before = stats.LAUNCHES
+    before = counters()["launches.window_stats"]
     inv, qt0, resid = stats.window_stats_cuda(Tt, mut, m, qt0=True, resid=True)
     torch.cuda.synchronize()
-    assert stats.LAUNCHES == before + 1
+    assert counters()["launches.window_stats"] == before + 1
     rinv, rqt0, rresid = stats.window_stats_torch(Tt, mut, m, qt0=True, resid=True)
     fin = torch.isfinite(rinv)
     assert torch.equal(torch.isfinite(inv), fin) and not bool(fin.all())
@@ -996,13 +998,12 @@ def test_device_statistics_backend_on_card(card, exact_mean):
     """``auto`` on the card is the ``device`` backend: one kernel launch,
     and the statistics of the numpy backend to rounding (``mu``, ``df``,
     ``dg`` bit-equal without the correction)."""
-    from mpx_torch.kernels import stats
     from mpx_torch.ops.precompute import host_statistics
 
     T, m = _series(8192, 32), 100
-    before = stats.LAUNCHES
+    before = counters()["launches.window_stats"]
     got = host_statistics(T, m, device=card, exact_mean=exact_mean)
-    assert stats.LAUNCHES == before + 1
+    assert counters()["launches.window_stats"] == before + 1
     ref = host_statistics(T, m, backend="numpy", device="cpu", exact_mean=exact_mean)
     for name in ("mu", "df", "dg"):
         if exact_mean:
@@ -1027,9 +1028,9 @@ def test_entry_step_on_card_matches_cpu(card):
 
     fn, args = entry()
     assert fn.keywords["kernel"] == "mxu_fused" and args[1].r0.device.type == "cuda"
-    before = mxu_fused.LAUNCHES
+    before = counters()["launches.k1"]
     MP, MPI = (o.cpu().numpy() for o in postcompute(*fn(*args), 32, 993))
-    assert mxu_fused.LAUNCHES - before == len(args[1].r0)
+    assert counters()["launches.k1"] - before == len(args[1].r0)
     fc, ac = entry(device="cpu")
     MPc, MPIc = (o.numpy() for o in postcompute(*fc(*ac), 32, 993))
     np.testing.assert_allclose(MP, MPc, atol=DIST_TOL["float32"], rtol=0)
@@ -1045,9 +1046,9 @@ def test_dryrun_multichip_on_virtual_shards_of_the_card(card, capsys):
     in-process tiers through K1, the two processes sharing the card."""
     from mpx_torch import dryrun_multichip
 
-    before = mxu_fused.LAUNCHES
+    before = counters()["launches.k1"]
     dryrun_multichip(4)
-    assert mxu_fused.LAUNCHES > before
+    assert counters()["launches.k1"] > before
     out = capsys.readouterr().out
     for line in ("dryrun_multichip(4): OK", "dryrun ring(4): OK",
                  "dryrun hybrid-f64 sharded(4): OK", "dryrun mstamp sharded(4): OK",
@@ -1065,3 +1066,31 @@ def test_bench_line_on_card(card):
     assert {"metric", "value", "unit", "vs_baseline"} <= set(line) and line["value"] > 0
     assert line["device"] == torch.cuda.get_device_name(0)
     assert line["power_limit"].endswith(" W")
+
+
+@pytest.mark.cuda
+def test_traced_self_join_counts_its_kernel_launches(card):
+    """What the benchmark's ``kernel_launches.selfjoin`` reads: under the
+    profiler, the ``mpx_torch.matrix_profile`` span of one f64 self-join
+    through ``auto`` counts one K1 launch a job and one window statistics
+    launch, and its ranges stand beside the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpx_torch import matrix_profile
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.utils.profile import spans
+
+    n, m = 40000, 64
+    w = n - m + 1
+    cfg = MatrixProfileConfig(m=m, dtype="float64").shrink_to(w)
+    last = max((s.id for s in spans()), default=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        matrix_profile(_series(n, 17), m, dtype="float64")
+    (root,) = [s for s in spans() if s.id > last and s.name == "mpx_torch.matrix_profile"]
+    launches = sum(root.counters[k] for k in ("launches.k1", "launches.k3",
+                                              "launches.window_stats"))
+    assert launches == len(make_job_grid(w, cfg.band, cfg.chunk).r0) + 1
+    assert root.counters["launches.window_stats"] == 1
+    names = {e.name for e in prof.events()}
+    assert {"mpx_torch.matrix_profile", "mpx_torch.statistics.window_sums",
+            "mpx_torch.jobs"} <= names

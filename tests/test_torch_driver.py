@@ -19,6 +19,7 @@ from mpx_torch import MatrixProfileConfig, compute_matrix_profile, matrix_profil
 from mpx_torch.cli import main as port_main
 from mpx_torch.dtypes import distance_epsilon
 from mpx_torch.io.tsb import read_binary, read_series
+from mpx_torch.utils.profile import counters
 from tests.conftest import DATA_DIR
 from tests.helpers import assert_profile_close
 
@@ -203,7 +204,6 @@ def test_recurrence_stages_no_windows(monkeypatch):
     """The recurrence reads only T, mu, df, dg and inv: no window matrix is
     built for it, and staged stats without one serve it (not K1)."""
     import mpx_torch.ops.precompute as pre
-    from mpx_torch.kernels import xla
 
     T = _load("test/1024.txt", None)
     cfg = MatrixProfileConfig(m=16, dtype="float64", kernel="pallas", band=128,
@@ -217,9 +217,9 @@ def test_recurrence_stages_no_windows(monkeypatch):
         raise AssertionError("the recurrence tier built the window matrix")
 
     monkeypatch.setattr(pre, "build_windows", no_windows)
-    calls = xla.CALLS
+    calls = counters()["calls.xla"]
     got = _np(compute_matrix_profile(T, config=cfg, stats=stats))
-    assert xla.CALLS > calls
+    assert counters()["calls.xla"] > calls
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
     with pytest.raises(ValueError, match="windows"):
@@ -231,14 +231,14 @@ def test_auto_f64_large_m_takes_the_recurrence(monkeypatch):
     """mpx's policy: float64 with m > MXU_MAX_M runs the recurrence (the
     plain version on the CPU), with no window matrix."""
     import mpx_torch.ops.precompute as pre
-    from mpx_torch.kernels import MXU_MAX_M, mxu, xla
+    from mpx_torch.kernels import MXU_MAX_M
 
     m = MXU_MAX_M + 4
     T = np.cumsum(np.random.default_rng(3).standard_normal(m + 300))
     monkeypatch.setattr(pre, "build_windows", None)  # any call would raise
-    calls, mxu_calls = xla.CALLS, mxu.CALLS
+    calls, mxu_calls = counters()["calls.xla"], counters()["calls.mxu"]
     MP, MPI = matrix_profile(T, m, dtype="float64", device="cpu")
-    assert xla.CALLS > calls and mxu.CALLS == mxu_calls
+    assert counters()["calls.xla"] > calls and counters()["calls.mxu"] == mxu_calls
     MP_ref, MPI_ref = (np.asarray(x) for x in mpx.compute_matrix_profile(
         T, config=mpx.MatrixProfileConfig(m=m, dtype="float64", kernel="xla")))
     assert_profile_close(T, m, MP, MPI, MP_ref, MPI_ref, eps=1e-8)

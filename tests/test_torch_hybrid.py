@@ -25,9 +25,8 @@ from mpx_torch import MatrixProfileConfig, compute_matrix_profile, hybrid, matri
 from mpx_torch.cli import main as port_main
 from mpx_torch.config import make_job_grid
 from mpx_torch.io.tsb import read_binary, read_series
-from mpx_torch.kernels import mxu, mxu_fused
 from mpx_torch.ops.precompute import precompute_statistics_numpy
-from mpx_torch.utils.profile import BenchmarkProfile
+from mpx_torch.utils.profile import BenchmarkProfile, counters
 from tests.conftest import DATA_DIR, random_walk
 from tests.helpers import assert_profile_close
 from tests.test_torch_split_tf32 import split_tf32_product
@@ -265,9 +264,9 @@ def test_pass_a_is_k1s_plain_sweep_on_cpu():
     n, m, band, chunk = SHAPES[1]
     T = random_walk(n, seed=2)
     jobs = len(make_job_grid(n - m + 1, band, chunk).r0)
-    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
     _hybrid(T, m, band, chunk)
-    assert mxu.CALLS - calls == jobs and mxu_fused.LAUNCHES == launches
+    assert counters()["calls.mxu"] - calls == jobs and counters()["launches.k1"] == launches
 
 
 def test_driver_matrix_profile_and_cli(tmp_path):

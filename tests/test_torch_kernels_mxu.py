@@ -21,6 +21,7 @@ from mpx.ops.precompute import precompute_statistics as mpx_precompute
 from mpx_torch.kernels import get_sweep_fn, mxu, mxu_fused, resolve_kernel
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.ops.precompute import stats_from_numpy
+from mpx_torch.utils.profile import counters
 from tests.conftest import random_walk
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -116,10 +117,10 @@ def test_masking_rules(series):
 def test_fused_wrapper_takes_plain_version_on_cpu(series):
     _, stats, _ = _both_stats(series, "float32")
     geom = band_geometry(S, W, M, W_PROFILE)
-    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
     a = mxu_fused.sweep_band_mxu_fused(stats, 256, 512, geom, "float32")
     b = mxu.sweep_band_mxu(stats, 256, 512, geom, "float32")
-    assert mxu.CALLS == calls + 2 and mxu_fused.LAUNCHES == launches
+    assert counters()["calls.mxu"] == calls + 2 and counters()["launches.k1"] == launches
     for side in ("row", "col"):
         assert torch.equal(getattr(a, side).value, getattr(b, side).value)
         assert torch.equal(getattr(a, side).index, getattr(b, side).index)

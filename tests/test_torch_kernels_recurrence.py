@@ -38,6 +38,7 @@ from mpx_torch.ops.precompute import (
     sliding_dot_product,
     stats_from_numpy,
 )
+from mpx_torch.utils.profile import counters
 from tests.conftest import random_walk
 
 TOL = {"float32": 1e-4, "float64": 1e-12}
@@ -183,10 +184,10 @@ def test_f64_recurrence_exact_on_a_drifting_series(r0, k0):
 def test_recurrence_wrapper_takes_plain_version_on_cpu(series):
     _, stats, _ = _both_stats(series, "float64")
     geom = band_geometry(S, W, M, W_PROFILE)
-    calls, launches = xla.CALLS, recurrence.LAUNCHES
+    calls, launches = counters()["calls.xla"], counters()["launches.k3"]
     a = recurrence.sweep_band_recurrence(stats, 256, 512, geom, "float64")
     b = xla.sweep_band_xla(stats, 256, 512, geom, "float64")
-    assert xla.CALLS == calls + 2 and recurrence.LAUNCHES == launches
+    assert counters()["calls.xla"] == calls + 2 and counters()["launches.k3"] == launches
     for side in ("row", "col"):
         assert torch.equal(getattr(a, side).value, getattr(b, side).value)
         assert torch.equal(getattr(a, side).index, getattr(b, side).index)

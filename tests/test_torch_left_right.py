@@ -25,9 +25,8 @@ from mpx_torch.cli import main as port_main
 from mpx_torch.config import make_job_grid
 from mpx_torch.dtypes import full_precision_matmul
 from mpx_torch.io.tsb import read_binary, read_series
-from mpx_torch.kernels import mxu, mxu_fused
 from mpx_torch.ops.precompute import precompute_statistics_numpy
-from mpx_torch.utils.profile import BenchmarkProfile
+from mpx_torch.utils.profile import BenchmarkProfile, counters
 from tests.conftest import DATA_DIR, random_walk
 from tests.helpers import assert_profile_close
 from tests.test_left_right import brute_force_left_right
@@ -218,9 +217,9 @@ def test_left_right_driver_and_cli(tmp_path):
               "hybrid", "--band", "256", "--chunk", "512", "--left-right"]
     ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
     jobs = len(make_job_grid(1024 - 15, 256, 512).r0)
-    calls, launches = mxu.CALLS, mxu_fused.LAUNCHES
+    calls, launches = counters()["calls.mxu"], counters()["launches.k1"]
     assert port_main(common + ["-o", ours, "--device", "cpu"]) == 0
-    assert mxu.CALLS - calls == jobs and mxu_fused.LAUNCHES == launches
+    assert counters()["calls.mxu"] - calls == jobs and counters()["launches.k1"] == launches
     assert mpx_main(common + ["-o", ref]) == 0
     T = read_series(inp)
     for suffix in (".left", ".right"):

@@ -16,9 +16,8 @@ from mpx.parallel.ring import run_ring_hybrid_f64 as mpx_ring_hybrid
 from mpx.parallel.ring import run_ring_sharded as mpx_ring
 from mpx.reference import compute_matrix_profile_reference
 from mpx_torch import MatrixProfileConfig, compute_matrix_profile
-from mpx_torch.kernels import mxu, mxu_fused
 from mpx_torch.parallel import ring
-from mpx_torch.utils.profile import BenchmarkProfile
+from mpx_torch.utils.profile import BenchmarkProfile, counters
 from tests.conftest import random_walk
 from tests.helpers import assert_profile_close
 
@@ -77,10 +76,10 @@ def test_ring_plain_kernel_and_launch_counts():
     """``kernel='mxu'`` and the default both sweep with the plain version
     on CPU tensors (K1 launches nothing), one call a job."""
     T, m = random_walk(900, seed=60), 16
-    before = (mxu.CALLS, mxu_fused.LAUNCHES)
+    before = (counters()["calls.mxu"], counters()["launches.k1"])
     a = _ring(T, m, num_shards=3, band=64, chunk=64)
     b = _ring(T, m, num_shards=3, band=64, chunk=64, kernel="mxu")
-    assert mxu_fused.LAUNCHES == before[1] and mxu.CALLS > before[0]
+    assert counters()["launches.k1"] == before[1] and counters()["calls.mxu"] > before[0]
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
 
@@ -182,11 +181,11 @@ def test_ring_f32_auto_takes_the_one_pass_ring(monkeypatch):
     T, m = random_walk(1024, seed=5), 16
     kw = dict(m=m, dtype="float32", shard_mode="ring", num_shards=2, band=64, chunk=128,
               tile_rows=8, tile_cols=64)
-    calls = mxu.CALLS
+    calls = counters()["calls.mxu"]
     prof = BenchmarkProfile()
     MP, MPI = (o.numpy() for o in compute_matrix_profile(
         T, config=MatrixProfileConfig(device="cpu", **kw), profile=prof))
-    assert mxu.CALLS > calls and "pass_b" not in prof.counts
+    assert counters()["calls.mxu"] > calls and "pass_b" not in prof.counts
     ref = mpx.compute_matrix_profile(T, config=mpx.MatrixProfileConfig(**kw))
     assert_profile_close(T, m, MP, MPI, *(np.asarray(x) for x in ref), eps=2e-3)
     hy = MatrixProfileConfig(device="cpu", kernel="hybrid", **kw)

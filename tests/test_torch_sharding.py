@@ -19,11 +19,11 @@ from mpx.reference import compute_matrix_profile_reference
 from mpx_torch import MatrixProfileConfig, compute_matrix_profile
 from mpx_torch.batch import compute_batch_profiles
 from mpx_torch.config import make_job_grid
-from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 from mpx_torch.mstamp import compute_multidim_profile
 from mpx_torch.parallel import default_mesh
 from mpx_torch.parallel.sharding import interleave, merge_stacked, shard_jobs
 from mpx_torch.types import Aggregates
+from mpx_torch.utils.profile import counters
 from tests.conftest import random_walk
 from tests.helpers import assert_profile_close
 from tests.test_mstamp import assert_multiprofile_close
@@ -86,11 +86,11 @@ def test_sharded_matches_mpx_and_golden(num_shards, kernel, dtype):
     T = random_walk(n, seed=11)
     kw = dict(m=m, dtype=dtype, band=64, chunk=128, tile_rows=8, tile_cols=8,
               num_shards=num_shards)
-    calls = (mxu.CALLS, xla.CALLS)
+    calls = (counters()["calls.mxu"], counters()["calls.xla"])
     MP, MPI = _np(compute_matrix_profile(T, config=MatrixProfileConfig(
         kernel=kernel, device="cpu", **kw)))
     # The plain versions ran for CPU tensors: K1 and K3 launched nothing.
-    assert (mxu.CALLS, xla.CALLS) != calls
+    assert (counters()["calls.mxu"], counters()["calls.xla"]) != calls
     # mpx's recurrence (its Pallas kernel's plain version) or windows matmul.
     mpx_kernel = "xla" if kernel in ("xla", "pallas") else "mxu"
     ref = mpx.compute_matrix_profile(T, config=mpx.MatrixProfileConfig(kernel=mpx_kernel, **kw))
@@ -112,10 +112,10 @@ def test_sharded_values_equal_single_device(dtype):
 
 
 def test_sharded_launches_no_kernel_on_the_cpu():
-    before = (mxu_fused.LAUNCHES, recurrence.LAUNCHES)
+    before = (counters()["launches.k1"], counters()["launches.k3"])
     compute_matrix_profile(random_walk(400, seed=2), config=MatrixProfileConfig(
         m=16, band=64, chunk=64, num_shards=4, device="cpu"))
-    assert (mxu_fused.LAUNCHES, recurrence.LAUNCHES) == before
+    assert (counters()["launches.k1"], counters()["launches.k3"]) == before
 
 
 @pytest.mark.parametrize("num_shards", [2, 8])
