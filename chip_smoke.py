@@ -21,8 +21,9 @@ script exits nonzero without the final line):
    bound, and K1's time on the same job at m = 64, 128 and 512 and at
    W = 32768;
 3. end to end, f64, n=131072, m=128 (data/benchmark/131072.txt.gz) through
-   kernel='auto' (K1), against kernel='mxu' on the card and against an
-   exact float64 numpy row scan on 64 sampled rows;
+   kernel='mxu_fused' (K1; ``auto`` takes K3 there), against kernel='mxu'
+   on the card and against an exact float64 numpy row scan on 64 sampled
+   rows;
 4. end to end, f32, n=2^20, m=256, band 4096, chunk 32768 (a random walk
    from a fixed seed) through K1 and one launch of the window statistics
    kernel, against the exact row scan;
@@ -57,9 +58,10 @@ script exits nonzero without the final line):
    phase 3's series against phase 3's K1 f64 profile;
 9. ``auto`` for f64 at m=8192 (n=65536): K3, no K1 and no window matrix
    (peak device memory), against ``kernel='mxu_fused'`` on the same series;
-10. the f64 showcase through ``auto`` (K1): n=2^20, m=256, band 4096,
-    chunk 32768, a random walk from its own fixed seed, one K1 launch per
-    job and no plain call, against the exact row scan;
+10. the f64 showcase through K1 (``kernel='mxu_fused'``; ``auto`` takes
+    K3 there): n=2^20, m=256, band 4096, chunk 32768, a random walk from
+    its own fixed seed, one K1 launch per job and no plain call, against
+    the exact row scan;
 11. the hybrid's margin probe on phase 7's series, S=4096, W=32768, three
     edge jobs, m = 64, 256, 512: the worst difference between K1's f32 and
     f64 row/column maxima of the same job (pass A) and between the f32 and
@@ -78,8 +80,8 @@ script exits nonzero without the final line):
     from the showcase's 2^20 to keep the script under 600 s;
     m=256, band 4096, chunk 32768): one K1 f32 launch per job and no plain
     call, each side against an exact sided float64 row scan, and the
-    nearer of the two sides against the self-join through ``auto`` (K1
-    f64) of the same series; its phase split, flags, escalated rows per
+    nearer of the two sides against the K1 f64 self-join of the same
+    series; its phase split, flags, escalated rows per
     side, capture bytes, peak device memory, clock and power beside phase
     12's;
 15. the hybrid's width gate on phase 3's series: with ``SPARSE_MAX_W``
@@ -143,15 +145,15 @@ script exits nonzero without the final line):
     ``include=(1,)`` and ``discords=True``, 8 rows each within 1e-8; wall,
     dimension-pairs/s, ms a job, peak memory;
 30. the pan surface, n=2^16, ``pan_m_range(64, 8192, 8)``: the fused f32
-    sweep (torch ops) and the exact f64 surface (K1 up to m = 4096, K3 at
-    8192, no plain sweep), the fused rows within 2e-3 of the exact rows,
+    sweep (torch ops) and the exact f64 surface through ``auto`` (K1 at
+    m = 64, K3 from m = 128 up, no plain sweep), the fused rows within 2e-3 of the exact rows,
     16 exact windows within 1e-8 of an exact f64 row scan on the card; ms
     per level per job of the fused sweep;
 31. MERLIN at ``merlin-f32-524288-16``'s lengths (256..271) cut from
     n=2^19 to 2^18 to keep the script under 570 s once phases 48-50 came
     (``bench --suite`` measures the full shape): the suite runner's
     validation, the discords at 256 and 271 equal to the full f64
-    profile's maximum (K1) within 1e-9, the survey and refine times,
+    profile's maximum (K3) within 1e-9, the survey and refine times,
     candidates and observed survey error per length beside eps; motifs at
     n=2^16, lengths 64..71, each within 1e-9 of the exact f64 profile's
     minimum;
@@ -161,9 +163,9 @@ script exits nonzero without the final line):
     f32, 50 appends of 64): append ms, appended pairs/s, the recompute
     pairs, elements staged an append, capacity doublings, five appends
     under ``torch.profiler``, 32 rows against the exact scan; FLOSS and
-    online DAMP (n=2^16, m=128, f64, 64 appends of 256): the right and left
-    states within 1e-8 of the card's batch profiles, the planted burst
-    alerts;
+    online DAMP (n=2^16, m=128, f64, 64 appends of 256; bootstrapped
+    through K3): the right and left states within 1e-8 of the card's batch
+    profiles, the planted burst alerts;
 34. the anytime profile (n=2^19, m=256, f32, band 4096, chunk 16384) in
     both orders: yields non-increasing, the last equal to
     ``compute_matrix_profile``; ``approx_matrix_profile(0.25)``'s wall;
@@ -179,14 +181,15 @@ script exits nonzero without the final line):
     a f32 left/right run, gap windows at the sentinel, good rows against
     the exact masked scan;
 38. DAMP at ``damp-f64-524288``'s full shape (n=2^19, m=256, f64, band
-    4096, chunk 32768): wall, pairs/s, 16 rows' left values within 1e-8;
+    4096, chunk 32768; through K3): wall, pairs/s, 16 rows' left values
+    within 1e-8;
 39. ``compute --checkpoint`` (resuming a killed run), ``--approx``,
     ``--allow-missing``, ``damp``, ``batch`` and ``floss``, each equal to
     the library;
 40. the contrast profile at ``contrast-f64-524288``'s full shape (n=2^19,
     m=256, f64, band 4096, chunk 32768) through ``run_contrast_benchmark``:
-    one timed run, the self-join's and the AB-join's K1 f64 launches, 32
-    sampled rows within 1e-8; wall and pairs/s;
+    one timed run, the self-join's K3 and the AB-join's K1 f64 launches,
+    32 sampled rows within 1e-8; wall and pairs/s;
 41. the other compositions at moderate sizes: ``compute_chains`` (f32,
     n=2^18), ``ostinato`` (f64, 3 x 2^16, a planted motif), ``snippets``
     (f32, n=2^15, L=1024), ``cluster_series`` (f64, 4 x 2^15), ``k_motiflets``
@@ -228,8 +231,8 @@ script exits nonzero without the final line):
     ``floss`` and ``damp`` mode at ``streaming-f32-262144``'s shape (the
     ``full`` profile against phase 33's stream); a malformed line and an
     unknown op; over TCP a ``compute`` at n=2^14, a client reset and
-    ``shutdown``; each server's K1 launches (printed at its exit) equal to
-    those of the same work in this process;
+    ``shutdown``; each server's K1 and K3 launches (printed at its exit)
+    equal to those of the same work in this process;
 50. ``python -m mpx_torch bench --suite --only ... --table --out`` as a
     subprocess for ``vanilla-f32-8192``, ``tiled-f32-131072``,
     ``real-sudden-cardiac-death``, ``real-italian-power-f64`` and
@@ -243,7 +246,7 @@ script exits nonzero without the final line):
     then two processes of two virtual shards in one Gloo group with their
     tensors on the card; every ``OK`` line, the time before each;
 54. ``python -m mpx_torch.bench_line``'s showcase job (f64, n=2^20,
-    m=256, ``auto`` = K1; a warm-up, a timed run, 64 validated rows)
+    m=256, ``auto`` = K3; a warm-up, a timed run, 64 validated rows)
     through its ``main``: the JSON line parsed, checked and printed;
 17. TF32: the script sets ``allow_tf32`` before phase 2 and the port
     leaves it so through every phase (checked after each, reported last).
@@ -254,15 +257,16 @@ window statistics kernel in phases 4, 7, 10 and 52-54, one a
 statistics call; K1 in
 phases 10 and 4, the AB-joins of phase 19, (f32) the top-k hybrid's
 pass A of phase 24 and MERLIN's escalations in phase 31, (f64) the exact
-pan of phase 30, phases 33–38's runs of the new entry points (the
-checkpointed hybrids' pass A in phase 35 included), the contrast
-profile's joins in phase 40 (f64) and phase 41's compositions (chains and
-snippets f32, ostinato and the clustering's AB-joins f64), and (f32) the
-sharded runs of phases 44-47 (the ring hybrid's pass A in 46) and the
-served requests and stream bootstraps of phase 49, the entry step of
-phase 52 and this process's dry run of phase 53, (f64) the bench line of
-phase 54; K3 in
-phases 7, 8 and (f64) 30, 35, 37 and 44; the bound and the library call's time at the
+pan's m = 64 level in phase 30, phases 33–37's f32 runs of the new entry
+points (the checkpointed hybrids' pass A in phase 35 included), the
+contrast profile's AB-join in phase 40 (f64) and phase 41's compositions
+(chains and snippets f32, ostinato and the clustering's AB-joins f64),
+and (f32) the sharded runs of phases 44-47 (the ring hybrid's pass A in
+46) and the served requests and stream bootstraps of phase 49, the entry
+step of phase 52 and this process's dry run of phase 53; K3 in phases 7,
+8 and (f64) the exact pan's other levels in 30, the FLOSS/DAMP
+bootstraps of 33, 35, 37, 38, the contrast profile's self-join in 40,
+44, the served f64 request of 49 and the bench line of 54; the bound and the library call's time at the
 band-level shape; the other 1-NN hybrids' K1 launches are in phase 12's,
 14's and 20's lines; top-k, sum-threshold, AAMP, the pooled
 matrix, mSTAMP and the fused pan are otherwise torch ops); the line before the last is
@@ -707,6 +711,18 @@ def counts() -> dict:
             "k3": _since_reset("launches.k3"), "xla": _since_reset("calls.xla")}
 
 
+# The kernels' names in the closing JSON line, by launch counter.
+COUNTER_KERNEL = {"k1": "mxu_fused", "k3": "band_recurrence"}
+
+
+def auto_counter(dtype: str, m: int) -> str:
+    """The launch counter of the sweep ``auto`` takes on the card for
+    ``dtype`` and ``m`` (K1, or K3 for float64 from ``K3_MIN_M_F64``)."""
+    from mpx_torch.kernels import resolve_kernel
+
+    return {"mxu_fused": "k1", "pallas": "k3"}[resolve_kernel("auto", "cuda", dtype, m)]
+
+
 def require_only(c: dict, kernel: str, what: str, launches=None) -> int:
     """The run launched ``kernel`` (``launches`` times, when given) and
     nothing else of the four counted paths."""
@@ -790,10 +806,10 @@ def phase_e2e_f64(torch):
     T, m = parity_series()
     tol = DIST_TOL["float64"]
     w = T.shape[0] - m + 1
-    cfg = MatrixProfileConfig(m=m, dtype="float64", device="cuda")
+    cfg = MatrixProfileConfig(m=m, dtype="float64", kernel="mxu_fused", device="cuda")
     reset_counts()
     MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
-    launches = require_only(counts(), "k1", "auto f64 run")
+    launches = require_only(counts(), "k1", "K1 f64 run")
     reset_counts()
     MPp, MPIp, wall_plain, _, _ = run_profile(
         torch, T, MatrixProfileConfig(m=m, dtype="float64", kernel="mxu", device="cuda"))
@@ -1328,8 +1344,8 @@ def phase_left_right_hybrid(torch, p12: dict):
     showcase's m, band and chunk; cut from n=2^20): one K1 f32
     launch per job and no plain call; each side within 1e-8 of the exact
     sided row scan on 64 sampled rows (indices only between equidistant
-    neighbors); the nearer side within 1e-10 of the self-join through
-    ``auto`` (K1 f64) of the same series; phase 12's numbers beside."""
+    neighbors); the nearer side within 1e-10 of the K1 f64 self-join of the
+    same series; phase 12's numbers beside."""
     from mpx_torch import MatrixProfileConfig, make_job_grid
 
     n, m, tol = 1 << 19, 256, DIST_TOL["float64"]
@@ -1344,7 +1360,7 @@ def phase_left_right_hybrid(torch, p12: dict):
     vs_exact = {side: check_rows(T, m, MP, MPI, rows, tol, sign, D)
                 for side, sign, MP, MPI in (("left", -1, MPl, MPIl), ("right", 1, MPr, MPIr))}
     MPk, MPIk, *_ = run_profile(torch, T, MatrixProfileConfig(
-        m=m, dtype="float64", band=4096, chunk=32768, device="cuda"))
+        m=m, dtype="float64", kernel="mxu_fused", band=4096, chunk=32768, device="cuda"))
     nearer = np.minimum(MPl, MPr)
     vs_p12 = float(np.abs(nearer - MPk).max())
     require(vs_p12 <= 1e-10, f"min(left, right) vs the K1 self-join: {vs_p12}")
@@ -2402,14 +2418,14 @@ def phase_mstamp(torch):
 def phase_pan(torch) -> dict:
     """The pan surface on the card, n=2^16, ``ms = pan_m_range(64, 8192,
     8)`` (the top level above ``MXU_MAX_M``): ``method='fused'`` (f32, torch
-    ops, no K1 or K3 launch) and ``method='exact'`` (f64: K1 launches for
-    the levels up to 4096, K3 above, no plain sweep) on one random walk;
+    ops, no K1 or K3 launch) and ``method='exact'`` (f64 through ``auto``: K1
+    launches for the levels below ``K3_MIN_M_F64``, K3 from it up, no plain
+    sweep) on one random walk;
     the fused rows within 2e-3 of the exact rows (indices only between
     equidistant windows) and 16 windows of the exact surface (2 a level)
     within 1e-8 of the exact row scan.  Returns the exact run's K1 and K3
     launches."""
     from mpx_torch import MatrixProfileConfig, make_job_grid
-    from mpx_torch.kernels import MXU_MAX_M
     from mpx_torch.pan import compute_pan_profile, pan_m_range
     from mpx_torch.utils.profile import BenchmarkProfile
 
@@ -2432,8 +2448,8 @@ def phase_pan(torch) -> dict:
     pan_f, wall_f, prof_f, c_f, peak_f = runs["fused"]
     require(not any(c_f.values()), f"the fused pan launched a band sweep: {c_f}")
     pan_x, wall_x, _, c_x, peak_x = runs["exact"]
-    k1_want = sum(j for m, j in jobs.items() if m <= MXU_MAX_M)
-    k3_want = sum(j for m, j in jobs.items() if m > MXU_MAX_M)
+    k1_want = sum(j for m, j in jobs.items() if auto_counter("float64", m) == "k1")
+    k3_want = sum(j for m, j in jobs.items() if auto_counter("float64", m) == "k3")
     require(c_x == {"k1": k1_want, "mxu": 0, "k3": k3_want, "xla": 0},
             f"exact pan: counts {c_x}, expected K1 x{k1_want} and K3 x{k3_want} only")
     worst_fused, worst_exact = 0.0, 0.0
@@ -2474,7 +2490,7 @@ def phase_merlin(torch) -> int:
     runner's own validation (16 sampled rows at 4 lengths: no exact NN
     distance exceeds the reported discord), and at lengths 256 and 271 the
     reported discord equal to the largest value of the full f64 profile
-    through ``auto`` (K1) within 1e-9; then ``multi_length_motifs`` at
+    through ``auto`` (K3) within 1e-9; then ``multi_length_motifs`` at
     n=2^16, lengths 64..71, each pair equal to the smallest value of the
     exact f64 profile within 1e-9.  Returns the K1 f32 launches of the
     escalations (the hybrid's pass A)."""
@@ -2664,10 +2680,11 @@ def phase_streaming(torch) -> dict:
     more under torch.profiler; 24 sampled rows and 8 of the appended
     windows against the exact f64 scan within 2e-3.  Then FLOSS (window 2^16, slack 1.2: one trim) and online
     DAMP at n = 2^16, m = 128, f64, 64 appends of 256 on a noisy sine with
-    a planted burst: the right and left states within 1e-8 of the card's
-    batch right and left profiles (K1) of the retained series, and the
-    burst alerts.  Returns the K1 launches by dtype and the stream's
-    checked profile (after its 50 appends)."""
+    a planted burst: bootstrapped through ``auto`` (K3 at this m), the
+    right and left states within 1e-8 of the card's batch right and left
+    profiles of the retained series, and the burst alerts.  Returns the
+    bootstraps' launches by dtype, the float64 ones' counter and the
+    stream's checked profile (after its 50 appends)."""
     from mpx_torch import MatrixProfileConfig, compute_matrix_profile
     from mpx_torch.damp import OnlineAnomalyDetector
     from mpx_torch.floss import Floss
@@ -2736,7 +2753,8 @@ def phase_streaming(torch) -> dict:
         t1 = time.perf_counter()
         alerts += det.append(T2[o : o + k2])
         t_fl, t_det = t_fl + t1 - t0, t_det + time.perf_counter() - t1
-    k1_f64 = require_only(counts(), "k1", "FLOSS/DAMP bootstraps")
+    boot64 = auto_counter("float64", m2)
+    k_f64 = require_only(counts(), boot64, "FLOSS/DAMP bootstraps")
     require(fl.offset > 0, "FLOSS never trimmed")
     kept = T2[fl.offset :]
     out = [o.cpu().numpy() for o in compute_matrix_profile(kept, config=cfg, left_right=True)]
@@ -2753,8 +2771,9 @@ def phase_streaming(torch) -> dict:
         damp={"append_ms": t_det / chunks * 1e3, "alerts": len(alerts),
               "planted_at": at, "discord": list(det.discord),
               "max_err_left_vs_batch": err_l},
-        bootstrap_k1_f64_launches=k1_f64, tol=DIST_TOL["float64"])
-    return {"float32": k1_f32, "float64": k1_f64, "profile": (MP, MPI)}
+        **{f"bootstrap_{boot64}_f64_launches": k_f64}, tol=DIST_TOL["float64"])
+    return {"float32": k1_f32, "float64": k_f64, "float64_counter": boot64,
+            "profile": (MP, MPI)}
 
 
 def phase_anytime(torch) -> int:
@@ -3039,12 +3058,12 @@ def phase_masked(torch) -> dict:
     return launches
 
 
-def phase_damp(torch) -> int:
+def phase_damp(torch) -> dict:
     """Batch DAMP at ``damp-f64-524288``'s full shape (n = 2^19, m = 256,
     f64, band 4096, chunk 32768, k = 3; the runner's walk from seed 0):
-    one left/right run through ``auto`` (K1); wall and pairs/s; 16 sampled
-    rows' left values within 1e-8 of the exact f64 scan of earlier
-    windows.  Returns the K1 launches."""
+    one left/right run through ``auto`` (K3 at this m); wall and pairs/s;
+    16 sampled rows' left values within 1e-8 of the exact f64 scan of
+    earlier windows.  Returns the launches by counter."""
     from mpx_torch import MatrixProfileConfig, make_job_grid
     from mpx_torch.damp import compute_damp
 
@@ -3058,7 +3077,8 @@ def phase_damp(torch) -> int:
     t0 = time.perf_counter()
     res = compute_damp(T, config=cfg, k=3)
     wall = time.perf_counter() - t0
-    launches = require_only(counts(), "k1", "damp", launches=jobs)
+    counter = auto_counter("float64", m)
+    launches = require_only(counts(), counter, "damp", launches=jobs)
     rows = np.sort(np.random.default_rng(1).choice(np.arange(m // 4 + 1, w), 16,
                                                    replace=False))
     D = row_scan64_card(torch, T, m, rows)
@@ -3066,10 +3086,10 @@ def phase_damp(torch) -> int:
     err = float(np.abs(res.scores[rows] - exp).max())
     require(err <= DIST_TOL["float64"], f"damp rows off by {err}")
     say("38 damp", card=torch.cuda.get_device_name(0), n=n, m=m, band=4096, chunk=32768,
-        wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall, k1_f64_launches=launches,
+        wall_s=wall, pairs_per_s=w * (w - 1) / 2 / wall, **{f"{counter}_f64_launches": launches},
         discords=[list(a) for a in res.discords], max_err_16_rows=err,
         tol=DIST_TOL["float64"])
-    return launches
+    return {counter: launches}
 
 
 def phase_slice10_cli(torch):
@@ -3182,14 +3202,15 @@ def phase_slice10_cli(torch):
         input="data/binary/16384.tsb", seconds=out)
 
 # ---------------------------------------------------------------- slice 11
-def phase_contrast(torch) -> int:
+def phase_contrast(torch) -> dict:
     """The contrast profile at the suite row ``contrast-f64-524288``
     (n = 2^19, m = 256, f64, band 4096, chunk 32768; the runner's walks
     from seeds 0 and 7) through ``run_contrast_benchmark``: one timed run
-    (K1 was built in phase 1, so no warm-up), the self-join's and the
-    AB-join's K1 f64 launches and nothing else, its 32 sampled rows within
-    1e-8 of the f64 row scans; wall, pairs/s, clock and power.  Returns
-    the K1 launches."""
+    (the kernels were built in phase 1, so no warm-up), the self-join's
+    launches through ``auto`` (K3 at this m) and the AB-join's K1 f64
+    launches and nothing else, its 32 sampled rows within 1e-8 of the f64
+    row scans; wall, pairs/s, clock and power.  Returns the launches by
+    counter."""
     from mpx_torch import MatrixProfileConfig, make_job_grid
     from mpx_torch.abjoin import ab_jobs
     from mpx_torch.bench import run_contrast_benchmark
@@ -3204,14 +3225,16 @@ def phase_contrast(torch) -> int:
     with CardSampler() as card:
         res = run_contrast_benchmark(n, m, dtype="double", band=S, chunk=W, seed=0,
                                      validate=32, warmup=False, device="cuda")
-    launches = require_only(counts(), "k1", "contrast profile",
-                            launches=self_jobs + cross_jobs)
+    launches = {"k1": cross_jobs, "mxu": 0, "k3": 0, "xla": 0}
+    launches[auto_counter("float64", m)] += self_jobs
+    require(counts() == launches, f"contrast profile: counts {counts()}, expected {launches}")
+    launches = {k: v for k, v in launches.items() if v}
     val = res["validation"]
     require(val["rows"] == 32 and val["max_abs_err"] <= DIST_TOL["float64"],
             f"contrast validation: {val}")
     say("40 contrast", card_name=torch.cuda.get_device_name(0), suite_row="contrast-f64-524288",
         n=n, m=m, band=S, chunk=W, wall_s=res["wall_s"], pairs=res["pairs"],
-        pairs_per_s=res["pairs_per_sec"], k1_f64_launches=launches,
+        pairs_per_s=res["pairs_per_sec"], f64_launches=launches,
         self_join_jobs=self_jobs, ab_jobs=cross_jobs, card=card.summary,
         validation=val, cp_head=res["mp_head"])
     return launches
@@ -3941,8 +3964,9 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
     n=2^14 equal to the direct call, a client reset mid-session, and
     ``shutdown`` from a second connection.  Each server's K1 launches
     (printed at its exit) equal those of the same work in this process
-    (phase 4's run a request, phase 33's bootstrap a session).  Returns
-    the served K1 launches by dtype."""
+    (phase 4's run a request, phase 33's bootstrap a session), and so do
+    its K3 launches (the f64 request's, through ``auto`` at m = 256).
+    Returns the served K1 launches by dtype and the K3 launches."""
     import socket
     import struct
 
@@ -3950,6 +3974,7 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
 
     m = 256
     expect = {"float32": 0, "float64": 0}
+    k3 = 0
     latency = {}
     T17 = random_walk(1 << 17, SEED + 50)
     T14 = random_walk(1 << 14, SEED + 52)
@@ -3971,7 +3996,7 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
     cfg17 = MatrixProfileConfig(m=m, dtype="float64", band=4096, chunk=32768, device="cuda")
     (MP17, MPI17), wall17, c17 = direct(torch, lambda: compute_matrix_profile(T17,
                                                                               config=cfg17))
-    require_only(c17, "k1", "compute f64 n=2^17 (direct)")
+    require_only(c17, auto_counter("float64", m), "compute f64 n=2^17 (direct)")
     cfg14 = MatrixProfileConfig(m=64, device="cuda")
     (MP14, MPI14), _, c14 = direct(torch, lambda: compute_matrix_profile(T14, config=cfg14))
     require_only(c14, "k1", "compute f32 n=2^14 (direct)")
@@ -3979,22 +4004,26 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
     require(ping == {"ok": True, "devices": torch.cuda.device_count(), "streams": [],
                      "id": 0}, f"ping: {ping}")
 
-    def served(label, line, T, dtype, MP, MPI, wall, launches):
+    def served(label, line, T, dtype, MP, MPI, wall, c):
+        """``c``: the direct call's counts."""
+        nonlocal k3
         resp, dt = srv.call(line)
         require("error" not in resp, f"{label}: {resp}")
         require(np.array_equal(np.asarray(resp["mp"], np.float64), MP.astype(np.float64))
                 and np.array_equal(np.asarray(resp["mpi"], np.int64), MPI),
                 f"{label}: the served profile is not bit-equal to the direct call")
-        expect[dtype] += launches
+        expect[dtype] += c["k1"]
+        k3 += c["k3"]
         latency[label] = {"n": T.shape[0], "dtype": dtype, "served_s": dt,
                           "direct_s": wall, "json_and_pipe_s": dt - wall,
-                          "request_bytes": len(line), "k1_launches": launches}
+                          "request_bytes": len(line), "k1_launches": c["k1"],
+                          "k3_launches": c["k3"]}
 
     for i in (1, 2):
         served(f"compute f32 n=2^20 #{i}", line20, p4["T"], "float32", p4["MP"],
-               p4["MPI"], p4["wall_s"], p4["launches"])
+               p4["MPI"], p4["wall_s"], {"k1": p4["launches"], "k3": 0})
     MP17, MPI17 = MP17.cpu().numpy(), MPI17.cpu().numpy()
-    served("compute f64 n=2^17", line17, T17, "float64", MP17, MPI17, wall17, c17["k1"])
+    served("compute f64 n=2^17", line17, T17, "float64", MP17, MPI17, wall17, c17)
     rows = sample_rows(T17.shape[0] - m + 1, SEED + 50)
     err17 = check_rows(T17, m, MP17, MPI17, rows, DIST_TOL["float64"],
                        D=row_scan64_card(torch, T17, m, rows))
@@ -4082,8 +4111,8 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
     ct = tcp.counts()
     require("dropped" in tcp.stderr(), f"TCP server stderr {tcp.stderr()[-500:]}")
     total = expect["float32"] + expect["float64"]
-    require(c["k1"] == total and not (c["mxu"] or c["k3"] or c["xla"]),
-            f"the server's counts {c}, expected K1 x{total}")
+    require(c["k1"] == total and c["k3"] == k3 and not (c["mxu"] or c["xla"]),
+            f"the server's counts {c}, expected K1 x{total} and K3 x{k3}")
     require(ct["k1"] == c14["k1"] and not (ct["mxu"] or ct["k3"] or ct["xla"]),
             f"TCP server counts {ct} (direct {c14})")
     expect["float32"] += ct["k1"]
@@ -4093,8 +4122,8 @@ def phase_serve(torch, p4: dict, p33: dict, servers: tuple) -> dict:
         bad_lines={"malformed": bad, "unknown_op": unknown}, session_s=session_s,
         server_counts=c, tcp={"n": 1 << 14, "m": 64, "compute_s": tcp_s,
                               "k1_launches": ct["k1"], "client_reset": "survived"},
-        k1_launches=expect)
-    return expect
+        k1_launches=expect, k3_launches=k3)
+    return {**expect, "k3": k3}
 
 
 SUITE_ROWS = ("vanilla-f32-8192", "tiled-f32-131072", "real-sudden-cardiac-death",
@@ -4228,11 +4257,11 @@ def phase_dryrun(torch) -> dict:
 
 def phase_bench_line(torch, smi: str) -> dict:
     """Phase 54: ``python -m mpx_torch.bench_line``'s job at the showcase
-    shape (f64, n = 2^20, m = 256, band 4096, chunk 32768, ``auto`` = K1; a
+    shape (f64, n = 2^20, m = 256, band 4096, chunk 32768, ``auto`` = K3; a
     warm-up run, a timed run, 64 rows against the exact oracle), through
     its ``main``: one JSON line with the root script's keys, the card's
     name and power limit those of nvidia-smi, ``vs_baseline`` the value
-    over the roofline.  Returns the launches."""
+    over the roofline.  Returns the launches by counter."""
     import io
 
     from mpx_torch import make_job_grid
@@ -4247,7 +4276,8 @@ def phase_bench_line(torch, smi: str) -> dict:
     wall = time.perf_counter() - t0
     w = SHOWCASE["n"] - SHOWCASE["m"] + 1
     jobs = len(make_job_grid(w, SHOWCASE["band"], SHOWCASE["chunk"]).r0)
-    launches = require_only(counts(), "k1", "bench line", launches=2 * jobs)
+    counter = auto_counter("float64", SHOWCASE["m"])
+    launches = require_only(counts(), counter, "bench line", launches=2 * jobs)
     st = stats_launches()
     lines = out.getvalue().splitlines()
     require(rc == 0 and len(lines) == 1, f"bench line: rc {rc}, output {lines}")
@@ -4258,9 +4288,9 @@ def phase_bench_line(torch, smi: str) -> dict:
             and f"{line['device']}, {line['power_limit']}" == smi,
             f"bench line {line} (nvidia-smi: {smi})")
     print(lines[0], flush=True)
-    say("54 bench line", card=torch.cuda.get_device_name(0), k1_launches=launches,
+    say("54 bench line", card=torch.cuda.get_device_name(0), **{f"{counter}_launches": launches},
         stats_launches=st, subprocess=False, wall_s=wall, line=line)
-    return {"k1": launches, "stats": st}
+    return {counter: launches, "stats": st}
 
 
 def main() -> int:
@@ -4302,7 +4332,7 @@ def main() -> int:
     phase_auto_large_m(torch)
     tf32_kept("9")
     launches["mxu_fused"]["float64"], st10, _, k1_wall = phase_showcase(
-        torch, "10 showcase f64 auto (K1)", "auto", "k1", SEED + 4)
+        torch, "10 showcase f64 K1", "mxu_fused", "k1", SEED + 4)
     launches["window_stats"] = {"float64": p4["stats_launches"] + st7 + st10}
     tf32_kept("10")
     phase_margin_probe(torch)
@@ -4357,8 +4387,8 @@ def main() -> int:
     phase_slice9_cli(torch)
     tf32_kept("32")
     p33 = phase_streaming(torch)
-    for dt in ("float32", "float64"):
-        launches["mxu_fused"][dt] += p33[dt]
+    launches["mxu_fused"]["float32"] += p33["float32"]
+    launches[COUNTER_KERNEL[p33["float64_counter"]]]["float64"] += p33["float64"]
     tf32_kept("33")
     launches["mxu_fused"]["float32"] += phase_anytime(torch)
     tf32_kept("34")
@@ -4372,11 +4402,13 @@ def main() -> int:
     launches["mxu_fused"]["float32"] += p37["k1"]
     launches["band_recurrence"]["float64"] += p37["k3"]
     tf32_kept("37")
-    launches["mxu_fused"]["float64"] += phase_damp(torch)
+    for counter, n1 in phase_damp(torch).items():
+        launches[COUNTER_KERNEL[counter]]["float64"] += n1
     tf32_kept("38")
     phase_slice10_cli(torch)
     tf32_kept("39")
-    launches["mxu_fused"]["float64"] += phase_contrast(torch)
+    for counter, n1 in phase_contrast(torch).items():
+        launches[COUNTER_KERNEL[counter]]["float64"] += n1
     tf32_kept("40")
     for dt, n1 in phase_compositions(torch).items():
         launches["mxu_fused"][dt] += n1
@@ -4401,8 +4433,10 @@ def main() -> int:
         tf32_kept("46")
         launches["mxu_fused"]["float32"] += phase_process_group(torch)
         tf32_kept("47")
-        for dt, n1 in phase_serve(torch, p4, p33, servers).items():
-            launches["mxu_fused"][dt] += n1
+        p49 = phase_serve(torch, p4, p33, servers)
+        for dt in ("float32", "float64"):
+            launches["mxu_fused"][dt] += p49[dt]
+        launches["band_recurrence"]["float64"] += p49["k3"]
         tf32_kept("49")
         phase_runtime_version(torch, banner)
         tf32_kept("48")
@@ -4415,7 +4449,8 @@ def main() -> int:
     p54 = phase_bench_line(torch, smi)
     tf32_kept("54")
     launches["mxu_fused"]["float32"] += p52["k1"] + p53["k1"]
-    launches["mxu_fused"]["float64"] += p54["k1"]
+    for counter, kernel in COUNTER_KERNEL.items():
+        launches[kernel]["float64"] += p54.get(counter, 0)
     launches["window_stats"]["float64"] += p52["stats"] + p53["stats"] + p54["stats"]
     say("17 tf32", allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         unchanged_after_phases=tf32_after, script_s=time.perf_counter() - t_start)

@@ -5,7 +5,7 @@ is an independent contribution to the profile and the max-merge is
 associative, so any subset of jobs gives a valid profile whose distances
 are upper bounds on the exact ones, converging monotonically as coverage
 reaches 100 %.  Each batch of jobs is one :func:`mpx_torch.driver.run_jobs`
-(K1 on the card under ``auto``; K3 for float64 with m > 4096 or by name)
+(under ``auto`` on the card K3 for float64 from ``K3_MIN_M_F64``, K1 else)
 max-merged into global aggregates on the device.
 
 Job order:

@@ -4,7 +4,7 @@ Counterpart of ``mpx/batch.py``.  mpx vmaps its one-dispatch fused tier
 over a group of series so that XLA compiles one executable; the port has
 no such tier.  It stages the statistics of ``group`` series at once,
 runs each series' job grid through :func:`mpx_torch.driver.run_jobs`
-(K1 on the card under ``auto``) with no wait on the host between series,
+(the kernel ``auto`` picks on the card) with no wait on the host between series,
 and fetches the group's profiles in one copy.  Row b equals
 :func:`mpx_torch.compute_matrix_profile` of ``batch[b]`` bit for bit: the
 same statistics, job order and merges.  With ``config.num_shards > 1`` a

@@ -3,7 +3,7 @@
     python -m mpx_torch.bench_line [--device cpu] [-n N]
 
 runs the reference's showcase job (the root script's ``SHOWCASE``: double,
-n = 2^20, m = 256, band 4096, chunk 32768) through ``kernel='auto'`` (K1
+n = 2^20, m = 256, band 4096, chunk 32768) through ``kernel='auto'`` (K3
 on the card) with :func:`mpx_torch.bench.run_benchmark`: a warm-up run, a
 timed run, 64 sampled rows held to the exact float64 oracle.  It prints one
 JSON line: the root script's ``metric`` / ``value`` / ``unit`` /

@@ -13,7 +13,9 @@ Both joins are the port's tiers (:func:`mpx_torch.driver.compute_matrix_profile`
 and :func:`mpx_torch.abjoin.compute_ab_join`) on ``config.device``, so the
 contrast profile takes every option of theirs.  mpx's ``auto`` sends
 float64 to its hybrid because the TPU has no float64; the port's ``auto``
-takes K1 in float64 for both joins, as its driver and AB-join do.
+takes the card's own float64 for both joins: K3 for the self-join from
+``K3_MIN_M_F64`` (K1 below it) and K1 for the AB-join, as its driver and
+AB-join route them.
 
 Dividing by sqrt(2m) puts the positively correlated regime in [0, 1]:
 ``d = sqrt(2 m (1 - r))`` with Pearson ``r`` in [-1, 1], so ``d <= 2 sqrt(m)``.

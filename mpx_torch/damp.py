@@ -7,8 +7,9 @@ anomaly the moment it arrives, and its score never changes later (the
 left profile is append-stable).
 
 * :func:`compute_damp` — the batch scorer: one left/right profile through
-  the driver (``auto``: K1 on the card in both dtypes, where mpx's
-  ``auto`` sends float64 to its hybrid), anomalies ranked after ``split``.
+  the driver (``auto``: on the card K3 for float64 from ``K3_MIN_M_F64``,
+  K1 else, where mpx's ``auto`` sends float64 to its hybrid), anomalies
+  ranked after ``split``.
 * :class:`OnlineAnomalyDetector` — the streaming scorer: the streaming
   tier's append in ``mode='left'`` (:mod:`mpx_torch.streaming`: the new
   rows against earlier columns only, no column merge, so emitted scores

@@ -4,22 +4,27 @@ Four implementations of the same band-sweep contract
 (:mod:`mpx_torch.kernels.common`):
 
 * ``mxu_fused`` — K1, the hand-written CUDA tile sweep
-  (``csrc/mxu_fused.cu``); ``auto``'s choice on a CUDA device, for float32
-  and float64 alike (the H100 has native FP64);
+  (``csrc/mxu_fused.cu``); ``auto``'s choice on a CUDA device for float32
+  at every m, and for float64 below ``K3_MIN_M_F64``;
 * ``mxu``       — the plain PyTorch matmul-mask-reduce; ``auto``'s choice on
   the CPU, and on the card only when asked for by name;
 * ``pallas``    — K3, the hand-written CUDA SCAMP diagonal recurrence
-  (``csrc/band_recurrence.cu``), O(1) work per pair; named after the mpx
-  kernel it ports so calls read the same;
+  (``csrc/band_recurrence.cu``), O(1) work per pair; ``auto``'s choice on
+  a CUDA device for float64 from ``K3_MIN_M_F64`` up (the H100 has native
+  FP64); named after the mpx kernel it ports so calls read the same;
 * ``xla``       — the plain PyTorch recurrence, K3's reference.
 
-``auto`` follows mpx's policy for large m: float64 with ``m > MXU_MAX_M``
-takes the recurrence (K3 on the card, the plain version on the CPU).
-``hybrid`` (:mod:`mpx_torch.hybrid`) is not a band sweep: the driver hands
-it the whole self-join, and it is reached by name only.  Beside the
-sweeps, :mod:`mpx_torch.kernels.stats` holds the window statistics kernel
-(``csrc/precompute.cu``) behind ``precompute_statistics``' ``device``
-backend.
+``auto`` decides from what a call can observe: the device type, the dtype
+and m.  On a CUDA device float64 takes K3 from ``K3_MIN_M_F64`` up, where
+measurement on the card puts it ahead of K1 (K1's product does 2m FLOPs a
+pair, the recurrence's update 4), and K1 below; float32 takes K1 at every
+m.  On the CPU it follows mpx's policy for large m: float64 with
+``m > MXU_MAX_M`` takes the plain recurrence, everything else the plain
+sweep.  ``hybrid`` (:mod:`mpx_torch.hybrid`) is not a band sweep: the
+driver hands it the whole self-join, and it is reached by name only.
+Beside the sweeps, :mod:`mpx_torch.kernels.stats` holds the window
+statistics kernel (``csrc/precompute.cu``) behind
+``precompute_statistics``' ``device`` backend.
 """
 
 from __future__ import annotations
@@ -30,17 +35,24 @@ from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import BandOut, band_geometry
 
 # mpx's ceiling for the windows-matmul tiers; past it float64 runs the
-# strict recurrence (mpx/kernels/__init__.py).
+# strict recurrence (mpx/kernels/__init__.py).  The CPU's route.
 MXU_MAX_M = 4096
+# The smallest m at which float64 on a CUDA device takes K3.  Per job of the
+# driver's loop (seed and merges included) at the default chunk W = 16384,
+# K1 wins all readings below m = 128 but one (by 4 % at m = 112), K3 two of
+# three at m = 128 and every one above; at W = 32768 K3 wins from m = 48
+# (PERF.md section 6, the crossover table of scripts/torch_k3_route.py on an
+# H100 at 700 W).
+K3_MIN_M_F64 = 128
 
 
 def resolve_kernel(kernel: str, device, dtype=None, m: int = 0) -> str:
     if kernel != "auto":
         return kernel
-    cuda = torch.device(device).type == "cuda"
-    if dtype is not None and torch_dtype(dtype) == torch.float64 and m > MXU_MAX_M:
-        return "pallas" if cuda else "xla"
-    return "mxu_fused" if cuda else "mxu"
+    f64 = dtype is not None and torch_dtype(dtype) == torch.float64
+    if torch.device(device).type == "cuda":
+        return "pallas" if f64 and m >= K3_MIN_M_F64 else "mxu_fused"
+    return "xla" if f64 and m > MXU_MAX_M else "mxu"
 
 
 def needs_windows(kernel: str) -> bool:
@@ -76,4 +88,4 @@ def get_sweep_fn(kernel: str):
 
 
 __all__ = ["BandOut", "band_geometry", "resolve_kernel", "needs_windows",
-           "is_recurrence", "get_sweep_fn", "MXU_MAX_M"]
+           "is_recurrence", "get_sweep_fn", "MXU_MAX_M", "K3_MIN_M_F64"]

@@ -127,8 +127,8 @@ def distributed_matrix_profile(
     (MP, MPI) comes back on every process as numpy arrays.  Inside a
     process group the partials are all-gathered over it (one rank too).  ``kernel`` as
     for :class:`mpx_torch.config.MatrixProfileConfig` (``mxu`` is mpx's
-    default, the plain sweep; ``auto`` or ``mxu_fused`` run K1 on the
-    card)."""
+    default, the plain sweep; ``mxu_fused`` runs K1 on the card, ``auto``
+    the sweep :func:`mpx_torch.kernels.resolve_kernel` picks there)."""
     from mpx_torch.config import make_job_grid
     from mpx_torch.dtypes import torch_dtype
     from mpx_torch.kernels import is_recurrence, needs_windows, resolve_kernel

@@ -119,8 +119,8 @@ class StreamingMatrixProfile:
         return mu_new, inv_new
 
     def _bootstrap(self, mu: np.ndarray, inv: np.ndarray):
-        """The initial profile through the driver (``auto``: K1 on the card,
-        K3 for float64 with m > 4096), converted back to correlations
+        """The initial profile through the driver (``auto``: on the card K3
+        for float64 from ``K3_MIN_M_F64``, K1 else), converted back to correlations
         (``P = 1 - d^2 / (2m)``) on the device."""
         if self.mode == "full":
             MP, MPI = compute_matrix_profile(self.series, config=self._config)

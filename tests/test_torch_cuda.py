@@ -1094,3 +1094,137 @@ def test_traced_self_join_counts_its_kernel_launches(card):
     names = {e.name for e in prof.events()}
     assert {"mpx_torch.matrix_profile", "mpx_torch.statistics.window_sums",
             "mpx_torch.jobs"} <= names
+
+
+@pytest.mark.cuda
+def test_auto_f64_takes_k3_on_level_heavy_walk(card):
+    """``auto`` in float64 on the card at m = 256 runs K3, one launch a job
+    of the grid and no K1 launch, on the level-heavy windows the recurrence
+    once missed 1e-8 on (a walk raised by 1e3): distances within 1e-8 of
+    the exact float64 scan (the benchmark's plain reference, apart from
+    every tier), each index the scan's first best or a neighbour
+    equidistant within 1e-8."""
+    from mpx_torch import matrix_profile
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.kernels import K3_MIN_M_F64, resolve_kernel
+    from portbench.reference.exact_rows import correlations, exact_rows
+
+    n, m = 1 << 16, 256
+    assert m >= K3_MIN_M_F64 and resolve_kernel("auto", card, "float64", m) == "pallas"
+    w = n - m + 1
+    T = np.cumsum(np.random.default_rng(20).standard_normal(n)) + 1e3
+    cfg = MatrixProfileConfig(m=m, dtype="float64").shrink_to(w)
+    before = counters()
+    MP, MPI = matrix_profile(T, m, dtype="float64")
+    after = counters()
+    assert after["launches.k3"] - before["launches.k3"] == len(
+        make_job_grid(w, cfg.band, cfg.chunk).r0)
+    assert after["launches.k1"] == before["launches.k1"]
+    best, first, _ = exact_rows(T, m, np.arange(w), device=card)
+    exact = np.sqrt(np.maximum(2.0 * m * (1.0 - best), 0.0))
+    err = float(np.abs(MP - exact).max())
+    print(f"\nauto f64 (K3) on a walk raised by 1e3, n={n} m={m}: max err {err:.3e}")
+    assert err <= DIST_TOL["float64"]
+    assert (MPI >= 0).all()
+    other = np.nonzero(MPI != first)[0]
+    P = correlations(T, m, other, MPI[other], device=card)
+    gap = np.abs(np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0)) - exact[other])
+    assert (gap <= DIST_TOL["float64"]).all(), other[gap > DIST_TOL["float64"]][:5]
+
+
+def _tier_profiles(tier: str, T: np.ndarray, m: int, dev: str, tmp_path):
+    """One f64 call of ``tier`` through ``auto`` on ``dev``: a list of
+    (MP, MPI) numpy pairs (one for each profile the tier returns)."""
+    import json
+
+    kw = dict(m=m, dtype="float64", band=512, chunk=1024, device=dev)
+    cfg = MatrixProfileConfig(**kw)
+    if tier == "left_right":
+        out = [o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg, left_right=True)]
+        return [out[:2], out[2:]]
+    if tier == "anytime":
+        from mpx_torch.anytime import anytime_matrix_profile
+
+        *_, (MP, MPI, frac) = anytime_matrix_profile(T, config=cfg, batches=4)
+        assert frac == 1.0
+        return [(MP, MPI)]
+    if tier == "missing":
+        from mpx_torch.missing import compute_matrix_profile_masked
+
+        return [[o.cpu().numpy() for o in compute_matrix_profile_masked(T, config=cfg)]]
+    if tier == "batch":
+        from mpx_torch.batch import compute_batch_profiles
+
+        MP, MPI = compute_batch_profiles(np.stack([T, T[::-1].copy()]), config=cfg)
+        return [(MP[0], MPI[0]), (MP[1], MPI[1])]
+    if tier == "checkpoint":
+        from mpx_torch.checkpoint import compute_with_checkpoint
+
+        return [compute_with_checkpoint(T, cfg, str(tmp_path / f"ck_{dev}.npz"), group_jobs=4)]
+    if tier == "distributed":
+        from mpx_torch.parallel.distributed import distributed_matrix_profile
+
+        return [distributed_matrix_profile(T, m, dtype="float64", kernel="auto", band=512,
+                                           chunk=1024, device=dev)]
+    if tier == "stream":
+        from mpx_torch.streaming import StreamingMatrixProfile
+
+        smp = StreamingMatrixProfile(T, m, "float64", "full", device=dev)
+        return [smp.profile()]
+    if tier == "serve":
+        from mpx_torch.serve import Server
+
+        resp = Server(device=dev).handle(json.dumps(
+            {"op": "compute", "series": T.tolist(), "id": 1, **{k: kw[k] for k in kw
+                                                                  if k != "device"}}))
+        assert "error" not in resp, resp
+        return [(np.asarray(resp["mp"]), np.asarray(resp["mpi"]))]
+    raise ValueError(tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["left_right", "anytime", "missing", "batch", "checkpoint",
+                                  "distributed", "stream", "serve"])
+def test_auto_f64_tiers_take_k3_on_card(card, tmp_path, tier):
+    """Each float64 caller that resolves ``auto`` itself, on the card at
+    m = K3_MIN_M_F64: K3's launches and no K1 launch, and the profiles of
+    the same call on the CPU (the plain sweep) within 1e-8, indices equal
+    or equidistant."""
+    from mpx_torch.kernels import K3_MIN_M_F64
+
+    m = K3_MIN_M_F64
+    T = _series(6000, 77)
+    if tier == "missing":
+        T[2500:2540] = np.nan
+    before = counters()
+    card_out = _tier_profiles(tier, T, m, "cuda", tmp_path)
+    after = counters()
+    assert after["launches.k3"] > before["launches.k3"]
+    assert after["launches.k1"] == before["launches.k1"]
+    cpu_out = _tier_profiles(tier, T, m, "cpu", tmp_path)
+    Ts = [T, T[::-1].copy()] if tier == "batch" else [T] * len(card_out)
+    for S_, (MP, MPI), (MPc, MPIc) in zip(Ts, card_out, cpu_out):
+        MP, MPc = np.asarray(MP, np.float64), np.asarray(MPc, np.float64)
+        live = MPIc >= 0
+        np.testing.assert_array_equal(MPI >= 0, live)
+        np.testing.assert_allclose(MP[live], MPc[live], rtol=0, atol=DIST_TOL["float64"])
+        for i in np.nonzero(MPI != MPIc)[0]:
+            gap = _znorm_distance(S_, m, i, MPI[i]) - _znorm_distance(S_, m, i, MPIc[i])
+            assert abs(gap) <= DIST_TOL["float64"], (tier, i, MPI[i], MPIc[i])
+
+
+@pytest.mark.cuda
+def test_bench_line_f64_takes_k3_on_card(card):
+    """The bench line's showcase job (f64, m = 256) at n = 2^15 through
+    ``auto``: K3's launches, no K1 launch, and its 64 sampled rows held to
+    the exact float64 oracle (``run_benchmark`` raises on a mismatch)."""
+    from mpx_torch.bench import run_benchmark
+    from mpx_torch.bench_line import SHOWCASE
+
+    before = counters()
+    res = run_benchmark(**dict(SHOWCASE, n=1 << 15), kernel="auto", validate=64,
+                        device="cuda")
+    after = counters()
+    assert after["launches.k3"] > before["launches.k3"]
+    assert after["launches.k1"] == before["launches.k1"]
+    assert res["validation"]["rows"] == 64

@@ -18,7 +18,8 @@ from mpx.kernels import band_geometry as mpx_geometry
 from mpx.kernels.mxu import sweep_band_mxu as mpx_sweep
 from mpx.kernels.mxu_fused import sweep_band_mxu_fused as mpx_fused
 from mpx.ops.precompute import precompute_statistics as mpx_precompute
-from mpx_torch.kernels import get_sweep_fn, mxu, mxu_fused, resolve_kernel
+from mpx_torch.kernels import (K3_MIN_M_F64, MXU_MAX_M, get_sweep_fn, mxu, mxu_fused,
+                               resolve_kernel)
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.ops.precompute import stats_from_numpy
 from mpx_torch.utils.profile import counters
@@ -134,13 +135,42 @@ def test_sweep_rejects_mismatched_dtype(series, dtype):
         mxu.sweep_band_mxu(stats, 0, 0, band_geometry(S, W, M, W_PROFILE), other)
 
 
-def test_resolve_kernel():
-    for dev in ("cpu", torch.device("cpu")):
-        assert resolve_kernel("auto", dev) == "mxu"
-    for dev in ("cuda", "cuda:0", torch.device("cuda")):
-        assert resolve_kernel("auto", dev) == "mxu_fused"
-    assert resolve_kernel("mxu", "cuda") == "mxu"
-    assert resolve_kernel("mxu_fused", "cpu") == "mxu_fused"
+# (kernel, device, dtype, m, expected).  resolve_kernel reads only the
+# device's type, so every route is checked without a card.
+ROUTES = [
+    # No dtype given: the device alone decides.
+    *[("auto", dev, None, 0, "mxu") for dev in ("cpu", torch.device("cpu"))],
+    *[("auto", dev, None, 0, "mxu_fused") for dev in ("cuda", "cuda:0", torch.device("cuda"))],
+    # float64 on a card: K1 below the measured crossover, K3 from it up.
+    *[("auto", "cuda", "float64", m, "mxu_fused") for m in (8, 16, 32, 64, K3_MIN_M_F64 - 1)],
+    *[("auto", "cuda", "float64", m, "pallas")
+      for m in (K3_MIN_M_F64, 256, 512, 1024, 2048, MXU_MAX_M, MXU_MAX_M + 1)],
+    ("auto", torch.device("cuda:0"), torch.float64, 256, "pallas"),
+    # float32 on a card: K1 at every m.
+    *[("auto", "cuda", "float32", m, "mxu_fused")
+      for m in (8, 64, K3_MIN_M_F64, 256, MXU_MAX_M, MXU_MAX_M + 1)],
+    # The CPU: the plain sweep, the plain recurrence for float64 past MXU_MAX_M.
+    *[("auto", "cpu", "float64", m, "mxu") for m in (8, K3_MIN_M_F64, 256, MXU_MAX_M)],
+    ("auto", "cpu", "float64", MXU_MAX_M + 1, "xla"),
+    ("auto", "cpu", "float32", MXU_MAX_M + 1, "mxu"),
+    # Named kernels pass through whatever the device, dtype and m.
+    ("mxu", "cuda", None, 0, "mxu"),
+    ("mxu_fused", "cpu", None, 0, "mxu_fused"),
+    ("mxu_fused", "cuda", "float64", 256, "mxu_fused"),
+    ("mxu", "cuda", "float64", 256, "mxu"),
+    ("xla", "cuda", "float64", 256, "xla"),
+    ("pallas", "cuda", "float32", 64, "pallas"),
+    ("hybrid", "cuda", "float64", 256, "hybrid"),
+]
+
+
+@pytest.mark.parametrize("kernel,device,dtype,m,expected", ROUTES,
+                         ids=[f"{k}-{d}-{t}-{m}" for k, d, t, m, _ in ROUTES])
+def test_resolve_kernel(kernel, device, dtype, m, expected):
+    assert resolve_kernel(kernel, device, dtype, m) == expected
+
+
+def test_hybrid_has_no_sweep_fn():
     with pytest.raises(ValueError):
         get_sweep_fn("hybrid")
 

@@ -31,7 +31,8 @@ from mpx.kernels.pallas_tpu import sweep_band_pallas as mpx_pallas
 from mpx.kernels.xla import sweep_band_xla as mpx_xla
 from mpx.ops.precompute import precompute_statistics as mpx_precompute
 from mpx.ops.precompute import sliding_dot_product as mpx_sdp
-from mpx_torch.kernels import MXU_MAX_M, get_sweep_fn, recurrence, resolve_kernel, xla
+from mpx_torch.kernels import (K3_MIN_M_F64, MXU_MAX_M, get_sweep_fn, recurrence,
+                               resolve_kernel, xla)
 from mpx_torch.kernels.common import band_geometry, seed_qt
 from mpx_torch.ops.precompute import (
     precompute_statistics,
@@ -219,7 +220,8 @@ def test_recurrence_masking_rules(series):
 def test_resolve_kernel_for_large_m():
     for dev in ("cuda", torch.device("cuda:0")):
         assert resolve_kernel("auto", dev, "float64", MXU_MAX_M + 1) == "pallas"
-        assert resolve_kernel("auto", dev, "float64", MXU_MAX_M) == "mxu_fused"
+        assert resolve_kernel("auto", dev, "float64", MXU_MAX_M) == "pallas"
+        assert resolve_kernel("auto", dev, "float64", K3_MIN_M_F64 - 1) == "mxu_fused"
         assert resolve_kernel("auto", dev, "float32", 8192) == "mxu_fused"
     assert resolve_kernel("auto", "cpu", torch.float64, 8192) == "xla"
     assert resolve_kernel("auto", "cpu", "float64", 256) == "mxu"
