@@ -706,9 +706,11 @@ def stats_launches() -> int:
 
 
 def counts() -> dict:
-    """Launches of K1 and K3, calls of their plain versions."""
+    """Launches of K1, jobs of K3 (``jobs.k3``: one launch each through its
+    one-job wrapper, a batch of them a launch through the driver's loop),
+    calls of their plain versions."""
     return {"k1": _since_reset("launches.k1"), "mxu": _since_reset("calls.mxu"),
-            "k3": _since_reset("launches.k3"), "xla": _since_reset("calls.xla")}
+            "k3": _since_reset("jobs.k3"), "xla": _since_reset("calls.xla")}
 
 
 # The kernels' names in the closing JSON line, by launch counter.
@@ -971,8 +973,9 @@ def phase_stats_backends(torch, T4) -> dict:
 
 
 def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
-    """CUDA-event time of K3's kernels alone on one job: the job's seed and
-    buffers made once, then its three launches repeated (not counted)."""
+    """CUDA-event time of K3's kernels alone on one job: the job's buffers
+    made once, then its four launches (seed, segment sums, sweep, reduce)
+    repeated (not counted)."""
     from mpx_torch.kernels.recurrence import prepare_launch
 
     launch, _ = prepare_launch(stats, r0, k0, geom, dtype)
@@ -981,8 +984,8 @@ def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
 
 
 def k3_wrapper_ms(torch, stats, r0, k0, geom, dtype, reps: int = 50) -> float:
-    """CUDA-event time of one job through K3's wrapper, as the driver
-    calls it (the seed, the allocations and the three launches).  Its host
+    """CUDA-event time of one job through K3's one-job wrapper (the checks,
+    the allocations and the four launches).  Its host
     work can set the pace, and the host's clock is noisy: many runs."""
     from mpx_torch.kernels.recurrence import sweep_band_recurrence
 
@@ -1070,8 +1073,9 @@ def phase_band_k3(torch, dtype: str) -> dict:
 def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
                    band_ms_per_job=None) -> tuple:
     """The reference's showcase job in double precision (n=2^20, m=256,
-    band 4096, chunk 32768) through ``kernel``: one launch of the counted
-    kernel per job and no plain call, against the exact row scan.  With
+    band 4096, chunk 32768) through ``kernel``: one launch of K1 a job, or
+    of K3 a batch of jobs, and no plain call, against the exact row scan.
+    With
     ``band_ms_per_job`` (phase 6's times of one such job: the wrapper's
     ``k3_ms`` and the kernels' ``k3_kernels_ms``), the sweep's time per
     job is printed beside them.  Through K3, the same run is read again
@@ -1091,10 +1095,17 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
     cfg = MatrixProfileConfig(m=m, dtype="float64", kernel=kernel, band=4096,
                               chunk=32768, device="cuda")
     grid = cfg.shrink_to(w)
-    jobs = len(make_job_grid(w, grid.band, grid.chunk).r0)
+    job_grid = make_job_grid(w, grid.band, grid.chunk)
+    jobs = len(job_grid.r0)
     reset_counts()
     MP, MPI, wall, phases, card = run_profile(torch, T, cfg)
     launches = require_only(counts(), counter, f"kernel={kernel!r} f64 showcase", jobs)
+    if counter == "k3":
+        from mpx_torch.kernels.recurrence import BATCH_JOBS, job_batches
+
+        batched = _since_reset("launches.k3")
+        require(batched == len(job_batches(job_grid.k0.tolist(), BATCH_JOBS)),
+                f"K3 f64 showcase: {batched} batched launches for {jobs} jobs")
     st = stats_launches()
     require(st == 1, f"kernel={kernel!r} f64 showcase: {st} window statistics launches")
     rows = sample_rows(w, seed)
@@ -1119,6 +1130,8 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
         per_job["max_err_vs_exact_64_rows_running_mean"] = float(
             np.abs(MPr[rows] - D.min(axis=1)).max())
         del running, MPr, host
+    if counter == "k3":
+        per_job["k3_batched_launches"] = batched
     say(phase, n=n, m=m, kernel=kernel, band=cfg.band, chunk=cfg.chunk, jobs=jobs,
         **{f"{counter}_launches": launches}, stats_launches=st, plain_calls=0,
         wall_s=wall, pairs_per_s=pairs / wall, phases_s=phases, card=card, **per_job,
@@ -3865,13 +3878,13 @@ def phase_runtime_version(torch, banner_proc):
         version_subprocess_s=version_s)
 
 
-# The server's K1/K3 counts, printed on its standard error when it exits
-# (the counters live in the server's process).
+# The server's K1/K3 counts as ``counts()`` takes them, printed on its
+# standard error when it exits (the counters live in the server's process).
 _SERVE_WRAPPER = (
     "import atexit, json, runpy, sys\n"
     "from mpx_torch.utils.profile import counters\n"
     "atexit.register(lambda: print('COUNTS ' + json.dumps({k: counters()[c] for k, c in ("
-    "('k1', 'launches.k1'), ('mxu', 'calls.mxu'), ('k3', 'launches.k3'), "
+    "('k1', 'launches.k1'), ('mxu', 'calls.mxu'), ('k3', 'jobs.k3'), "
     "('xla', 'calls.xla'))}), file=sys.stderr, flush=True))\n"
     "sys.argv = ['mpx_torch', 'serve', *sys.argv[1:]]\n"
     "runpy.run_module('mpx_torch', run_name='__main__', alter_sys=True)\n"

@@ -1,12 +1,12 @@
-// K3: SCAMP diagonal-recurrence sweep of one self-join job, for Hopper (sm_90a).
+// K3: SCAMP diagonal-recurrence sweep of self-join jobs, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel mpx/kernels/pallas_tpu.py:_band_kernel
 // (wrapper sweep_band_pallas).  For the rhombus rows [r0, r0+S) x diagonals
 // [k0, k0+W) it carries QT along each diagonal with the O(1) update
 //   QT(i, j) = QT(i-1, j) + U(i, j),
 //   U(i, j)  = df_r[i] * dg_c[i+j] + df_c[i+j] * dg_r[i],
-// from one exact seed per job at band row 0 (seed_qt, computed by the
-// wrapper), forms P = QT * inv_r * inv_c, masks it (exclusion zone
+// from one exact seed per job at band row 0 (k3_seed, seed_qt's form),
+// forms P = QT * inv_r * inv_c, masks it (exclusion zone
 // k0 + j >= excl, bounds r <= w-1 and c <= w-1, finite inverse norms, NaN;
 // a masked pair is -1e12, never 0) and reduces it to the row max with the
 // smallest column and the (S + W,) column max with the smallest row.
@@ -89,6 +89,20 @@
 //   every (g, jb) block that reaches it, spread over 8 warps per 32 outputs.
 //   Every reduction orders by value descending, then index ascending: the
 //   reference's tie rule, independent of the block schedule.
+// * Batches (mpx_k3_sweep_batch_*): the driver's loop over the self-join's
+//   jobs cost ~0.43 ms of host work a job (a seed of ~10 torch ops, seven
+//   allocations, the launch, two merges) against 0.16 ms of these kernels,
+//   so the card idled most of a self-join.  A batch is B jobs in one launch
+//   of each kernel: k3_segsum and k3_tiles take their job from blockIdx.z
+//   and its r0 / k0 from device arrays, and find their rows and columns in
+//   the whole statistics vectors.  k3_seed computes every job's seed
+//   (seed_qt's cancellation-resistant form; the one-job entry runs it too,
+//   so a job's values do not depend on the loop that sweeps it) and
+//   k3_merge reduces each job's
+//   partials and max-merges them straight into the global row and column
+//   aggregates, the jobs that reach an output in batch order with a strict
+//   >: the incumbent, then the earlier job, wins a tie, as job after job
+//   through the driver's merges.  A job's arithmetic is the one-job entry's.
 // The wrapper allocates all scratch; the kernels allocate nothing.
 
 #include <atomic>
@@ -111,6 +125,8 @@ constexpr int TILES_PER_SM = 16;      // k3_tiles blocks an SM should hold: caps
 constexpr int REDUCE_THREADS = 256;
 constexpr int RED_OUT = 32;                           // outputs per reduce block
 constexpr int RED_SLICES = REDUCE_THREADS / RED_OUT;  // warps over an output's partials
+constexpr int SEED_THREADS = 256;     // k3_seed: columns a block, one a thread
+constexpr int SEED_M = 256;           // k3_seed: query elements staged at a time
 constexpr unsigned FULL = 0xffffffffu;
 
 // The recurrence's arithmetic type, for float32 and float64 statistics
@@ -128,6 +144,20 @@ template <typename T> __device__ __forceinline__ T quiet_nan();
 template <> __device__ __forceinline__ float quiet_nan<float>() { return __int_as_float(0x7fc00000); }
 template <> __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000ll);
+}
+
+// The jobs of a launch: block z sweeps job z, whose band rows start at r0
+// and diagonals at k0, read from the device arrays r0s / k0s (a batch) or,
+// when they are null, the one job (r0, k0).
+struct Jobs {
+  const int* r0s;
+  const int* k0s;
+  int r0, k0;
+};
+
+__device__ __forceinline__ int2 job_at(const Jobs& jobs, int z) {
+  return jobs.r0s ? make_int2(__ldg(jobs.r0s + z), __ldg(jobs.k0s + z))
+                  : make_int2(jobs.r0, jobs.k0);
 }
 
 // (v, i) <- the better of (v, i) and (v2, i2): larger value, then smaller index.
@@ -208,16 +238,22 @@ __device__ __forceinline__ void stage_fixup(Stage<T>& s, int i0, int t0, int r0,
 
 // Sum of segment g's update terms, in row order, for each diagonal; one
 // block (one warp) per (diagonal block, segment), every segment but the
-// last.  The segment's statistics (R rows, R + BW - 1 columns) are first
-// loaded whole, coalesced, into shared memory: the lanes' stride-D reads
-// of device memory were what bounded this pass.
+// last, for job blockIdx.z (segment sums (G - 1, W) a job).  The segment's
+// statistics (R rows, R + BW - 1 columns) are first loaded whole,
+// coalesced, into shared memory: the lanes' stride-D reads of device
+// memory were what bounded this pass.
 template <typename T>
 __global__ void __launch_bounds__(LANES)
-k3_segsum(const T* __restrict__ df_r, const T* __restrict__ dg_r,
-          const T* __restrict__ df_c, const T* __restrict__ dg_c,
+k3_segsum(const T* __restrict__ df, const T* __restrict__ dg, Jobs jobs,
           int S, int W, Acc* __restrict__ seg) {
   __shared__ Acc s_dfc[col_slot<Acc>(BCOLS - 1) + 1], s_dgc[col_slot<Acc>(BCOLS - 1) + 1];
   __shared__ Acc s_dfr[R], s_dgr[R];
+  const int2 job = job_at(jobs, blockIdx.z);
+  const T* df_r = df + job.x;
+  const T* dg_r = dg + job.x;
+  const T* df_c = df + job.x + job.y;
+  const T* dg_c = dg + job.x + job.y;
+  seg += (size_t)blockIdx.z * gridDim.y * W;
   const int lane = threadIdx.x;
   const int g = blockIdx.y;
   const int j0 = blockIdx.x * BW;
@@ -283,25 +319,42 @@ __device__ __forceinline__ void reduce_rows(T (&rv)[RR], int (&ri)[RR], int lane
     take_better(rv[0], ri[0], __shfl_xor_sync(FULL, rv[0], o), __shfl_xor_sync(FULL, ri[0], o));
 }
 
-// One segment of one diagonal block: block (jb, g) sweeps band rows
-// [gR, gR + R) x diagonals [jb BW, jb BW + BW).
+// One segment of one diagonal block of job blockIdx.z: block (jb, g, z)
+// sweeps band rows [gR, gR + R) x diagonals [jb BW, jb BW + BW).  A job's
+// seed is (W,), its segment sums (max(G - 1, 1), W), its partials (nbj, S)
+// and (G nbj, BCOLS), each job's after the one before.
 template <typename T>
 __global__ void __launch_bounds__(LANES, TILES_PER_SM)
-k3_tiles(const T* __restrict__ df_r, const T* __restrict__ dg_r,
-         const T* __restrict__ inv_r, const T* __restrict__ df_c,
-         const T* __restrict__ dg_c, const T* __restrict__ inv_c,
-         const Acc* __restrict__ seed, const Acc* __restrict__ seg, int r0, int k0,
+k3_tiles(const T* __restrict__ df, const T* __restrict__ dg, const T* __restrict__ inv,
+         Jobs jobs, const Acc* __restrict__ seed, const Acc* __restrict__ seg,
          int S, int W, int w, int excl, T* __restrict__ part_rv,
          int* __restrict__ part_ri, T* __restrict__ part_cv, int* __restrict__ part_ci) {
   __shared__ Stage<T> stage[2];
 
+  const int2 job = job_at(jobs, blockIdx.z);
+  const int r0 = job.x, k0 = job.y;
+  const int c0 = r0 + k0;
+  const T* df_r = df + r0;
+  const T* dg_r = dg + r0;
+  const T* inv_r = inv + r0;
+  const T* df_c = df + c0;
+  const T* dg_c = dg + c0;
+  const T* inv_c = inv + c0;
+  {
+    const size_t z = blockIdx.z;
+    seed += z * W;
+    seg += z * max((int)gridDim.y - 1, 1) * W;
+    part_rv += z * gridDim.x * S;
+    part_ri += z * gridDim.x * S;
+    part_cv += z * gridDim.y * gridDim.x * BCOLS;
+    part_ci += z * gridDim.y * gridDim.x * BCOLS;
+  }
   const Acc init = aggregate_init<Acc>();
   const int lane = threadIdx.x;
   const int jb = blockIdx.x;
   const int g = blockIdx.y;
   const int j0 = jb * BW;             // block's first diagonal
   const int jl = lane * D;            // lane's first diagonal, block-relative
-  const int c0 = r0 + k0;
   const int SW = S + W;
   const int gr0 = g * R;              // segment's first band row
 
@@ -431,9 +484,35 @@ k3_tiles(const T* __restrict__ df_r, const T* __restrict__ dg_r,
   }
 }
 
-// Reduce the partials: a block either owns RED_OUT rows (one partial per
-// diagonal block) or RED_OUT columns (every (g, jb) block whose partial
-// reaches the column), its RED_SLICES warps splitting the partials.  An
+// One job's partials at its row t (rows) or column t (relative to c0): warp
+// q of a reduce block takes every RED_SLICES-th partial that reaches it
+// (one per diagonal block for a row, every (g, jb) block whose partial
+// reaches the column), into (v, idx).
+template <typename T>
+__device__ __forceinline__ void reduce_partials(
+    const T* __restrict__ part_rv, const int* __restrict__ part_ri,
+    const T* __restrict__ part_cv, const int* __restrict__ part_ci, bool rows, int t,
+    int q, int S, int nbj, int G, T& v, int& idx) {
+  if (rows) {
+#pragma unroll 4
+    for (int b = q; b < nbj; b += RED_SLICES)
+      take_better(v, idx, part_rv[(size_t)b * S + t], part_ri[(size_t)b * S + t]);
+    return;
+  }
+  for (int g = q; g < G && g * R <= t; g += RED_SLICES) {
+    const int base = t - g * R;       // column relative to the segment's first
+    const int first = base - BCOLS + 1;
+    const int jlo = first <= 0 ? 0 : (first + BW - 1) / BW;
+    const int jhi = min(nbj - 1, base / BW);
+    for (int jb = jlo; jb <= jhi; ++jb) {
+      const size_t at = ((size_t)g * nbj + jb) * BCOLS + (base - jb * BW);
+      take_better(v, idx, part_cv[at], part_ci[at]);
+    }
+  }
+}
+
+// Reduce one job's partials to its BandOut: a block either owns RED_OUT
+// rows or RED_OUT columns, its RED_SLICES warps splitting the partials.  An
 // index stays -1 when the value is still the aggregate init.
 template <typename T>
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -449,35 +528,128 @@ k3_reduce(const T* __restrict__ part_rv, const int* __restrict__ part_ri,
   const int lane = threadIdx.x % RED_OUT, q = threadIdx.x / RED_OUT;
   const bool rows = (int)blockIdx.x < row_blocks;
   const int t = (rows ? blockIdx.x : blockIdx.x - row_blocks) * RED_OUT + lane;
+  const bool live = t < (rows ? S : S + W);
   T v = init;
   int idx = -1;
-  if (rows) {
-    if (t < S) {
-#pragma unroll 4
-      for (int b = q; b < nbj; b += RED_SLICES)
-        take_better(v, idx, part_rv[(size_t)b * S + t], part_ri[(size_t)b * S + t]);
-    }
-  } else if (t < S + W) {
-    for (int g = q; g < G && g * R <= t; g += RED_SLICES) {
-      const int base = t - g * R;     // column relative to the segment's first
-      const int first = base - BCOLS + 1;
-      const int jlo = first <= 0 ? 0 : (first + BW - 1) / BW;
-      const int jhi = min(nbj - 1, base / BW);
-      for (int jb = jlo; jb <= jhi; ++jb) {
-        const size_t at = ((size_t)g * nbj + jb) * BCOLS + (base - jb * BW);
-        take_better(v, idx, part_cv[at], part_ci[at]);
-      }
-    }
-  }
+  if (live) reduce_partials(part_rv, part_ri, part_cv, part_ci, rows, t, q, S, nbj, G, v, idx);
   red_v[q][lane] = v;
   red_i[q][lane] = idx;
   __syncthreads();
-  if (q == 0 && t < (rows ? S : S + W)) {
+  if (q == 0 && live) {
 #pragma unroll
     for (int p = 1; p < RED_SLICES; ++p) take_better(v, idx, red_v[p][lane], red_i[p][lane]);
     (rows ? row_v : col_v)[t] = v;
     (rows ? row_i : col_i)[t] = v > init ? idx : -1;
   }
+}
+
+// A batch's reduce and merge: a block owns RED_OUT consecutive outputs of
+// the global row aggregates (from row_lo) or of the column aggregates (from
+// col_lo).  For each job of the batch in order whose rows [r0, r0 + S) or
+// columns [c0, c0 + S + W) reach them, it reduces that job's partials there
+// as k3_reduce does and keeps a job's (value, index) only if its value beats
+// the earlier jobs' strictly; then the result replaces the global entry only
+// if it beats it strictly.  So the incumbent, then the earlier job, wins a
+// tie: the global aggregates end as a max-merge of the jobs' BandOuts job
+// after job would leave them.
+template <typename T>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+k3_merge(const T* __restrict__ part_rv, const int* __restrict__ part_ri,
+         const T* __restrict__ part_cv, const int* __restrict__ part_ci, Jobs jobs, int B,
+         int S, int W, int nbj, int G, int row_lo, int row_blocks, int col_lo,
+         T* __restrict__ row_v, int* __restrict__ row_i,
+         T* __restrict__ col_v, int* __restrict__ col_i) {
+  __shared__ T red_v[RED_SLICES][RED_OUT];
+  __shared__ int red_i[RED_SLICES][RED_OUT];
+  const T init = aggregate_init<T>();
+  const int lane = threadIdx.x % RED_OUT, q = threadIdx.x / RED_OUT;
+  const bool rows = (int)blockIdx.x < row_blocks;
+  const int first = rows ? row_lo + (int)blockIdx.x * RED_OUT
+                         : col_lo + ((int)blockIdx.x - row_blocks) * RED_OUT;
+  const int len = rows ? S : S + W;
+  const size_t row_part = (size_t)nbj * S, col_part = (size_t)G * nbj * BCOLS;
+  T best = init;
+  int best_i = -1;
+  for (int b = 0; b < B; ++b) {
+    const int2 job = job_at(jobs, b);
+    const int off = rows ? job.x : job.x + job.y;
+    if (off >= first + RED_OUT || off + len <= first) continue;  // the same for the block
+    const int t = first + lane - off;
+    const bool live = t >= 0 && t < len;
+    T v = init;
+    int idx = -1;
+    if (live)
+      reduce_partials(part_rv + b * row_part, part_ri + b * row_part, part_cv + b * col_part,
+                      part_ci + b * col_part, rows, t, q, S, nbj, G, v, idx);
+    red_v[q][lane] = v;
+    red_i[q][lane] = idx;
+    __syncthreads();
+    if (q == 0 && live) {
+#pragma unroll
+      for (int p = 1; p < RED_SLICES; ++p) take_better(v, idx, red_v[p][lane], red_i[p][lane]);
+      if (v > best) { best = v; best_i = idx; }
+    }
+    __syncthreads();                  // the slices are read: the next job may write them
+  }
+  if (q == 0 && best > init) {
+    T* gv = (rows ? row_v : col_v) + first + lane;
+    int* gi = (rows ? row_i : col_i) + first + lane;
+    if (best > *gv) { *gv = best; *gi = best_i; }
+  }
+}
+
+// The sum of v over the block, the same in every thread (a fixed order).
+__device__ __forceinline__ Acc block_sum(Acc v, Acc* red) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  __syncthreads();                    // red is free: an earlier sum is read
+  if (threadIdx.x % LANES == 0) red[threadIdx.x / LANES] = v;
+  __syncthreads();
+  Acc s = Acc(0);
+#pragma unroll
+  for (int k = 0; k < SEED_THREADS / LANES; ++k) s += red[k];
+  return s;
+}
+
+// The seeds of a batch, in float64: block (x, z) computes job z's
+//   QT(r0, c) = sum_t qc[t] (T[c + t] - g) - (mu[c] - g) sum_t qc[t]
+// for its SEED_THREADS columns c = c0 + j, with the centered query
+// qc = T[r0 : r0 + m] - mu[r0] and g the mean of the block's own column
+// segment T[c0 + j0 : c0 + j0 + SEED_THREADS + m - 1]: seed_qt's
+// cancellation-resistant form (any g keeps the identity exact; one near
+// the segment keeps every product O(local deviation)).  The query and
+// the segment are staged SEED_M elements of m at a time.
+template <typename T>
+__global__ void __launch_bounds__(SEED_THREADS)
+k3_seed(const T* __restrict__ ts, const T* __restrict__ mu, Jobs jobs, int m, int W,
+        Acc* __restrict__ seed) {
+  __shared__ Acc s_q[SEED_M], s_x[SEED_THREADS + SEED_M - 1];
+  __shared__ Acc red[SEED_THREADS / LANES];
+  const int tid = threadIdx.x;
+  const int2 job = job_at(jobs, blockIdx.y);
+  const int r0 = job.x, c0 = job.x + job.y;
+  const int j0 = blockIdx.x * SEED_THREADS;
+  const int nc = min(SEED_THREADS, W - j0);
+  const int nx = nc + m - 1;
+  const Acc mr = Acc(mu[r0]);
+  Acc a = Acc(0), b = Acc(0);
+  for (int t = tid; t < m; t += SEED_THREADS) a += Acc(ts[r0 + t]) - mr;
+  for (int x = tid; x < nx; x += SEED_THREADS) b += Acc(ts[c0 + j0 + x]);
+  const Acc sq = block_sum(a, red);
+  const Acc g = block_sum(b, red) / nx;
+  Acc acc = Acc(0);
+  for (int t0 = 0; t0 < m; t0 += SEED_M) {
+    const int mt = min(SEED_M, m - t0);
+    __syncthreads();                  // the last chunk is read
+    for (int t = tid; t < mt; t += SEED_THREADS) s_q[t] = Acc(ts[r0 + t0 + t]) - mr;
+    for (int x = tid; x < nc + mt - 1; x += SEED_THREADS)
+      s_x[x] = Acc(ts[c0 + j0 + t0 + x]) - g;
+    __syncthreads();
+    if (tid < nc)
+      for (int t = 0; t < mt; ++t) acc = fma(s_q[t], s_x[tid + t], acc);
+  }
+  if (tid < nc)
+    seed[(size_t)blockIdx.y * W + j0 + tid] = acc - (Acc(mu[c0 + j0 + tid]) - g) * sq;
 }
 
 // Ask for the largest shared-memory carveout for k3_tiles (the default one
@@ -498,39 +670,85 @@ cudaError_t configure() {
   return err;
 }
 
+// k3_segsum (when the band has more than one segment), then k3_tiles, for
+// the B jobs of `jobs`.
 template <typename T>
-int launch(const void* df_r, const void* dg_r, const void* inv_r,
-           const void* df_c, const void* dg_c, const void* inv_c,
-           const void* seed, int r0, int k0, int S, int W, int w, int excl,
-           void* seg, void* part_rv, void* part_ri, void* part_cv, void* part_ci,
-           void* row_v, void* row_i, void* col_v, void* col_i, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t sweep(const T* df, const T* dg, const T* inv, Jobs jobs, int B, const Acc* seed,
+                  int S, int W, int w, int excl, Acc* seg, T* part_rv, int* part_ri,
+                  T* part_cv, int* part_ci, cudaStream_t st) {
   const int nbj = (W + BW - 1) / BW;
   const int G = (S + R - 1) / R;
   cudaError_t err = configure<T>();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   if (G > 1) {
-    k3_segsum<T><<<dim3(nbj, G - 1), LANES, 0, st>>>(
-        static_cast<const T*>(df_r), static_cast<const T*>(dg_r),
-        static_cast<const T*>(df_c), static_cast<const T*>(dg_c), S, W,
-        static_cast<Acc*>(seg));
+    k3_segsum<T><<<dim3(nbj, G - 1, B), LANES, 0, st>>>(df, dg, jobs, S, W, seg);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
-  k3_tiles<T><<<dim3(nbj, G), LANES, 0, st>>>(
-      static_cast<const T*>(df_r), static_cast<const T*>(dg_r),
-      static_cast<const T*>(inv_r), static_cast<const T*>(df_c),
-      static_cast<const T*>(dg_c), static_cast<const T*>(inv_c),
-      static_cast<const Acc*>(seed), static_cast<const Acc*>(seg), r0, k0, S, W, w, excl,
-      static_cast<T*>(part_rv), static_cast<int*>(part_ri),
-      static_cast<T*>(part_cv), static_cast<int*>(part_ci));
-  err = cudaGetLastError();
+  k3_tiles<T><<<dim3(nbj, G, B), LANES, 0, st>>>(df, dg, inv, jobs, seed, seg, S, W, w, excl,
+                                                 part_rv, part_ri, part_cv, part_ci);
+  return cudaGetLastError();
+}
+
+// The seeds of B jobs (k3_seed), then their sweep.
+template <typename T>
+cudaError_t seed_and_sweep(const void* ts, const void* mu, const void* df, const void* dg,
+                           const void* inv, Jobs jobs, int B, int m, int S, int W, int w,
+                           int excl, void* seed, void* seg, void* part_rv, void* part_ri,
+                           void* part_cv, void* part_ci, cudaStream_t st) {
+  k3_seed<T><<<dim3((W + SEED_THREADS - 1) / SEED_THREADS, B), SEED_THREADS, 0, st>>>(
+      static_cast<const T*>(ts), static_cast<const T*>(mu), jobs, m, W,
+      static_cast<Acc*>(seed));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sweep<T>(static_cast<const T*>(df), static_cast<const T*>(dg),
+                  static_cast<const T*>(inv), jobs, B, static_cast<const Acc*>(seed), S, W, w,
+                  excl, static_cast<Acc*>(seg), static_cast<T*>(part_rv),
+                  static_cast<int*>(part_ri), static_cast<T*>(part_cv),
+                  static_cast<int*>(part_ci), st);
+}
+
+template <typename T>
+int launch(const void* ts, const void* mu, const void* df, const void* dg, const void* inv,
+           int m, int r0, int k0, int S, int W, int w, int excl, void* seed, void* seg,
+           void* part_rv, void* part_ri, void* part_cv, void* part_ci, void* row_v,
+           void* row_i, void* col_v, void* col_i, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nbj = (W + BW - 1) / BW;
+  const int G = (S + R - 1) / R;
+  cudaError_t err = seed_and_sweep<T>(ts, mu, df, dg, inv, Jobs{nullptr, nullptr, r0, k0}, 1,
+                                      m, S, W, w, excl, seed, seg, part_rv, part_ri, part_cv,
+                                      part_ci, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (S + RED_OUT - 1) / RED_OUT + (S + W + RED_OUT - 1) / RED_OUT;
   k3_reduce<T><<<blocks, REDUCE_THREADS, 0, st>>>(
       static_cast<const T*>(part_rv), static_cast<const int*>(part_ri),
       static_cast<const T*>(part_cv), static_cast<const int*>(part_ci), S, W,
       nbj, G, static_cast<T*>(row_v), static_cast<int*>(row_i),
+      static_cast<T*>(col_v), static_cast<int*>(col_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_batch(const void* ts, const void* mu, const void* df, const void* dg,
+                 const void* inv, const void* r0s, const void* k0s, int B, int m, int S,
+                 int W, int w, int excl, int row_lo, int row_hi, int col_lo, int col_hi,
+                 void* seed, void* seg, void* part_rv, void* part_ri, void* part_cv,
+                 void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nbj = (W + BW - 1) / BW;
+  const int G = (S + R - 1) / R;
+  const Jobs jobs{static_cast<const int*>(r0s), static_cast<const int*>(k0s), 0, 0};
+  const cudaError_t err = seed_and_sweep<T>(ts, mu, df, dg, inv, jobs, B, m, S, W, w, excl,
+                                            seed, seg, part_rv, part_ri, part_cv, part_ci, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_blocks = (row_hi - row_lo + RED_OUT - 1) / RED_OUT;
+  const int col_blocks = (col_hi - col_lo + RED_OUT - 1) / RED_OUT;
+  k3_merge<T><<<row_blocks + col_blocks, REDUCE_THREADS, 0, st>>>(
+      static_cast<const T*>(part_rv), static_cast<const int*>(part_ri),
+      static_cast<const T*>(part_cv), static_cast<const int*>(part_ci), jobs, B, S, W, nbj,
+      G, row_lo, row_blocks, col_lo, static_cast<T*>(row_v), static_cast<int*>(row_i),
       static_cast<T*>(col_v), static_cast<int*>(col_i));
   return static_cast<int>(cudaGetLastError());
 }
@@ -561,33 +779,63 @@ int mpx_k3_resident_blocks(int f64, int which) {
   return f64 ? resident_blocks<double>(which) : resident_blocks<float>(which);
 }
 
-// One job: segment sums (when the band has more than one segment), sweep,
-// then partial reduce, all on `stream`.  Returns a cudaError_t (0 on
-// success).  Pointers are device pointers: the row statistics (S,) from r0,
-// the column statistics (S + W,) from c0 = r0 + k0, the (W,) float64 seed
-// QT(r0, c0 + j).  Scratch: float64 segment sums (G - 1, W) with
-// G = ceil(S / R) (unused when G = 1); partials rows (ceil(W/BW), S), columns
-// (G * ceil(W/BW), mpx_k3_block_columns()); outputs rows (S,), columns (S + W,).
-int mpx_k3_sweep_f32(const void* df_r, const void* dg_r, const void* inv_r,
-                     const void* df_c, const void* dg_c, const void* inv_c,
-                     const void* seed, int r0, int k0, int S, int W, int w,
-                     int excl, void* seg, void* part_rv, void* part_ri,
-                     void* part_cv, void* part_ci, void* row_v, void* row_i,
-                     void* col_v, void* col_i, void* stream) {
-  return launch<float>(df_r, dg_r, inv_r, df_c, dg_c, inv_c, seed, r0, k0, S,
-                       W, w, excl, seg, part_rv, part_ri, part_cv, part_ci,
-                       row_v, row_i, col_v, col_i, stream);
+// One job: its seed (k3_seed, as in a batch), segment sums (when the band
+// has more than one segment), sweep, then partial reduce, all on `stream`.
+// Returns a cudaError_t (0 on success).  Pointers are device pointers: the
+// series ts and the statistics mu, df, dg, inv, whole (the job's rows start
+// at r0, its columns at c0 = r0 + k0).  Scratch: the float64 seed (W,),
+// float64 segment sums (G - 1, W) with G = ceil(S / R) (unused when G = 1);
+// partials rows (ceil(W/BW), S), columns (G * ceil(W/BW),
+// mpx_k3_block_columns()); outputs rows (S,), columns (S + W,).
+int mpx_k3_sweep_f32(const void* ts, const void* mu, const void* df, const void* dg,
+                     const void* inv, int m, int r0, int k0, int S, int W, int w, int excl,
+                     void* seed, void* seg, void* part_rv, void* part_ri, void* part_cv,
+                     void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
+                     void* stream) {
+  return launch<float>(ts, mu, df, dg, inv, m, r0, k0, S, W, w, excl, seed, seg, part_rv,
+                       part_ri, part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
 }
 
-int mpx_k3_sweep_f64(const void* df_r, const void* dg_r, const void* inv_r,
-                     const void* df_c, const void* dg_c, const void* inv_c,
-                     const void* seed, int r0, int k0, int S, int W, int w,
-                     int excl, void* seg, void* part_rv, void* part_ri,
-                     void* part_cv, void* part_ci, void* row_v, void* row_i,
-                     void* col_v, void* col_i, void* stream) {
-  return launch<double>(df_r, dg_r, inv_r, df_c, dg_c, inv_c, seed, r0, k0, S,
-                        W, w, excl, seg, part_rv, part_ri, part_cv, part_ci,
-                        row_v, row_i, col_v, col_i, stream);
+int mpx_k3_sweep_f64(const void* ts, const void* mu, const void* df, const void* dg,
+                     const void* inv, int m, int r0, int k0, int S, int W, int w, int excl,
+                     void* seed, void* seg, void* part_rv, void* part_ri, void* part_cv,
+                     void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
+                     void* stream) {
+  return launch<double>(ts, mu, df, dg, inv, m, r0, k0, S, W, w, excl, seed, seg, part_rv,
+                        part_ri, part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
+}
+
+// A batch of B jobs, all on `stream`: the seeds, the segment sums, the
+// sweep, then the partials reduced and max-merged, in the jobs' order, into
+// the global aggregates (k3_merge).  Returns a cudaError_t (0 on success).
+// Device pointers: the series ts and the statistics mu, df, dg, inv, whole;
+// int32 r0s and k0s (B,); the global aggregates row_v/row_i and
+// col_v/col_i, which every job's rows [r0, r0 + S) and columns
+// [c0, c0 + S + W) must lie in.  [row_lo, row_hi) and [col_lo, col_hi)
+// hold the batch's rows and columns.  Scratch, each job's after the one
+// before: float64 seeds (B, W), float64 segment sums (B, max(G - 1, 1), W),
+// partials rows (B, ceil(W/BW), S), columns (B, G * ceil(W/BW),
+// mpx_k3_block_columns()).
+int mpx_k3_sweep_batch_f32(const void* ts, const void* mu, const void* df, const void* dg,
+                           const void* inv, const void* r0s, const void* k0s, int B, int m,
+                           int S, int W, int w, int excl, int row_lo, int row_hi,
+                           int col_lo, int col_hi, void* seed, void* seg, void* part_rv,
+                           void* part_ri, void* part_cv, void* part_ci, void* row_v,
+                           void* row_i, void* col_v, void* col_i, void* stream) {
+  return launch_batch<float>(ts, mu, df, dg, inv, r0s, k0s, B, m, S, W, w, excl, row_lo,
+                             row_hi, col_lo, col_hi, seed, seg, part_rv, part_ri, part_cv,
+                             part_ci, row_v, row_i, col_v, col_i, stream);
+}
+
+int mpx_k3_sweep_batch_f64(const void* ts, const void* mu, const void* df, const void* dg,
+                           const void* inv, const void* r0s, const void* k0s, int B, int m,
+                           int S, int W, int w, int excl, int row_lo, int row_hi,
+                           int col_lo, int col_hi, void* seed, void* seg, void* part_rv,
+                           void* part_ri, void* part_cv, void* part_ci, void* row_v,
+                           void* row_i, void* col_v, void* col_i, void* stream) {
+  return launch_batch<double>(ts, mu, df, dg, inv, r0s, k0s, B, m, S, W, w, excl, row_lo,
+                              row_hi, col_lo, col_hi, seed, seg, part_rv, part_ri, part_cv,
+                              part_ci, row_v, row_i, col_v, col_i, stream);
 }
 
 }  // extern "C"

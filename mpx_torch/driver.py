@@ -4,9 +4,11 @@ Counterpart of ``mpx/driver.py``.  The statistics are staged once, then a
 Python loop walks the job grid in mpx's order (k0 outer, r0 inner), sweeps
 each job with the selected kernel, and max-merges its ``BandOut`` into
 global (w + S + W,) row/column aggregates at offsets r0 and r0 + k0.  The
-merge order is mpx's, so ties across jobs resolve to the same job.  Kernel
-launches and merges are queued on the device's current stream; the host
-never waits inside the loop.
+merge order is mpx's, so ties across jobs resolve to the same job.  K3
+(``kernel='pallas'``) walks the grid a batch of jobs at a time
+(:func:`mpx_torch.kernels.recurrence.sweep_batches`), merging in the same
+order on the card.  Kernel launches and merges are queued on the device's
+current stream; the host never waits inside the loop.
 """
 
 from __future__ import annotations
@@ -64,12 +66,19 @@ def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
 
 def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
     """Sweep every job of ``grid`` (its ``r0``/``k0`` arrays or tensors)
-    and merge the outputs.  Returns (row Aggregates, column Aggregates),
-    each (w + S + W,)."""
+    and merge the outputs, in the grid's order: K3 a batch of jobs at a
+    time, every other kernel a job at a time (:func:`sweep_jobs`).  Returns
+    (row Aggregates, column Aggregates), each (w + S + W,)."""
     L = _agg_length(geom.w, geom.S, geom.W)
     dev = stats.T.device
     rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
     cols = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
+    if kernel == "pallas":
+        from mpx_torch.kernels.recurrence import sweep_batches
+
+        sweep_batches(stats, _ints(grid.r0), _ints(grid.k0), geom=geom, dtype=dtype,
+                      rows=rows, cols=cols)
+        return rows, cols
     for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dtype, kernel=kernel,
                         rows=rows, cols=cols):
         pass

@@ -112,11 +112,22 @@ def load() -> ctypes.CDLL:
                 fn.restype = i
             for name in ("mpx_k3_sweep_f32", "mpx_k3_sweep_f64"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p, p, p,  # row df/dg/inv, col df/dg/inv, seed
-                               i, i, i, i, i, i,     # r0, k0, S, W, w, excl
-                               p,                    # segment sums
+                fn.argtypes = [p, p, p, p, p,        # T, mu, df, dg, inv
+                               i, i, i, i, i, i, i,  # m, r0, k0, S, W, w, excl
+                               p, p,                 # seed, segment sums
                                p, p, p, p,           # row/col partials
                                p, p, p, p,           # row/col outputs
+                               p]                    # stream
+                fn.restype = i
+            for name in ("mpx_k3_sweep_batch_f32", "mpx_k3_sweep_batch_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p,        # T, mu, df, dg, inv
+                               p, p,                 # r0s, k0s
+                               i, i, i, i, i, i,     # B, m, S, W, w, excl
+                               i, i, i, i,           # row_lo, row_hi, col_lo, col_hi
+                               p, p,                 # seeds, segment sums
+                               p, p, p, p,           # row/col partials
+                               p, p, p, p,           # global row/col aggregates
                                p]                    # stream
                 fn.restype = i
             for name in ("mpx_k1_block_m", "mpx_k1_block_n", "mpx_k3_block_w",

@@ -6,13 +6,25 @@ and f64: the H100 has native FP64, so unlike mpx's Pallas kernel this is
 also the strict float64 tier, and it computes in float64 for float32
 statistics too, rounding only its outputs).  The band's rows are cut into
 segments of ``SEGMENT_ROWS`` rows, swept in parallel; each segment starts
-its diagonals from the job's one exact seed
-(:func:`mpx_torch.kernels.common.seed_qt`, computed here, outside the
-kernel) plus the earlier segments' sums of the same update terms, which a
-first kernel writes.  Only per-block (value, index) partials reach device
-memory, and a last kernel reduces them to the job's ``BandOut`` (rows
-(S,), columns (S + W,)).  Scratch is allocated here; the kernels allocate
-nothing.
+its diagonals from the job's one exact seed plus the earlier segments'
+sums of the same update terms, which a first kernel writes.  Only
+per-block (value, index) partials reach device memory.  Scratch is
+allocated here; the kernels allocate nothing.
+
+Two entries:
+
+* :func:`sweep_band_recurrence`, one job: a last kernel reduces the
+  partials to the job's ``BandOut`` (rows (S,), columns (S + W,));
+* :func:`sweep_batches`, the driver's self-join loop: the jobs a batch at
+  a time (:func:`job_batches`), each batch one call that max-merges every
+  job's partials straight into the global aggregates, in the jobs' order
+  (:func:`merge_batch` is the plain version of that merge).  The checks,
+  the library and one scratch arena are set up once a call, not once a
+  job.
+
+Both compute each job's seed on the card with one kernel, in
+:func:`mpx_torch.kernels.common.seed_qt`'s form (the plain version's
+seed), so a job's values are the same whichever entry sweeps it.
 
 A CPU tensor takes the plain PyTorch version
 (:func:`mpx_torch.kernels.xla.sweep_band_xla`); a CUDA tensor launches the
@@ -21,16 +33,23 @@ kernel or raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from mpx_torch.dtypes import torch_dtype
-from mpx_torch.kernels.common import BandGeometry, BandOut, seed_qt
+from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
+from mpx_torch.kernels.common import BandGeometry, BandOut
 from mpx_torch.kernels.xla import sweep_band_xla
+from mpx_torch.ops.aggregates import init_aggregates, merge_window
 from mpx_torch.types import Aggregates, Stats
-from mpx_torch.utils.profile import count
+from mpx_torch.utils.profile import count, span
 
 # Rows per segment, the kernel's R (checked against the built library).
 SEGMENT_ROWS = 256
+# Jobs one batched call sweeps at most.  On an H100 a 2^20-point float64
+# self-join (S = 4096, W = 16384, m = 256) took the same time from 8 jobs a
+# batch up to 96, 7 % longer at 4 and 20 % at 1 (PERF.md section 6); 16 is
+# twice the knee, and its scratch, ~17.8 MB a job there, stays at 0.28 GB.
+BATCH_JOBS = 16
 
 
 def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
@@ -43,65 +62,167 @@ def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
     if err != 0:
         raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
     count("launches.k3")
+    count("jobs.k3")
     return out
 
 
-def prepare_launch(stats: Stats, r0: int, k0: int, geom: BandGeometry, dtype):
-    """Check the job, compute its seed and allocate the outputs and scratch
-    on the card.  Returns (launch, out): ``launch(stream)`` launches the
-    job's kernels on the CUDA stream handle ``stream`` and returns a
-    cudaError_t, without counting; ``out`` is the ``BandOut`` they fill."""
+def _check(stats: Stats, geom: BandGeometry, dt: torch.dtype, r0s, k0s) -> None:
+    """What every launch needs: the statistics on one card in ``dt``, a
+    self-join geometry, and every job's rows [r0, r0 + S) and columns
+    [c0, c0 + S + W) inside the statistics."""
     if stats.df.device.type != "cuda":
         raise ValueError(f"the recurrence kernel runs on CUDA tensors, got {stats.df.device}")
-    dt = torch_dtype(dtype)
-    S, W, m, w, excl = geom.S, geom.W, geom.m, geom.w, geom.excl
-    r0, k0 = int(r0), int(k0)
-    c0 = r0 + k0
+    S, W, m = geom.S, geom.W, geom.m
     pw = stats.df.shape[0]
-    vecs = (stats.df, stats.dg, stats.inv, stats.mu)
-    for v in vecs:
+    for v in (stats.df, stats.dg, stats.inv, stats.mu):
         if v.dtype != dt or v.shape != (pw,) or not v.is_contiguous() \
                 or v.device != stats.df.device:
             raise ValueError(f"stats must be contiguous ({pw},) {dt} vectors on one "
                              f"device, got {v.dtype} {tuple(v.shape)}")
-    if stats.T.dtype != dt or stats.T.shape != (pw + m - 1,):
-        raise ValueError(f"stats.T must be ({pw + m - 1},) {dt}")
-    if geom.wc != w:
+    if stats.T.dtype != dt or stats.T.shape != (pw + m - 1,) or not stats.T.is_contiguous() \
+            or stats.T.device != stats.df.device:
+        raise ValueError(f"stats.T must be contiguous ({pw + m - 1},) {dt} on the stats' device")
+    if geom.wc != geom.w:
         raise ValueError("the recurrence kernel is a self-join kernel (wc must equal w)")
-    if min(r0, k0) < 0 or r0 + S > pw or c0 + S + W > pw:
-        raise ValueError(f"job rows [{r0}, {r0 + S}) / columns [{c0}, {c0 + S + W}) "
-                         f"outside the {pw}-wide statistics")
     if pw + m >= 2**31:
         raise ValueError("profile width exceeds the kernel's int32 indices")
+    r0, k0 = np.asarray(r0s, np.int64), np.asarray(k0s, np.int64)
+    bad = (np.minimum(r0, k0) < 0) | (r0 + S > pw) | (r0 + k0 + S + W > pw)
+    if bad.any():
+        j = int(np.argmax(bad))
+        c0 = int(r0[j] + k0[j])
+        raise ValueError(f"job rows [{r0[j]}, {r0[j] + S}) / columns [{c0}, {c0 + S + W}) "
+                         f"outside the {pw}-wide statistics")
 
-    from mpx_torch.kernels import _build
 
-    lib = _build.load()
+def _scratch(lib, jobs: int, geom: BandGeometry, dt: torch.dtype, device):
+    """Seeds, segment sums and partials for ``jobs`` jobs, each job's after
+    the one before (the layout the library's entries read)."""
     if lib.mpx_k3_segment_rows() != SEGMENT_ROWS:
         raise RuntimeError(f"K3 was built with {lib.mpx_k3_segment_rows()} rows per "
                            f"segment, the wrapper expects {SEGMENT_ROWS}")
+    S, W = geom.S, geom.W
     nbj, ncol = -(-W // lib.mpx_k3_block_w()), lib.mpx_k3_block_columns()
     G = -(-S // SEGMENT_ROWS)
-    dev = stats.df.device
     # The kernel computes in float64 for both dtypes (csrc header).
-    seed = seed_qt(stats, r0, c0, W, m, torch.float64).contiguous()
-    seg = torch.empty((max(G - 1, 1), W), dtype=torch.float64, device=dev)
-    part_rv = torch.empty((nbj, S), dtype=dt, device=dev)
-    part_ri = torch.empty((nbj, S), dtype=torch.int32, device=dev)
-    part_cv = torch.empty((G * nbj, ncol), dtype=dt, device=dev)
-    part_ci = torch.empty((G * nbj, ncol), dtype=torch.int32, device=dev)
+    return (torch.empty((jobs, W), dtype=torch.float64, device=device),
+            torch.empty((jobs, max(G - 1, 1), W), dtype=torch.float64, device=device),
+            torch.empty((jobs, nbj, S), dtype=dt, device=device),
+            torch.empty((jobs, nbj, S), dtype=torch.int32, device=device),
+            torch.empty((jobs, G * nbj, ncol), dtype=dt, device=device),
+            torch.empty((jobs, G * nbj, ncol), dtype=torch.int32, device=device))
+
+
+def _ptrs(args) -> list:
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def prepare_launch(stats: Stats, r0: int, k0: int, geom: BandGeometry, dtype):
+    """Check the job and allocate the outputs and scratch on the card.
+    Returns (launch, out): ``launch(stream)`` launches the job's kernels
+    (its seed among them) on the CUDA stream handle ``stream`` and returns a
+    cudaError_t, without counting; ``out`` is the ``BandOut`` they fill."""
+    from mpx_torch.kernels import _build
+
+    dt = torch_dtype(dtype)
+    r0, k0 = int(r0), int(k0)
+    _check(stats, geom, dt, [r0], [k0])
+    lib = _build.load()
+    S, W = geom.S, geom.W
+    dev = stats.df.device
+    scratch = _scratch(lib, 1, geom, dt, dev)
     out = BandOut(row=Aggregates(torch.empty(S, dtype=dt, device=dev),
                                  torch.empty(S, dtype=torch.int32, device=dev)),
                   col=Aggregates(torch.empty(S + W, dtype=dt, device=dev),
                                  torch.empty(S + W, dtype=torch.int32, device=dev)))
-    rows = [v[r0 : r0 + S] for v in vecs[:3]]
-    cols = [v[c0 : c0 + S + W] for v in vecs[:3]]
     fn = lib.mpx_k3_sweep_f64 if dt == torch.float64 else lib.mpx_k3_sweep_f32
-    args = (*rows, *cols, seed, r0, k0, S, W, w, excl, seg, part_rv, part_ri,
-            part_cv, part_ci, out.row.value, out.row.index, out.col.value, out.col.index)
+    args = (stats.T, stats.mu, stats.df, stats.dg, stats.inv, geom.m, r0, k0, S, W, geom.w,
+            geom.excl, *scratch, out.row.value, out.row.index, out.col.value, out.col.index)
 
     def launch(stream):
-        return fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-                  stream)
+        return fn(*_ptrs(args), stream)
 
     return launch, out
+
+
+def job_batches(k0s, cap: int) -> list:
+    """Cut a job list into batches: runs of consecutive jobs that share one
+    k0, at most ``cap`` jobs each, in the list's order.  Returns
+    (start, stop) pairs."""
+    out, start = [], 0
+    for j in range(1, len(k0s) + 1):
+        if j == len(k0s) or k0s[j] != k0s[start] or j - start == cap:
+            out.append((start, j))
+            start = j
+    return out
+
+
+def merge_batch(agg: Aggregates, windows, offsets) -> None:
+    """The plain version of K3's batched merge (``k3_merge``): max-merge
+    the equal-length ``windows`` (Aggregates) into ``agg`` at ``offsets``,
+    in place.  At each position the first window in order whose value beats
+    the earlier ones' strictly is kept, and replaces the incumbent only if
+    it beats it strictly: the incumbent, then the earlier window, wins a
+    tie, so ``agg`` ends as ``merge_window`` window after window leaves it."""
+    n = windows[0].value.shape[-1]
+    lo, hi = min(offsets), max(offsets) + n
+    best = init_aggregates(hi - lo, agg.value.dtype, AGGREGATE_INIT, agg.value.device)
+    for win, off in zip(windows, offsets):
+        merge_window(best, win, off - lo)
+    merge_window(agg, best, lo)
+
+
+def sweep_batches(stats: Stats, r0s, k0s, *, geom: BandGeometry, dtype,
+                  rows: Aggregates, cols: Aggregates) -> None:
+    """Sweep the jobs (r0s[j], k0s[j]) (lists of ints) of a self-join a batch
+    at a time (:func:`job_batches` with ``BATCH_JOBS``), max-merging their
+    outputs into the global ``rows`` and ``cols`` aggregates in place, in
+    the jobs' order: the aggregates end as the per-job loop's of the same
+    ``BandOut`` values.  Each batch is one call of the library (seeds,
+    sweep, reduce and merge on the card: one ``launches.k3``, a
+    ``jobs.k3`` a job) inside a ``jobs.batch`` span; on the CPU the plain
+    sweep a job and :func:`merge_batch`."""
+    batches = job_batches(k0s, BATCH_JOBS)
+    c0s = [r + k for r, k in zip(r0s, k0s)]
+    if stats.df.device.type == "cpu":
+        for a, b in batches:
+            with span("jobs.batch"):
+                outs = [sweep_band_xla(stats, r0s[j], k0s[j], geom, dtype) for j in range(a, b)]
+                merge_batch(rows, [o.row for o in outs], r0s[a:b])
+                merge_batch(cols, [o.col for o in outs], c0s[a:b])
+        return
+    _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, torch_dtype(dtype), rows, cols)
+
+
+def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols) -> None:
+    from mpx_torch.kernels import _build
+
+    if not batches:
+        return
+    _check(stats, geom, dt, r0s, k0s)
+    S, W, dev = geom.S, geom.W, stats.df.device
+    for (v, i), hi in ((rows, max(r0s) + S), (cols, max(c0s) + S + W)):
+        if not (v.dtype == dt and i.dtype == torch.int32 and v.dim() == 1
+                and v.shape == i.shape and v.shape[0] >= hi and v.is_contiguous()
+                and i.is_contiguous() and v.device == i.device == dev):
+            raise ValueError(f"aggregates must be contiguous {dt} / int32 vectors of at "
+                             f"least {hi} on {dev}")
+    lib = _build.load()
+    scratch = _scratch(lib, max(b - a for a, b in batches), geom, dt, dev)
+    jobs = torch.from_numpy(np.asarray([r0s, k0s], dtype=np.int32)).to(dev)
+    fn = lib.mpx_k3_sweep_batch_f64 if dt == torch.float64 else lib.mpx_k3_sweep_batch_f32
+    head = _ptrs((stats.T, stats.mu, stats.df, stats.dg, stats.inv))
+    tail = _ptrs((*scratch, rows.value, rows.index, cols.value, cols.index))
+    r0p, k0p, size = jobs[0].data_ptr(), jobs[1].data_ptr(), jobs.element_size()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for a, b in batches:
+            with span("jobs.batch"):
+                r0b, c0b = r0s[a:b], c0s[a:b]
+                err = fn(*head, r0p + a * size, k0p + a * size, b - a, geom.m, S, W, geom.w,
+                         geom.excl, min(r0b), max(r0b) + S, min(c0b), max(c0b) + S + W,
+                         *tail, stream)
+                if err != 0:
+                    raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
+                count("launches.k3")
+                count("jobs.k3", b - a)

@@ -25,6 +25,7 @@ import torch
 from mpx_torch import MatrixProfileConfig, compute_matrix_profile
 from mpx_torch.kernels import mxu, mxu_fused, recurrence, xla
 from mpx_torch.kernels.common import band_geometry
+from mpx_torch.ops.aggregates import merge_window
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.reference import band_recurrence_exact, compute_matrix_profile_reference
 from mpx_torch.utils.profile import counters
@@ -1098,8 +1099,9 @@ def test_traced_self_join_counts_its_kernel_launches(card):
 
 @pytest.mark.cuda
 def test_auto_f64_takes_k3_on_level_heavy_walk(card):
-    """``auto`` in float64 on the card at m = 256 runs K3, one launch a job
-    of the grid and no K1 launch, on the level-heavy windows the recurrence
+    """``auto`` in float64 on the card at m = 256 runs K3, one launch a
+    batch of the grid's jobs (``jobs.k3`` one a job) and no K1 launch, on
+    the level-heavy windows the recurrence
     once missed 1e-8 on (a walk raised by 1e3): distances within 1e-8 of
     the exact float64 scan (the benchmark's plain reference, apart from
     every tier), each index the scan's first best or a neighbour
@@ -1107,6 +1109,7 @@ def test_auto_f64_takes_k3_on_level_heavy_walk(card):
     from mpx_torch import matrix_profile
     from mpx_torch.config import make_job_grid
     from mpx_torch.kernels import K3_MIN_M_F64, resolve_kernel
+    from mpx_torch.kernels.recurrence import BATCH_JOBS, job_batches
     from portbench.reference.exact_rows import correlations, exact_rows
 
     n, m = 1 << 16, 256
@@ -1117,8 +1120,10 @@ def test_auto_f64_takes_k3_on_level_heavy_walk(card):
     before = counters()
     MP, MPI = matrix_profile(T, m, dtype="float64")
     after = counters()
+    grid = make_job_grid(w, cfg.band, cfg.chunk)
     assert after["launches.k3"] - before["launches.k3"] == len(
-        make_job_grid(w, cfg.band, cfg.chunk).r0)
+        job_batches(grid.k0.tolist(), BATCH_JOBS))
+    assert after["jobs.k3"] - before["jobs.k3"] == len(grid.r0)
     assert after["launches.k1"] == before["launches.k1"]
     best, first, _ = exact_rows(T, m, np.arange(w), device=card)
     exact = np.sqrt(np.maximum(2.0 * m * (1.0 - best), 0.0))
@@ -1130,6 +1135,73 @@ def test_auto_f64_takes_k3_on_level_heavy_walk(card):
     P = correlations(T, m, other, MPI[other], device=card)
     gap = np.abs(np.sqrt(np.maximum(2.0 * m * (1.0 - P), 0.0)) - exact[other])
     assert (gap <= DIST_TOL["float64"]).all(), other[gap > DIST_TOL["float64"]][:5]
+
+
+def _tie_series(n: int, seed: int) -> np.ndarray:
+    """A repeated pattern of small integers, whose copies' windows tie
+    exactly, then a walk."""
+    rng = np.random.default_rng(seed)
+    T = np.tile(rng.integers(-8, 9, 300).astype(np.float64), n // 300 + 1)[:n]
+    T[2 * n // 3 :] = np.cumsum(rng.integers(-3, 4, n - 2 * n // 3))
+    return T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("series", ["walk", "ties"])
+def test_k3_batches_match_the_per_job_loop(card, dtype, series):
+    """The driver's K3 loop (``run_jobs``: batches of jobs, each one call
+    that merges on the card) against the per-job loop (``sweep_jobs``: K3's
+    one-job entry and two ``merge_window`` calls a job) at n = 2^16, m = 256
+    with the library's band and chunk.  Both compute a job's seed with the
+    same kernel, so the row and column aggregates are equal bit for bit,
+    values and indices: on a series with exact ties between jobs, the
+    batched merge keeps the index the merges job after job keep."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.driver import _agg_length, run_jobs, sweep_jobs
+    from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
+    from mpx_torch.ops.aggregates import init_aggregates
+
+    n, m = 1 << 16, 256
+    w = n - m + 1
+    T = _series(n, 23) if series == "walk" else _tie_series(n, 23)
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, device="cuda").shrink_to(w)
+    dt = torch_dtype(dtype)
+    stats = precompute_statistics(T, m, band=cfg.band, chunk=cfg.chunk, dtype=dtype,
+                                  device=card, windows=False, exact_mean=True)
+    geom = band_geometry(cfg.band, cfg.chunk, m, w)
+    grid = make_job_grid(w, cfg.band, cfg.chunk)
+    before = counters()
+    rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel="pallas")
+    mid = counters()
+    L = _agg_length(w, cfg.band, cfg.chunk)
+    ref_rows, ref_cols = (init_aggregates(L, dt, AGGREGATE_INIT, card) for _ in range(2))
+    for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dt, kernel="pallas",
+                        rows=ref_rows, cols=ref_cols):
+        pass
+    torch.cuda.synchronize()
+    after = counters()
+    batches = len(recurrence.job_batches(grid.k0.tolist(), recurrence.BATCH_JOBS))
+    assert batches < len(grid.r0)
+    assert mid["launches.k3"] - before["launches.k3"] == batches
+    assert mid["jobs.k3"] - before["jobs.k3"] == len(grid.r0)
+    assert after["launches.k3"] - mid["launches.k3"] == len(grid.r0)
+    for ours, ref in ((rows, ref_rows), (cols, ref_cols)):
+        assert torch.equal(ours.value, ref.value)
+        assert torch.equal(ours.index, ref.index)
+    # The ties are real: merging the same jobs in reverse order keeps other
+    # indices (the rows' aggregates: each row is one job's, so only the
+    # columns can differ).
+    rev = init_aggregates(L, dt, AGGREGATE_INIT, card)
+    for r0, k0 in reversed(list(zip(grid.r0.tolist(), grid.k0.tolist()))):
+        out = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dt)
+        merge_window(rev, out.col, r0 + k0)
+    assert torch.equal(rev.value, cols.value)
+    flips = int((rev.index != cols.index).sum())
+    print(f"\nK3 batched vs per job {dtype} {series}: {len(grid.r0)} jobs in {batches} "
+          f"batches, bit-equal; {flips} column indices differ in reverse job order")
+    if series == "ties":
+        assert flips > 0
 
 
 def _tier_profiles(tier: str, T: np.ndarray, m: int, dev: str, tmp_path):

@@ -75,6 +75,31 @@ def test_self_join_spans_nest_under_one_root():
     assert sum(root.counters[k] for k in LAUNCHES) == 0  # the plain path on the CPU
 
 
+def test_k3_batches_have_a_span_each(monkeypatch):
+    """The recurrence's batched loop (``kernel='pallas'``, the plain sweep on
+    the CPU) marks each batch with a ``jobs.batch`` span inside ``jobs``,
+    counting its jobs' plain calls; the ranges are in the profiler's events."""
+    from mpx_torch.kernels import recurrence
+
+    monkeypatch.setattr(recurrence, "BATCH_JOBS", 2)
+    T = _walk()
+    w = N - M + 1
+    cfg = MatrixProfileConfig(m=M, dtype="float64", kernel="pallas", band=128, chunk=256,
+                              device="cpu")
+    _, recs, prof = _recorded(lambda: matrix_profile(T, M, dtype="float64", kernel="pallas",
+                                                     band=128, chunk=256, device="cpu"))
+    grid = make_job_grid(w, cfg.band, cfg.chunk)
+    batches = recurrence.job_batches(grid.k0.tolist(), 2)
+    (loop,) = _named(recs, "jobs")
+    spans_ = _named(recs, "jobs.batch")
+    assert len(spans_) == len(batches) < len(grid.r0)
+    assert [s.counters["calls.xla"] for s in spans_] == [b - a for a, b in batches]
+    assert all(s.parent == loop.id and _inside(s, loop) for s in spans_)
+    assert sum(root.counters[k] for root in _named(recs, "matrix_profile")
+               for k in LAUNCHES) == 0  # the plain path on the CPU
+    assert "mpx_torch.jobs.batch" in {e.name for e in prof.events()}
+
+
 @pytest.mark.parametrize("backend, children", [
     ("numpy", ["host", "stage"]),
     ("device", ["host", "window_sums", "host", "stage"]),  # the kernel's plain version
