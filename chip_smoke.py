@@ -13,7 +13,8 @@ script exits nonzero without the final line):
    HMMA) in each of K1's kernels, from ``cuobjdump -sass`` of the
    library, and the registers, spills and shared memory of K3's three
    kernels (k3_segsum, k3_tiles, k3_reduce) and of the four
-   instantiations of ``window_stats``;
+   instantiations of ``window_stats``; the instructions of
+   ``k3_tiles<double>``'s sub-tile loop by class, per pair;
 2. K1 against its plain PyTorch version on the card, band level, f32 and
    f64, at the main path's job shape (S=4096, W=16384, m=256) on edge
    jobs, with CUDA-event times of both, of one ``torch.matmul`` of the
@@ -279,6 +280,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -314,10 +316,15 @@ ZERO_VARIANCE_REL = 1e-10
 MEM_BYTES_PER_S = 3.35e12
 K1_FLOPS = {"float64": 67e12, "float32": 495e12 / 3}
 K3_OPS_PER_S = {"float64": 34e12 / 2, "float32": 67e12 / 2}
-# Floating-point instructions per pair in K3 (band_recurrence.cu): the QT
-# update (multiply, FMA, add), P = QT * inv_r * inv_c (two multiplies), the
-# NaN test, and the row and column comparisons.
+# Floating-point instructions per pair in K3's bound: the QT update
+# (multiply, FMA, add), P = QT * inv_r * inv_c (two multiplies), the NaN
+# test, and the row and column comparisons.  band_recurrence.cu issues six
+# (the update as two FMAs, the NaN test folded into the comparisons); the
+# bound keeps the algorithm's count.
 K3_OPS_PER_PAIR = 8
+# Pairs a lane sweeps in one pass of k3_tiles' sub-tile loop: TR = 16 rows
+# of D = 8 diagonals (band_recurrence.cu), for the loop's census.
+K3_LOOP_PAIRS = 16 * 8
 # FP64 instructions per window element in the window statistics kernel
 # (precompute.cu): the subtraction and the two FMAs of the sums of squares,
 # one FMA more for qt0, one add more for the residuals.
@@ -470,13 +477,15 @@ def phase_build():
     seconds = time.perf_counter() - t0
     regs = [ln.strip() for ln in (_build.BUILD_LOG or "").splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    mma = tensor_core_counts(_build)
+    sass = library_sass(_build)
+    mma = tensor_core_counts(sass)
     for name, counted in mma.items():
         kind = "DMMA" if "double" in name else "HMMA"
         require(counted[kind] > 0, f"{name} has no {kind} instruction: {counted}")
     say("1 build", seconds=seconds, library=os.path.relpath(
         _build.library_path(), REPO), ptxas=regs, sass_mma=mma,
         k3_ptxas=ptxas_report(_build.BUILD_LOG or "", K3_MANGLED),
+        k3_tiles_f64_loop_per_pair=k3_loop_census(sass),
         stats_ptxas=ptxas_report(_build.BUILD_LOG or "", STATS_MANGLED))
 
 
@@ -510,13 +519,17 @@ K1_TILES = {f"k1_tiles<{t}, {ab}>": f"k1_tilesI{c}Lb{int(ab == 'true')}E"
             for t, c in (("double", "d"), ("float", "f")) for ab in ("false", "true")}
 
 
-def tensor_core_counts(_build) -> dict:
-    """DMMA and HMMA instructions in each of K1's tile kernels (per dtype,
-    the self-join's and the two-operand instantiation), counted in
-    ``cuobjdump -sass`` of the built library."""
+def library_sass(_build) -> str:
+    """``cuobjdump -sass`` of the built library."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
+    return subprocess.run([cuobjdump, "-sass", _build.library_path()],
                           capture_output=True, text=True, check=True).stdout
+
+
+def tensor_core_counts(sass: str) -> dict:
+    """DMMA and HMMA instructions in each of K1's tile kernels (per dtype,
+    the self-join's and the two-operand instantiation), counted in the
+    library's SASS."""
     out = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
@@ -527,6 +540,41 @@ def tensor_core_counts(_build) -> dict:
                 out[key] = {kind: sum(op.startswith(kind + ".") or op == kind
                                       for op in ops) for kind in ("DMMA", "HMMA")}
     require(set(out) == set(K1_TILES), f"K1's tile kernels not found in the SASS: {sorted(out)}")
+    return out
+
+
+def sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    if base in ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"):
+        return "fp64"
+    if base in ("SEL", "FSEL", "MOV") or op.startswith("IMAD.MOV"):
+        return "selects_moves"
+    return {"LDS": "shared_loads", "SHFL": "shuffles"}.get(base, "other")
+
+
+def k3_loop_census(sass: str) -> dict:
+    """The instructions of ``k3_tiles<double>``'s sub-tile loop (from its
+    longest backward branch's target to the branch) by class, per pair a
+    lane sweeps in one pass (K3_LOOP_PAIRS), from the library's SASS."""
+    section = next(sec for sec in sass.split("Function : ")[1:]
+                   if K3_MANGLED["k3_tiles<double>"] in sec.split(None, 1)[0])
+    ins = []
+    for ln in section.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if m:
+            words = m.group(2).split()
+            ins.append((int(m.group(1), 16), words[1] if words[0].startswith("@") else words[0],
+                        words[-1]))
+    back = [(int(last, 16), at) for at, op, last in ins
+            if op.startswith("BRA") and last.startswith("0x") and int(last, 16) < at]
+    require(bool(back), "k3_tiles<double> has no loop in the SASS")
+    lo, hi = max(back, key=lambda b: b[1] - b[0])
+    counts = {}
+    for at, op, _ in ins:
+        if lo <= at <= hi:
+            counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
+    out = {k: v / K3_LOOP_PAIRS for k, v in sorted(counts.items())}
+    out["all"] = sum(counts.values()) / K3_LOOP_PAIRS
     return out
 
 

@@ -14,10 +14,16 @@
 //
 // Bound: eight floating-point instructions a pair (the update: multiply,
 // FMA, add; P: two multiplies; the NaN test; the row and the column
-// comparison; here the NaN test is folded into the comparisons) of the
-// statistics' type; device-memory traffic is O(S + W) statistics plus the
-// partials.  So K3 is bound by instructions, and it reaches that bound only
-// if the card is full of independent work.
+// comparison) of the statistics' type; device-memory traffic is O(S + W)
+// statistics plus the partials.  So K3 is bound by instructions.  Here a
+// pair takes six FP64 instructions: the update is two dependent FMAs,
+//   QT = fma(df_c[i+j], dg_r[i], fma(df_r[i], dg_c[i+j], QT)),
+// another rounding of the same sum in float64, and the NaN test is folded
+// into the comparisons.  An FP64 instruction holds the pipe two cycles a
+// warp and a sub-partition issues one instruction a cycle, so the loop runs
+// at the FP64 rate only while a pair costs at most twelve issue slots: the
+// selects, shared loads, shuffles and staging around the arithmetic are what
+// this design counts (PERF.md section 6 has the census).
 //
 // Arithmetic: float64 for float32 and float64 statistics alike (the seed,
 // the segment sums, QT, P and the comparisons; the outputs are rounded to
@@ -56,30 +62,38 @@
 //   scan moved max |dP| against the sequential recurrence by 5.1e-14 to
 //   6.4e-14 in f64 for R = 64..512 (3.5e-5 to 3.7e-5 in f32), exact reseeds
 //   every 256 rows by 1.2e-12.)  At S = 4096, W = 16384 the grid is
-//   (W / BW) x (S / R) = 128 x 16 blocks, not 128.
-// * Several diagonals a thread.  A block is one warp; lane t owns the D
-//   adjacent diagonals tD .. tD + D - 1 of the block's BW, so it runs D
-//   independent QT chains, reduces its D pairs of a row in registers, and
+//   (W / BW) x (S / R) = 64 x 16 blocks, not 64.
+// * Several diagonals a thread.  A block is one warp; lane t owns the D = 8
+//   adjacent diagonals tD .. tD + D - 1 of the block's BW = 256, so it runs
+//   D independent QT chains, reduces its D pairs of a row in registers, and
 //   slides a window of D column statistics down the rows, loading one
-//   new column a row.  There is no block barrier at all.  Registers are
-//   capped at 128 (TILES_PER_SM = 16 blocks an SM), which spills a few
-//   bytes and ran faster than 137 registers and 12 blocks did.
-// * Rows: every RR rows the lanes' (value, column) maxima are reduced by a
-//   transposing butterfly (each exchange halves the rows a lane holds), a
-//   little over one shuffle exchange per row and lane.
-// * Columns: lane t's pairs of D consecutive rows touch 2D - 1 consecutive
-//   columns, of which the first D are touched next by lane t - 1 in the
-//   next D rows.  So each lane keeps 2D - 1 column accumulators in
-//   registers and, every D rows, hands the lower D to lane t - 1 (a
-//   shuffle) and merges the upper D - 1 into what lane t + 1 hands it:
-//   a systolic column reduce with no shared memory; lane 0 writes the
-//   completed columns.  The segment's last group is flushed by every lane.
-// * Staging: each TR-row sub-tile's statistics (BW + TR - 1 columns, TR
-//   rows) are copied by cp.async into one of two shared buffers while the
-//   other is in use; a masked row or column gets a NaN inverse norm, so its
-//   pairs' P is NaN and loses every comparison, and band row 0 gets a zero
-//   update.  The column buffers are padded one element in 128 bytes, so
-//   the lanes' stride-D reads hit distinct banks.
+//   new column a row.  There is no block barrier at all.  The row reduce
+//   and the column hand-off cost the same per row whatever D, so eight
+//   diagonals share them among twice the pairs four did.  At 255 registers
+//   (TILES_PER_SM = 8) nothing spills; capped at 168 for more blocks an SM
+//   it spills or runs slower (PERF.md section 6).
+// * Exclusion zone: a diagonal in it, or past W, starts its carry at NaN,
+//   so its pairs lose every comparison as a masked row's or column's do;
+//   the pair loop has no mask of its own.
+// * Rows: each lane writes its row maximum (value, column) to shared memory;
+//   every TR = 16 rows two lanes a row take half of its lanes each, in lane
+//   order, and one shuffle joins the halves.  A shuffle butterfly in
+//   registers took a third of the sweep's time.
+// * Columns: at row y lane t's pairs touch columns y + tD .. y + tD + D - 1;
+//   after the row, column y + tD is next touched by lane t - 1, as its last
+//   column, in the next D rows, and by no other lane meanwhile.  So each
+//   lane keeps D column accumulators in registers and, every row, hands
+//   its first to lane t - 1 (one shuffle exchange, no merge), and lane 0
+//   writes the completed column.  The segment's last columns are flushed
+//   by every lane.
+// * Staging: a block loads its segment's statistics (R rows, R + BW - 1
+//   columns) into shared memory once, coalesced, folding in the masks: a
+//   masked row or column gets a NaN inverse norm, so its pairs' P is NaN
+//   and loses every comparison, and band row 0 gets a zero update.  Column
+//   x sits in class x % D at position x / D, so a row's new columns are
+//   consecutive across the lanes (no bank conflict) at an address that is a
+//   register a sub-tile plus a constant.  Staging every 16 rows the ~BW
+//   columns a sub-tile reaches, and masking them, took a fifth of the time.
 // * k3_segsum loads its segment's statistics whole into shared memory,
 //   coalesced, before summing: stride-D reads of device memory bounded
 //   it before.
@@ -106,22 +120,18 @@
 // The wrapper allocates all scratch; the kernels allocate nothing.
 
 #include <atomic>
-#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int LANES = 32;
-constexpr int D = 4;                  // adjacent diagonals per lane
+constexpr int D = 8;                  // adjacent diagonals per lane
 constexpr int BW = LANES * D;         // diagonals per block (one warp)
 constexpr int R = 256;                // rows per segment
-constexpr int TR = 16;                // rows per staged sub-tile
-constexpr int LOG2_RR = 3;
-constexpr int RR = 1 << LOG2_RR;      // rows per register row reduce
-constexpr int CW = BW + TR - 1;       // columns one sub-tile touches
+constexpr int TR = 16;                // rows per sub-tile: the row reduce's batch
 constexpr int BCOLS = R + BW - 1;     // columns of one block's partial
 constexpr int NSUB = R / TR;
-constexpr int TILES_PER_SM = 16;      // k3_tiles blocks an SM should hold: caps registers
+constexpr int TILES_PER_SM = 8;       // k3_tiles blocks an SM should hold: caps registers
 constexpr int REDUCE_THREADS = 256;
 constexpr int RED_OUT = 32;                           // outputs per reduce block
 constexpr int RED_SLICES = REDUCE_THREADS / RED_OUT;  // warps over an output's partials
@@ -134,8 +144,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // rows within the f32 tolerance (see the header).
 using Acc = double;
 
-static_assert(R % TR == 0 && TR % D == 0 && TR % RR == 0, "row tiling");
-static_assert(RR <= LANES, "row reduce");
+static_assert(R % TR == 0 && TR % D == 0, "row tiling");
+static_assert(LANES == 2 * TR, "row reduce: two lanes a row");
 
 template <typename T>
 __device__ __forceinline__ T aggregate_init() { return T(-1e12); }
@@ -170,70 +180,82 @@ __device__ __forceinline__ void take_better(T& v, int& i, T v2, int i2) {
 template <typename T>
 __host__ __device__ constexpr int col_slot(int x) { return x + x / (128 / (int)sizeof(T)); }
 
+// A k3_tiles block's statistics, staged once: the segment's R rows and the
+// BCOLS columns its pairs reach, column x at [x % D][x / D].  At a row every
+// lane's new column is in one class, at consecutive positions: the reads
+// are conflict-free, and their addresses a register a sub-tile plus
+// constants.
 template <typename T>
-struct Stage {
-  T dfc[col_slot<T>(CW - 1) + 1], dgc[col_slot<T>(CW - 1) + 1], invc[col_slot<T>(CW - 1) + 1];
-  T dfr[TR], dgr[TR], invr[TR];
+struct Segment {
+  T dfc[D][BCOLS / D + 1], dgc[D][BCOLS / D + 1], invc[D][BCOLS / D + 1];
+  T dfr[R], dgr[R], invr[R];
 };
 
-template <int N>
-__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-               :: "r"(d), "l"(src), "n"(N), "r"(src_bytes));
-}
+// The lanes' row maxima of one sub-tile: row ii's of lane t at [ii][t],
+// rows padded so both the writes and the reduce's reads are conflict-free.
+struct RowMaxima {
+  Acc v[TR][LANES + 1];
+  int i[TR][LANES + 1];
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Copy the statistics of the sub-tile whose first band row is i0 and first
-// column (relative to c0) is t0; zero-fill what lies outside the job.
-template <typename T>
-__device__ __forceinline__ void stage_issue(Stage<T>& s, const T* df_r, const T* dg_r,
-                                            const T* inv_r, const T* df_c, const T* dg_c,
-                                            const T* inv_c, int i0, int t0, int S, int SW,
-                                            int lane) {
-  constexpr int E = sizeof(T);
-  for (int x = lane; x < CW; x += LANES) {
-    const int t = t0 + x;
-    const int tt = t < SW ? t : 0;
-    const int bytes = t < SW ? E : 0;
-    const int p = col_slot<T>(x);
-    cp_async_elem<E>(&s.dfc[p], df_c + tt, bytes);
-    cp_async_elem<E>(&s.dgc[p], dg_c + tt, bytes);
-    cp_async_elem<E>(&s.invc[p], inv_c + tt, bytes);
-  }
-  if (lane < TR) {
-    const int i = i0 + lane;
-    const int ii = i < S ? i : 0;
-    const int bytes = i < S ? E : 0;
-    cp_async_elem<E>(&s.dfr[lane], df_r + ii, bytes);
-    cp_async_elem<E>(&s.dgr[lane], dg_r + ii, bytes);
-    cp_async_elem<E>(&s.invr[lane], inv_r + ii, bytes);
-  }
-}
-
-// Fold the masks into the staged statistics: a masked row or column gets a
-// NaN inverse norm (so every pair on it fails the NaN test), band row 0 a
+// Load the block's rows [gr0, gr0 + R) and columns [t0, t0 + BCOLS) (t0
+// relative to c0) with the masks folded in: a masked row or column (past
+// the job or the profile, or a non-finite inverse norm) gets a NaN inverse
+// norm, so every pair on it is NaN and loses every comparison; band row 0 a
 // zero update (it takes the seed alone).
 template <typename T>
-__device__ __forceinline__ void stage_fixup(Stage<T>& s, int i0, int t0, int r0, int c0,
-                                            int S, int SW, int w, int lane) {
-  for (int x = lane; x < CW; x += LANES) {
+__device__ __forceinline__ void stage_segment(Segment<T>& s, const T* __restrict__ df,
+                                              const T* __restrict__ dg,
+                                              const T* __restrict__ inv, int r0, int c0,
+                                              int gr0, int t0, int S, int SW, int w,
+                                              int lane) {
+  const T nan = quiet_nan<T>();
+#pragma unroll 4
+  for (int x = lane; x < BCOLS; x += LANES) {
     const int t = t0 + x;
-    const int p = col_slot<T>(x);
-    if (!(t < SW && c0 + t <= w - 1 && isfinite(s.invc[p]))) s.invc[p] = quiet_nan<T>();
+    const bool in = t < SW;
+    const T iv = in ? inv[c0 + t] : T(0);
+    s.dfc[x % D][x / D] = in ? df[c0 + t] : T(0);
+    s.dgc[x % D][x / D] = in ? dg[c0 + t] : T(0);
+    s.invc[x % D][x / D] = in && c0 + t <= w - 1 && isfinite(iv) ? iv : nan;
   }
-  if (lane < TR) {
-    const int i = i0 + lane;
-    if (!(i < S && r0 + i <= w - 1 && isfinite(s.invr[lane]))) s.invr[lane] = quiet_nan<T>();
-    if (i == 0) { s.dfr[lane] = T(0); s.dgr[lane] = T(0); }
+#pragma unroll 4
+  for (int y = lane; y < R; y += LANES) {
+    const int i = gr0 + y;
+    const bool in = i < S;
+    const T iv = in ? inv[r0 + i] : T(0);
+    s.dfr[y] = in && i > 0 ? df[r0 + i] : T(0);
+    s.dgr[y] = in && i > 0 ? dg[r0 + i] : T(0);
+    s.invr[y] = in && r0 + i <= w - 1 && isfinite(iv) ? iv : nan;
   }
+}
+
+// Row r of a sub-tile's maxima, over lanes [h LANES / 2, (h + 1) LANES / 2):
+// the lanes' columns rise with the lane, so taking a later lane's only on a
+// strict > keeps the smallest column of a tie.  Four runs of four lanes,
+// then the runs in order.
+__device__ __forceinline__ void row_half_max(const RowMaxima& rows, int r, int h, Acc& v,
+                                             int& vi) {
+  constexpr int RUN = LANES / 2 / 4;
+  Acc rv[4];
+  int ri[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int t0 = h * (LANES / 2) + q * RUN;
+    rv[q] = rows.v[r][t0];
+    ri[q] = rows.i[r][t0];
+#pragma unroll
+    for (int t = 1; t < RUN; ++t) {
+      const Acc v2 = rows.v[r][t0 + t];
+      const int i2 = rows.i[r][t0 + t];
+      if (v2 > rv[q]) { rv[q] = v2; ri[q] = i2; }
+    }
+  }
+  v = rv[0];
+  vi = ri[0];
+#pragma unroll
+  for (int q = 1; q < 4; ++q)
+    if (rv[q] > v) { v = rv[q]; vi = ri[q]; }
 }
 
 // Sum of segment g's update terms, in row order, for each diagonal; one
@@ -286,37 +308,11 @@ k3_segsum(const T* __restrict__ df, const T* __restrict__ dg, Jobs jobs,
     wdg[D - 1] = s_dgc[col_slot<Acc>(y + jl + D - 1)];
     const Acc dfr = s_dfr[y], dgr = s_dgr[y];
 #pragma unroll
-    for (int d = 0; d < D; ++d) s[d] += fma(dfr, wdg[d], wdf[d] * dgr);
+    for (int d = 0; d < D; ++d) s[d] = fma(wdf[d], dgr, fma(dfr, wdg[d], s[d]));
   }
 #pragma unroll
   for (int d = 0; d < D; ++d)
     if (j0 + jl + d < W) seg[(size_t)g * W + j0 + jl + d] = s[d];
-}
-
-// Reduce RR rows' (value, column) maxima held by every lane (rv[k], ri[k]
-// for row k) to one per row; lane l ends with row l / (LANES / RR) in
-// rv[0], ri[0].
-template <typename T>
-__device__ __forceinline__ void reduce_rows(T (&rv)[RR], int (&ri)[RR], int lane) {
-#pragma unroll
-  for (int st = 0; st < LOG2_RR; ++st) {
-    const int o = LANES >> (st + 1);
-    const int h = RR >> (st + 1);
-    const bool up = lane & o;
-#pragma unroll
-    for (int k = 0; k < h; ++k) {
-      const T sv = up ? rv[k] : rv[k + h];
-      const int si = up ? ri[k] : ri[k + h];
-      T kv = up ? rv[k + h] : rv[k];
-      int ki = up ? ri[k + h] : ri[k];
-      take_better(kv, ki, __shfl_xor_sync(FULL, sv, o), __shfl_xor_sync(FULL, si, o));
-      rv[k] = kv;
-      ri[k] = ki;
-    }
-  }
-#pragma unroll
-  for (int o = LANES / RR / 2; o > 0; o >>= 1)
-    take_better(rv[0], ri[0], __shfl_xor_sync(FULL, rv[0], o), __shfl_xor_sync(FULL, ri[0], o));
 }
 
 // One segment of one diagonal block of job blockIdx.z: block (jb, g, z)
@@ -329,17 +325,12 @@ k3_tiles(const T* __restrict__ df, const T* __restrict__ dg, const T* __restrict
          Jobs jobs, const Acc* __restrict__ seed, const Acc* __restrict__ seg,
          int S, int W, int w, int excl, T* __restrict__ part_rv,
          int* __restrict__ part_ri, T* __restrict__ part_cv, int* __restrict__ part_ci) {
-  __shared__ Stage<T> stage[2];
+  __shared__ Segment<T> s;
+  __shared__ RowMaxima rows;
 
   const int2 job = job_at(jobs, blockIdx.z);
   const int r0 = job.x, k0 = job.y;
   const int c0 = r0 + k0;
-  const T* df_r = df + r0;
-  const T* dg_r = dg + r0;
-  const T* inv_r = inv + r0;
-  const T* df_c = df + c0;
-  const T* dg_c = dg + c0;
-  const T* inv_c = inv + c0;
   {
     const size_t z = blockIdx.z;
     seed += z * W;
@@ -359,127 +350,103 @@ k3_tiles(const T* __restrict__ df, const T* __restrict__ dg, const T* __restrict
   const int gr0 = g * R;              // segment's first band row
 
   // The carry: the seed plus the earlier segments' sums, in segment order.
+  // A diagonal outside the job (j >= W) or in the exclusion zone starts at
+  // NaN, so every pair on it is NaN and loses every comparison below, as a
+  // masked row or column does (stage_segment).
   Acc qt[D];
-  bool dok[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const int j = j0 + jl + d;
-    Acc q = Acc(0);
-    if (j < W) {
+    Acc q = quiet_nan<Acc>();
+    if (j < W && k0 + j >= excl) {
       q = seed[j];
       for (int h = 0; h < g; ++h) q += seg[(size_t)h * W + j];
     }
     qt[d] = q;
-    dok[d] = j < W && k0 + j >= excl;
   }
 
-  // Column accumulators: av[e] is column (q + lane) D + e of the segment
-  // during row group q (rows qD .. qD + D - 1).
-  Acc av[2 * D - 1];
-  int ai[2 * D - 1];
+  // Column accumulators: during segment row y, av[d] is column y + jl + d of
+  // the block's partial, the column of this lane's diagonal d.
+  Acc av[D];
+  int ai[D];
 #pragma unroll
-  for (int e = 0; e < 2 * D - 1; ++e) { av[e] = init; ai[e] = -1; }
+  for (int d = 0; d < D; ++d) { av[d] = init; ai[d] = -1; }
   T* out_cv = part_cv + ((size_t)g * gridDim.x + jb) * BCOLS;
   int* out_ci = part_ci + ((size_t)g * gridDim.x + jb) * BCOLS;
-  Acc rv[RR];
-  int ri[RR];
 
-  stage_issue(stage[0], df_r, dg_r, inv_r, df_c, dg_c, inv_c, gr0, gr0 + j0, S, SW, lane);
-  cp_async_commit();
-  for (int k = 0; k < NSUB; ++k) {
-    const int i0 = gr0 + k * TR;      // band row of the sub-tile's first row
-    if (k + 1 < NSUB)
-      stage_issue(stage[(k + 1) & 1], df_r, dg_r, inv_r, df_c, dg_c, inv_c, i0 + TR,
-                  i0 + TR + j0, S, SW, lane);
-    cp_async_commit();                // possibly empty: keeps the group count
-    cp_async_wait1();
-    __syncwarp();
-    Stage<T>& s = stage[k & 1];
-    stage_fixup(s, i0, i0 + j0, r0, c0, S, SW, w, lane);
-    __syncwarp();
+  stage_segment(s, df, dg, inv, r0, c0, gr0, gr0 + j0, S, SW, w, lane);
+  __syncwarp();
 
-    Acc wdf[D], wdg[D], winv[D];      // columns ii + jl + d of the sub-tile
+  Acc wdf[D], wdg[D], winv[D];        // at row y, columns y + jl + d
 #pragma unroll
-    for (int d = 0; d < D - 1; ++d) {
-      const int p = col_slot<T>(jl + d);
-      wdf[d + 1] = s.dfc[p]; wdg[d + 1] = s.dgc[p]; winv[d + 1] = s.invc[p];
-    }
+  for (int d = 0; d < D - 1; ++d) {   // column jl + d: class d, position lane
+    wdf[d + 1] = s.dfc[d][lane]; wdg[d + 1] = s.dgc[d][lane]; winv[d + 1] = s.invc[d][lane];
+  }
+  for (int k = 0; k < NSUB; ++k) {
 #pragma unroll
     for (int ii = 0; ii < TR; ++ii) {
+      const int y = k * TR + ii;      // segment row
 #pragma unroll
       for (int d = 0; d + 1 < D; ++d) { wdf[d] = wdf[d + 1]; wdg[d] = wdg[d + 1]; winv[d] = winv[d + 1]; }
       {
-        const int p = col_slot<T>(ii + jl + D - 1);
-        wdf[D - 1] = s.dfc[p]; wdg[D - 1] = s.dgc[p]; winv[D - 1] = s.invc[p];
+        // Column y + jl + D - 1.
+        const int c = (ii + D - 1) % D, q = lane + k * (TR / D) + (ii + D - 1) / D;
+        wdf[D - 1] = s.dfc[c][q]; wdg[D - 1] = s.dgc[c][q]; winv[D - 1] = s.invc[c][q];
       }
-      const Acc dfr = s.dfr[ii], dgr = s.dgr[ii], ivr = s.invr[ii];
-      const int r = ii % D;           // row within its group
+      const Acc dfr = s.dfr[y], dgr = s.dgr[y], ivr = s.invr[y];
       Acc v = init;
       int vd = 0;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        qt[d] += fma(dfr, wdg[d], wdf[d] * dgr);
+        qt[d] = fma(wdf[d], dgr, fma(dfr, wdg[d], qt[d]));
         const Acc p = qt[d] * ivr * winv[d];
-        // A NaN p (a masked row or column) fails both comparisons below.
-        const Acc pm = dok[d] ? p : init;
-        if (pm > v) { v = pm; vd = d; }
-        if (pm > av[r + d]) { av[r + d] = pm; ai[r + d] = r0 + i0 + ii; }
+        // A NaN p (a masked row, column or diagonal) fails both comparisons.
+        if (p > v) { v = p; vd = d; }
+        if (p > av[d]) { av[d] = p; ai[d] = r0 + gr0 + y; }
       }
-      rv[ii % RR] = v;
-      ri[ii % RR] = c0 + i0 + ii + j0 + jl + vd;
+      rows.v[ii][lane] = v;
+      rows.i[ii][lane] = c0 + gr0 + y + j0 + jl + vd;
 
-      if (ii % RR == RR - 1) {
-        reduce_rows(rv, ri, lane);
-        const int i = i0 + ii - (RR - 1) + lane / (LANES / RR);
-        if (lane % (LANES / RR) == 0 && i < S) {
-          part_rv[(size_t)jb * S + i] = T(rv[0]);
-          part_ri[(size_t)jb * S + i] = ri[0];
-        }
-      }
+      // Column y + jl leaves this lane: no later row of the segment reaches
+      // it here, and the next D rows reach it in lane - 1 (as its av[D - 1]).
+      // Lane 0's is complete: it writes it.  Lane 31 starts column y + BW.
+      if (lane == 0) { out_cv[y] = T(av[0]); out_ci[y] = ai[0]; }
+      const Acc nv = __shfl_down_sync(FULL, av[0], 1);
+      const int ni = __shfl_down_sync(FULL, ai[0], 1);
+#pragma unroll
+      for (int d = 0; d + 1 < D; ++d) { av[d] = av[d + 1]; ai[d] = ai[d + 1]; }
+      av[D - 1] = lane == LANES - 1 ? init : nv;
+      ai[D - 1] = lane == LANES - 1 ? -1 : ni;
+    }
 
-      // End of row group q: hand the lower D columns to lane - 1 (lane 0
-      // writes them: complete), merge the upper D - 1 into lane + 1's.
-      if (r == D - 1 && !(k == NSUB - 1 && ii == TR - 1)) {
-        const int q = (k * TR + ii) / D;
-        if (lane == 0) {
-#pragma unroll
-          for (int e = 0; e < D; ++e) { out_cv[q * D + e] = T(av[e]); out_ci[q * D + e] = ai[e]; }
-        }
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-          Acc nv = __shfl_down_sync(FULL, av[e], 1);
-          int ni = __shfl_down_sync(FULL, ai[e], 1);
-          if (lane == LANES - 1) { nv = init; ni = -1; }
-          if (e < D - 1) take_better(nv, ni, av[e + D], ai[e + D]);
-          av[e] = nv;
-          ai[e] = ni;
-        }
-#pragma unroll
-        for (int e = D; e < 2 * D - 1; ++e) { av[e] = init; ai[e] = -1; }
+    // The sub-tile's row maxima: lanes r and r + TR each take half of row
+    // r's lanes; the lower half's columns are the smaller, so the upper
+    // half's maximum wins only a strict >.
+    __syncwarp();
+    {
+      const int r = lane % TR, h = lane / TR;
+      Acc v;
+      int vi;
+      row_half_max(rows, r, h, v, vi);
+      const Acc v2 = __shfl_down_sync(FULL, v, TR);
+      const int i2 = __shfl_down_sync(FULL, vi, TR);
+      if (v2 > v) { v = v2; vi = i2; }
+      const int i = gr0 + k * TR + r;
+      if (h == 0 && i < S) {
+        part_rv[(size_t)jb * S + i] = T(v);
+        part_ri[(size_t)jb * S + i] = vi;
       }
     }
-    __syncwarp();                     // the buffer is read: the next copy may land
+    __syncwarp();                     // rows is read: the next sub-tile may write it
   }
 
-  // The segment's last row group: lane t's upper columns are lane t + 1's
-  // lower ones; every lane writes its lower D, lane 31 also its upper D - 1.
-  const int q = R / D - 1;
+  // The columns the segment's rows left in the lanes: R + jl + d, all but
+  // lane 31's last (column R + BW - 1, which no row reached).
 #pragma unroll
-  for (int e = 0; e < D - 1; ++e) {
-    const Acc v2 = __shfl_up_sync(FULL, av[e + D], 1);
-    const int i2 = __shfl_up_sync(FULL, ai[e + D], 1);
-    if (lane > 0) take_better(av[e], ai[e], v2, i2);
-  }
-#pragma unroll
-  for (int e = 0; e < D; ++e) {
-    out_cv[(q + lane) * D + e] = T(av[e]);
-    out_ci[(q + lane) * D + e] = ai[e];
-  }
-  if (lane == LANES - 1) {
-#pragma unroll
-    for (int e = 0; e < D - 1; ++e) {
-      out_cv[(q + LANES) * D + e] = T(av[e + D]);
-      out_ci[(q + LANES) * D + e] = ai[e + D];
+  for (int d = 0; d < D; ++d) {
+    if (R + jl + d < BCOLS) {
+      out_cv[R + jl + d] = T(av[d]);
+      out_ci[R + jl + d] = ai[d];
     }
   }
 }

@@ -155,13 +155,15 @@ def assert_near_exact(out, exact, r0, k0, tol) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("m", [4, 37, 256])
 @pytest.mark.parametrize("band,chunk", [(4096, 16384), (4096, 700), (1000, 16384),
-                                        (1000, 700), (S, W)])
+                                        (1000, 700), (S, W), (1000, 384), (S, 200)])
 def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
     """Bands of one to sixteen row segments (1000 rows: a ragged last
-    one), chunks on and off the kernel's 128-diagonal blocks, on a series
+    one), chunks on and off the kernel's 256-diagonal blocks (384 and 700
+    a part-filled last block, 200 a block part empty), on a series
     with a constant run (zero-variance windows, and near-constant ones
     beside them whose large inverse norms amplify the recurrence's
-    rounding); jobs on the first band, the exclusion zone over the
+    rounding); jobs on the first band (its exclusion edge, m // 4, inside
+    one lane's eight diagonals at m = 4 and 37), the exclusion zone over the
     constant run, rows past w-1 and columns past w-1.  K3 and the plain
     version (in the statistics' dtype) are each held to the exact
     recurrence of the same statistics; on the jobs away from the constant
@@ -195,6 +197,43 @@ def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
     assert counters()["launches.k3"] == launches + len(jobs)
     print(f"\nK3 readings {dtype} m={m} band={band} chunk={chunk}: "
           f"K3 vs exact {k3_err:.3e}, plain vs exact {plain_err:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k3_exact_ties_pick_the_smallest_index(card, dtype):
+    """A series of one zero-sum pattern of small integers repeated with
+    period 3, m = 36: every window's mean is 0 and its norm the same, the
+    updates are 0 (m is a multiple of the period, so df is), the seeds are
+    exact integers (each k3_seed block's column segment and the plain
+    version's sum to 0, so both re-base by g = 0), and the pairs of a row
+    whose lag is a multiple of 3 tie exactly, across lanes, diagonal blocks
+    and segments.  K3 must pick the smallest column for a row and the
+    smallest row for a column, as the plain version does: indices equal,
+    values bit-equal in float64 (float32: the plain version rounds in
+    float32, K3 once from float64).  The first job's exclusion edge
+    (m // 4 = 9) falls inside lane 1's diagonals."""
+    m, band, chunk, period = 36, 1000, 1024, 3
+    n = 4 * band + chunk + m
+    w = n - m + 1
+    T = np.resize(np.array([2.0, -3.0, 1.0]), n)
+    assert (256 + m - 1) % period == 0 and (chunk + m - 1) % period == 0 and chunk % 256 == 0
+    stats = precompute_statistics(T, m, band=band, chunk=chunk, dtype=dtype, device=card)
+    geom = band_geometry(band, chunk, m, w)
+    for r0, k0 in [(0, 0), (band, 0), (301, chunk)]:
+        ours = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dtype)
+        ref = xla.sweep_band_xla(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+        for side in ("row", "col"):
+            a, b = getattr(ours, side), getattr(ref, side)
+            assert torch.equal(a.index, b.index), (r0, k0, side)
+            if dtype == "float64":
+                assert torch.equal(a.value, b.value), (r0, k0, side)
+            else:
+                err = (a.value.double() - b.value.double()).abs().max().item()
+                assert err <= K3_BAND_TOL[dtype], (r0, k0, side, err)
+        # Every row's maximum is the same tied lag class's value.
+        assert int((ours.row.value == ours.row.value.max()).sum()) == band
 
 
 @pytest.mark.cuda
@@ -1148,13 +1187,16 @@ def _tie_series(n: int, seed: int) -> np.ndarray:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("series", ["walk", "ties"])
-def test_k3_batches_match_the_per_job_loop(card, dtype, series):
+@pytest.mark.parametrize("series,chunk", [
+    pytest.param("walk", None, id="walk"), pytest.param("ties", None, id="ties"),
+    pytest.param("ties", 384, id="ties-chunk384"), pytest.param("walk", 200, id="walk-chunk200")])
+def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
     """The driver's K3 loop (``run_jobs``: batches of jobs, each one call
     that merges on the card) against the per-job loop (``sweep_jobs``: K3's
     one-job entry and two ``merge_window`` calls a job) at n = 2^16, m = 256
-    with the library's band and chunk.  Both compute a job's seed with the
-    same kernel, so the row and column aggregates are equal bit for bit,
+    with the library's band and chunk, or a chunk off K3's 256-diagonal
+    blocks (384) or narrower than one (200).  Both compute a job's seed
+    with the same kernel, so the row and column aggregates are equal bit for bit,
     values and indices: on a series with exact ties between jobs, the
     batched merge keeps the index the merges job after job keep."""
     from mpx_torch.config import make_job_grid
@@ -1165,7 +1207,8 @@ def test_k3_batches_match_the_per_job_loop(card, dtype, series):
     n, m = 1 << 16, 256
     w = n - m + 1
     T = _series(n, 23) if series == "walk" else _tie_series(n, 23)
-    cfg = MatrixProfileConfig(m=m, dtype=dtype, device="cuda").shrink_to(w)
+    cfg = MatrixProfileConfig(m=m, dtype=dtype, device="cuda",
+                              **({"chunk": chunk} if chunk else {})).shrink_to(w)
     dt = torch_dtype(dtype)
     stats = precompute_statistics(T, m, band=cfg.band, chunk=cfg.chunk, dtype=dtype,
                                   device=card, windows=False, exact_mean=True)

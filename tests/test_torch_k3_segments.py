@@ -23,8 +23,13 @@ the kernel to the plain version:
 * with one segment the emulation is the plain ``sweep_band_xla`` bit for
   bit.
 
-On products of float32 values the emulation's float64 ``a*b + c*d`` is the
-kernel's ``fma(a, b, c*d)`` exactly (both products are exact in float64).
+The kernel adds a row's two update products one at a time, as two
+dependent FMAs: ``fma(c, d, fma(a, b, q))``.  On float32 statistics both
+products are exact in float64, so the emulation's ``(q + a*b) + c*d`` is
+that exactly, and it runs in that form there.  numpy has no FMA, so on
+float64 statistics the emulation adds ``a*b + c*d`` as the plain version
+does: it isolates the segment order, and the card-only tests hold the
+kernel's own rounding.
 """
 
 import jax.numpy as jnp
@@ -63,21 +68,29 @@ SEGMENTS = [SEGMENT_ROWS, 100]
 EDGE_JOBS = [(0, 0), (1392, 0), (3480, 0), (2784, 512)]
 
 
-def k3_order_qt(df_r, dg_r, df_c, dg_c, seed, S, W, R):
-    """QT (S, W) in float64, summed in K3's order with segments of R rows."""
+def k3_order_qt(df_r, dg_r, df_c, dg_c, seed, S, W, R, one_at_a_time=False):
+    """QT (S, W) in float64, summed in K3's order with segments of R rows;
+    ``one_at_a_time`` adds a row's two update products one after the other
+    (the kernel's two FMAs where the products are exact), else their sum."""
     cols = np.lib.stride_tricks.sliding_window_view
-    U = df_r[:, None] * cols(dg_c, W)[:S] + cols(df_c, W)[:S] * dg_r[:, None]
-    U[0] = 0.0  # band row 0 is the seed alone
+    A = df_r[:, None] * cols(dg_c, W)[:S]
+    B = cols(df_c, W)[:S] * dg_r[:, None]
+    A[0] = B[0] = 0.0  # band row 0 is the seed alone
+    U = A + B
+
+    def add(x, i):
+        return (x + A[i]) + B[i] if one_at_a_time else x + U[i]
+
     QT = np.empty((S, W))
     carry = seed.copy()
     for g0 in range(0, S, R):
         q = carry.copy()
         for i in range(g0, min(g0 + R, S)):
-            q = q + U[i]
+            q = add(q, i)
             QT[i] = q
         seg = np.zeros(W)
         for i in range(g0, min(g0 + R, S)):
-            seg = seg + U[i]
+            seg = add(seg, i)
         carry = carry + seg
     return QT
 
@@ -94,7 +107,8 @@ def k3_order_sweep(stats, r0, k0, geom, dtype, R=SEGMENT_ROWS, seed=None):
     df_c, dg_c, inv_c = (f64(x[c0 : c0 + S + W]) for x in (stats.df, stats.dg, stats.inv))
     if seed is None:
         seed = seed_qt(stats, r0, c0, W, m, torch.float64)
-    QT = k3_order_qt(df_r, dg_r, df_c, dg_c, f64(seed), S, W, R)
+    QT = k3_order_qt(df_r, dg_r, df_c, dg_c, f64(seed), S, W, R,
+                     one_at_a_time=stats.df.dtype == torch.float32)
 
     t = np.arange(S)[:, None] + np.arange(W)[None, :]  # column of pair (i, j)
     with np.errstate(invalid="ignore", over="ignore"):
@@ -161,12 +175,19 @@ def test_emulation_segments_and_carries():
     df_c, dg_c = rng.standard_normal(S_ + W_), rng.standard_normal(S_ + W_)
     seed = rng.standard_normal(W_)
     QT = k3_order_qt(df_r, dg_r, df_c, dg_c, seed, S_, W_, R)
+    QT2 = k3_order_qt(df_r, dg_r, df_c, dg_c, seed, S_, W_, R, one_at_a_time=True)
     u = lambda i, j: df_r[i] * dg_c[i + j] + df_c[i + j] * dg_r[i]  # noqa: E731
+    # The kernel's form: the two products added one at a time.
+    u2 = lambda x, i, j: (x + df_r[i] * dg_c[i + j]) + df_c[i + j] * dg_r[i]  # noqa: E731
     for j in range(W_):
         seg = [(0.0 + u(1, j)) + u(2, j), ((0.0 + u(3, j)) + u(4, j)) + u(5, j)]
         assert QT[0, j] == seed[j]
         assert QT[3, j] == (seed[j] + seg[0]) + u(3, j)
         assert QT[6, j] == ((seed[j] + seg[0]) + seg[1]) + u(6, j)
+        seg2 = [u2(u2(0.0, 1, j), 2, j), u2(u2(u2(0.0, 3, j), 4, j), 5, j)]
+        assert QT2[0, j] == seed[j]
+        assert QT2[3, j] == u2(seed[j] + seg2[0], 3, j)
+        assert QT2[6, j] == u2((seed[j] + seg2[0]) + seg2[1], 6, j)
     assert -(-S // SEGMENT_ROWS) == 3 and S % SEGMENT_ROWS
 
 
