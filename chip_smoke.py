@@ -12,7 +12,7 @@ script exits nonzero without the final line):
    ptxas's registers and the count of tensor-core instructions (DMMA,
    HMMA) in each of K1's kernels, from ``cuobjdump -sass`` of the
    library, and the registers, spills and shared memory of K3's three
-   kernels (k3_segsum, k3_tiles, k3_reduce) and of the four
+   kernels (k3_segsum, k3_tiles, k3_merge) and of the four
    instantiations of ``window_stats``; the instructions of
    ``k3_tiles<double>``'s sub-tile loop by class, per pair;
 2. K1 against its plain PyTorch version on the card, band level, f32 and
@@ -489,7 +489,7 @@ def phase_build():
         stats_ptxas=ptxas_report(_build.BUILD_LOG or "", STATS_MANGLED))
 
 
-K3_MANGLED = {f"{k}<{t}>": f"{len(k)}{k}{c}" for k in ("k3_segsum", "k3_tiles", "k3_reduce")
+K3_MANGLED = {f"{k}<{t}>": f"{len(k)}{k}{c}" for k in ("k3_segsum", "k3_tiles", "k3_merge")
               for t, c in (("float", "If"), ("double", "Id"))}
 STATS_MANGLED = {f"window_stats<{q}, {r}>": f"12window_statsILb{int(q)}ELb{int(r)}E"
                  for q in (False, True) for r in (False, True)}
@@ -754,8 +754,7 @@ def stats_launches() -> int:
 
 
 def counts() -> dict:
-    """Launches of K1, jobs of K3 (``jobs.k3``: one launch each through its
-    one-job wrapper, a batch of them a launch through the driver's loop),
+    """Launches of K1, jobs of K3 (``jobs.k3``: a batch of them a launch),
     calls of their plain versions."""
     return {"k1": _since_reset("launches.k1"), "mxu": _since_reset("calls.mxu"),
             "k3": _since_reset("jobs.k3"), "xla": _since_reset("calls.xla")}
@@ -1020,20 +1019,37 @@ def phase_stats_backends(torch, T4) -> dict:
     return main
 
 
-def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
-    """CUDA-event time of K3's kernels alone on one job: the job's buffers
-    made once, then its four launches (seed, segment sums, sweep, reduce)
-    repeated (not counted)."""
-    from mpx_torch.kernels.recurrence import prepare_launch
+K3_KERNELS = ("k3_seed", "k3_segsum", "k3_tiles", "k3_merge")
 
-    launch, _ = prepare_launch(stats, r0, k0, geom, dtype)
-    stream = torch.cuda.current_stream().cuda_stream
-    return time_ms(torch, lambda: require(launch(stream) == 0, "K3 launch failed"), reps)
+
+def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
+    """K3's kernels alone on one job: the summed torch.profiler device
+    time of the four kernels (seed, segment sums, sweep, merge) of one
+    ``sweep_band_recurrence`` call, over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpx_torch.kernels.recurrence import sweep_band_recurrence
+
+    sweep_band_recurrence(stats, r0, k0, geom, dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            sweep_band_recurrence(stats, r0, k0, geom, dtype)
+        torch.cuda.synchronize()
+    us = {k: [] for k in K3_KERNELS}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in K3_KERNELS:
+                if f"{k}<" in e.name:
+                    us[k].append(e.time_range.elapsed_us())
+    require(all(len(v) == reps for v in us.values()),
+            f"K3 kernels traced per call: { {k: len(v) for k, v in us.items()} } of {reps}")
+    return sum(map(sum, us.values())) / reps / 1e3
 
 
 def k3_wrapper_ms(torch, stats, r0, k0, geom, dtype, reps: int = 50) -> float:
-    """CUDA-event time of one job through K3's one-job wrapper (the checks,
-    the allocations and the four launches).  Its host
+    """CUDA-event time of one job through K3's wrapper, a batch of one (the
+    checks, the allocations and the four launches).  Its host
     work can set the pace, and the host's clock is noisy: many runs."""
     from mpx_torch.kernels.recurrence import sweep_band_recurrence
 
@@ -1108,7 +1124,7 @@ def phase_band_k3(torch, dtype: str) -> dict:
         grid={"k3_segsum": [nbj, G - 1], "k3_tiles": [nbj, G], "threads": 32,
               "segment_rows": SEGMENT_ROWS},
         resident_blocks_per_sm={k: lib.mpx_k3_resident_blocks(f64, i) for i, k in
-                                enumerate(("k3_segsum", "k3_tiles", "k3_reduce"))},
+                                enumerate(("k3_segsum", "k3_tiles", "k3_merge"))},
         k3_ms_w32768=w2["k3_ms"], k3_kernels_ms_w32768=w2["k3_kernels_ms"],
         k3_share_of_bound_w32768=bound_w2 / w2["k3_ms"],
         k3_kernels_share_of_bound_w32768=bound_w2 / w2["k3_kernels_ms"],

@@ -97,26 +97,25 @@
 // * k3_segsum loads its segment's statistics whole into shared memory,
 //   coalesced, before summing: stride-D reads of device memory bounded
 //   it before.
-// * Partials and reduce: rows (W/BW, S), block (jb, g) writing rows
+// * Partials and merge: rows (W/BW, S), block (jb, g) writing rows
 //   [gR, gR + R); columns one (R + BW - 1) partial per (g, jb) block.
-//   k3_reduce merges, for each row, the W/BW partials and, for each column,
+//   k3_merge reduces, for each row, the W/BW partials and, for each column,
 //   every (g, jb) block that reaches it, spread over 8 warps per 32 outputs.
 //   Every reduction orders by value descending, then index ascending: the
 //   reference's tie rule, independent of the block schedule.
-// * Batches (mpx_k3_sweep_batch_*): the driver's loop over the self-join's
-//   jobs cost ~0.43 ms of host work a job (a seed of ~10 torch ops, seven
-//   allocations, the launch, two merges) against 0.16 ms of these kernels,
-//   so the card idled most of a self-join.  A batch is B jobs in one launch
-//   of each kernel: k3_segsum and k3_tiles take their job from blockIdx.z
-//   and its r0 / k0 from device arrays, and find their rows and columns in
-//   the whole statistics vectors.  k3_seed computes every job's seed
-//   (seed_qt's cancellation-resistant form; the one-job entry runs it too,
-//   so a job's values do not depend on the loop that sweeps it) and
-//   k3_merge reduces each job's
-//   partials and max-merges them straight into the global row and column
+// * Batches (mpx_k3_sweep_batch_*, the one entry): a loop over a
+//   self-join's jobs with one launch each cost ~0.43 ms of host work a job
+//   (a seed of ~10 torch ops, seven allocations, the launch, two merges)
+//   against 0.16 ms of these kernels, so the card idled most of a
+//   self-join.  A batch is B jobs in one launch of each kernel: k3_segsum
+//   and k3_tiles take their job from blockIdx.z and its r0 / k0 from device
+//   arrays, and find their rows and columns in the whole statistics
+//   vectors.  k3_seed computes every job's seed (seed_qt's
+//   cancellation-resistant form) and k3_merge reduces each job's partials
+//   and max-merges them straight into the global row and column
 //   aggregates, the jobs that reach an output in batch order with a strict
 //   >: the incumbent, then the earlier job, wins a tie, as job after job
-//   through the driver's merges.  A job's arithmetic is the one-job entry's.
+//   through merge_window.  One job is a batch of one.
 // The wrapper allocates all scratch; the kernels allocate nothing.
 
 #include <atomic>
@@ -156,18 +155,15 @@ template <> __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000ll);
 }
 
-// The jobs of a launch: block z sweeps job z, whose band rows start at r0
-// and diagonals at k0, read from the device arrays r0s / k0s (a batch) or,
-// when they are null, the one job (r0, k0).
+// The jobs of a launch: block z sweeps job z, whose band rows start at
+// r0s[z] and diagonals at k0s[z] (device arrays).
 struct Jobs {
   const int* r0s;
   const int* k0s;
-  int r0, k0;
 };
 
 __device__ __forceinline__ int2 job_at(const Jobs& jobs, int z) {
-  return jobs.r0s ? make_int2(__ldg(jobs.r0s + z), __ldg(jobs.k0s + z))
-                  : make_int2(jobs.r0, jobs.k0);
+  return make_int2(__ldg(jobs.r0s + z), __ldg(jobs.k0s + z));
 }
 
 // (v, i) <- the better of (v, i) and (v2, i2): larger value, then smaller index.
@@ -478,47 +474,15 @@ __device__ __forceinline__ void reduce_partials(
   }
 }
 
-// Reduce one job's partials to its BandOut: a block either owns RED_OUT
-// rows or RED_OUT columns, its RED_SLICES warps splitting the partials.  An
-// index stays -1 when the value is still the aggregate init.
-template <typename T>
-__global__ void __launch_bounds__(REDUCE_THREADS)
-k3_reduce(const T* __restrict__ part_rv, const int* __restrict__ part_ri,
-          const T* __restrict__ part_cv, const int* __restrict__ part_ci,
-          int S, int W, int nbj, int G,
-          T* __restrict__ row_v, int* __restrict__ row_i,
-          T* __restrict__ col_v, int* __restrict__ col_i) {
-  __shared__ T red_v[RED_SLICES][RED_OUT];
-  __shared__ int red_i[RED_SLICES][RED_OUT];
-  const T init = aggregate_init<T>();
-  const int row_blocks = (S + RED_OUT - 1) / RED_OUT;
-  const int lane = threadIdx.x % RED_OUT, q = threadIdx.x / RED_OUT;
-  const bool rows = (int)blockIdx.x < row_blocks;
-  const int t = (rows ? blockIdx.x : blockIdx.x - row_blocks) * RED_OUT + lane;
-  const bool live = t < (rows ? S : S + W);
-  T v = init;
-  int idx = -1;
-  if (live) reduce_partials(part_rv, part_ri, part_cv, part_ci, rows, t, q, S, nbj, G, v, idx);
-  red_v[q][lane] = v;
-  red_i[q][lane] = idx;
-  __syncthreads();
-  if (q == 0 && live) {
-#pragma unroll
-    for (int p = 1; p < RED_SLICES; ++p) take_better(v, idx, red_v[p][lane], red_i[p][lane]);
-    (rows ? row_v : col_v)[t] = v;
-    (rows ? row_i : col_i)[t] = v > init ? idx : -1;
-  }
-}
-
 // A batch's reduce and merge: a block owns RED_OUT consecutive outputs of
 // the global row aggregates (from row_lo) or of the column aggregates (from
 // col_lo).  For each job of the batch in order whose rows [r0, r0 + S) or
 // columns [c0, c0 + S + W) reach them, it reduces that job's partials there
-// as k3_reduce does and keeps a job's (value, index) only if its value beats
-// the earlier jobs' strictly; then the result replaces the global entry only
-// if it beats it strictly.  So the incumbent, then the earlier job, wins a
-// tie: the global aggregates end as a max-merge of the jobs' BandOuts job
-// after job would leave them.
+// (its RED_SLICES warps splitting them) and keeps a job's (value, index)
+// only if its value beats the earlier jobs' strictly; then the result
+// replaces the global entry only if it beats it strictly.  So the
+// incumbent, then the earlier job, wins a tie: the global aggregates end as
+// a max-merge of the jobs' BandOuts job after job would leave them.
 template <typename T>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 k3_merge(const T* __restrict__ part_rv, const int* __restrict__ part_ri,
@@ -620,8 +584,8 @@ k3_seed(const T* __restrict__ ts, const T* __restrict__ mu, Jobs jobs, int m, in
 }
 
 // Ask for the largest shared-memory carveout for k3_tiles (the default one
-// holds fewer of its blocks than its registers allow), once per device: the
-// driver's job loop launches K3 thousands of times.
+// holds fewer of its blocks than its registers allow), once per device: a
+// self-join launches K3 hundreds of times.
 constexpr int MAX_DEVICES = 64;
 
 template <typename T>
@@ -637,65 +601,8 @@ cudaError_t configure() {
   return err;
 }
 
-// k3_segsum (when the band has more than one segment), then k3_tiles, for
-// the B jobs of `jobs`.
-template <typename T>
-cudaError_t sweep(const T* df, const T* dg, const T* inv, Jobs jobs, int B, const Acc* seed,
-                  int S, int W, int w, int excl, Acc* seg, T* part_rv, int* part_ri,
-                  T* part_cv, int* part_ci, cudaStream_t st) {
-  const int nbj = (W + BW - 1) / BW;
-  const int G = (S + R - 1) / R;
-  cudaError_t err = configure<T>();
-  if (err != cudaSuccess) return err;
-  if (G > 1) {
-    k3_segsum<T><<<dim3(nbj, G - 1, B), LANES, 0, st>>>(df, dg, jobs, S, W, seg);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  k3_tiles<T><<<dim3(nbj, G, B), LANES, 0, st>>>(df, dg, inv, jobs, seed, seg, S, W, w, excl,
-                                                 part_rv, part_ri, part_cv, part_ci);
-  return cudaGetLastError();
-}
-
-// The seeds of B jobs (k3_seed), then their sweep.
-template <typename T>
-cudaError_t seed_and_sweep(const void* ts, const void* mu, const void* df, const void* dg,
-                           const void* inv, Jobs jobs, int B, int m, int S, int W, int w,
-                           int excl, void* seed, void* seg, void* part_rv, void* part_ri,
-                           void* part_cv, void* part_ci, cudaStream_t st) {
-  k3_seed<T><<<dim3((W + SEED_THREADS - 1) / SEED_THREADS, B), SEED_THREADS, 0, st>>>(
-      static_cast<const T*>(ts), static_cast<const T*>(mu), jobs, m, W,
-      static_cast<Acc*>(seed));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sweep<T>(static_cast<const T*>(df), static_cast<const T*>(dg),
-                  static_cast<const T*>(inv), jobs, B, static_cast<const Acc*>(seed), S, W, w,
-                  excl, static_cast<Acc*>(seg), static_cast<T*>(part_rv),
-                  static_cast<int*>(part_ri), static_cast<T*>(part_cv),
-                  static_cast<int*>(part_ci), st);
-}
-
-template <typename T>
-int launch(const void* ts, const void* mu, const void* df, const void* dg, const void* inv,
-           int m, int r0, int k0, int S, int W, int w, int excl, void* seed, void* seg,
-           void* part_rv, void* part_ri, void* part_cv, void* part_ci, void* row_v,
-           void* row_i, void* col_v, void* col_i, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nbj = (W + BW - 1) / BW;
-  const int G = (S + R - 1) / R;
-  cudaError_t err = seed_and_sweep<T>(ts, mu, df, dg, inv, Jobs{nullptr, nullptr, r0, k0}, 1,
-                                      m, S, W, w, excl, seed, seg, part_rv, part_ri, part_cv,
-                                      part_ci, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (S + RED_OUT - 1) / RED_OUT + (S + W + RED_OUT - 1) / RED_OUT;
-  k3_reduce<T><<<blocks, REDUCE_THREADS, 0, st>>>(
-      static_cast<const T*>(part_rv), static_cast<const int*>(part_ri),
-      static_cast<const T*>(part_cv), static_cast<const int*>(part_ci), S, W,
-      nbj, G, static_cast<T*>(row_v), static_cast<int*>(row_i),
-      static_cast<T*>(col_v), static_cast<int*>(col_i));
-  return static_cast<int>(cudaGetLastError());
-}
-
+// A batch: k3_seed, k3_segsum (when the band has more than one segment),
+// k3_tiles, then k3_merge, for the B jobs of r0s / k0s (see the entry).
 template <typename T>
 int launch_batch(const void* ts, const void* mu, const void* df, const void* dg,
                  const void* inv, const void* r0s, const void* k0s, int B, int m, int S,
@@ -706,17 +613,31 @@ int launch_batch(const void* ts, const void* mu, const void* df, const void* dg,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nbj = (W + BW - 1) / BW;
   const int G = (S + R - 1) / R;
-  const Jobs jobs{static_cast<const int*>(r0s), static_cast<const int*>(k0s), 0, 0};
-  const cudaError_t err = seed_and_sweep<T>(ts, mu, df, dg, inv, jobs, B, m, S, W, w, excl,
-                                            seed, seg, part_rv, part_ri, part_cv, part_ci, st);
+  const Jobs jobs{static_cast<const int*>(r0s), static_cast<const int*>(k0s)};
+  const T *tdf = static_cast<const T*>(df), *tdg = static_cast<const T*>(dg);
+  T *prv = static_cast<T*>(part_rv), *pcv = static_cast<T*>(part_cv);
+  int *pri = static_cast<int*>(part_ri), *pci = static_cast<int*>(part_ci);
+  cudaError_t err = configure<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  k3_seed<T><<<dim3((W + SEED_THREADS - 1) / SEED_THREADS, B), SEED_THREADS, 0, st>>>(
+      static_cast<const T*>(ts), static_cast<const T*>(mu), jobs, m, W,
+      static_cast<Acc*>(seed));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (G > 1) {
+    k3_segsum<T><<<dim3(nbj, G - 1, B), LANES, 0, st>>>(tdf, tdg, jobs, S, W,
+                                                        static_cast<Acc*>(seg));
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  k3_tiles<T><<<dim3(nbj, G, B), LANES, 0, st>>>(
+      tdf, tdg, static_cast<const T*>(inv), jobs, static_cast<const Acc*>(seed),
+      static_cast<const Acc*>(seg), S, W, w, excl, prv, pri, pcv, pci);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int row_blocks = (row_hi - row_lo + RED_OUT - 1) / RED_OUT;
   const int col_blocks = (col_hi - col_lo + RED_OUT - 1) / RED_OUT;
   k3_merge<T><<<row_blocks + col_blocks, REDUCE_THREADS, 0, st>>>(
-      static_cast<const T*>(part_rv), static_cast<const int*>(part_ri),
-      static_cast<const T*>(part_cv), static_cast<const int*>(part_ci), jobs, B, S, W, nbj,
-      G, row_lo, row_blocks, col_lo, static_cast<T*>(row_v), static_cast<int*>(row_i),
-      static_cast<T*>(col_v), static_cast<int*>(col_i));
+      prv, pri, pcv, pci, jobs, B, S, W, nbj, G, row_lo, row_blocks, col_lo,
+      static_cast<T*>(row_v), static_cast<int*>(row_i), static_cast<T*>(col_v),
+      static_cast<int*>(col_i));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -728,7 +649,7 @@ int resident_blocks(int which) {
   err =
       which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k3_segsum<T>, LANES, 0)
       : which == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k3_tiles<T>, LANES, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k3_reduce<T>, REDUCE_THREADS, 0);
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k3_merge<T>, REDUCE_THREADS, 0);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -741,35 +662,9 @@ int mpx_k3_segment_rows() { return R; }
 int mpx_k3_block_columns() { return BCOLS; }
 
 // Resident blocks per SM of k3_segsum (which = 0), k3_tiles (1) or
-// k3_reduce (2) in f64 (f64 != 0) or f32; a negative cudaError_t on failure.
+// k3_merge (2) in f64 (f64 != 0) or f32; a negative cudaError_t on failure.
 int mpx_k3_resident_blocks(int f64, int which) {
   return f64 ? resident_blocks<double>(which) : resident_blocks<float>(which);
-}
-
-// One job: its seed (k3_seed, as in a batch), segment sums (when the band
-// has more than one segment), sweep, then partial reduce, all on `stream`.
-// Returns a cudaError_t (0 on success).  Pointers are device pointers: the
-// series ts and the statistics mu, df, dg, inv, whole (the job's rows start
-// at r0, its columns at c0 = r0 + k0).  Scratch: the float64 seed (W,),
-// float64 segment sums (G - 1, W) with G = ceil(S / R) (unused when G = 1);
-// partials rows (ceil(W/BW), S), columns (G * ceil(W/BW),
-// mpx_k3_block_columns()); outputs rows (S,), columns (S + W,).
-int mpx_k3_sweep_f32(const void* ts, const void* mu, const void* df, const void* dg,
-                     const void* inv, int m, int r0, int k0, int S, int W, int w, int excl,
-                     void* seed, void* seg, void* part_rv, void* part_ri, void* part_cv,
-                     void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
-                     void* stream) {
-  return launch<float>(ts, mu, df, dg, inv, m, r0, k0, S, W, w, excl, seed, seg, part_rv,
-                       part_ri, part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
-}
-
-int mpx_k3_sweep_f64(const void* ts, const void* mu, const void* df, const void* dg,
-                     const void* inv, int m, int r0, int k0, int S, int W, int w, int excl,
-                     void* seed, void* seg, void* part_rv, void* part_ri, void* part_cv,
-                     void* part_ci, void* row_v, void* row_i, void* col_v, void* col_i,
-                     void* stream) {
-  return launch<double>(ts, mu, df, dg, inv, m, r0, k0, S, W, w, excl, seed, seg, part_rv,
-                        part_ri, part_cv, part_ci, row_v, row_i, col_v, col_i, stream);
 }
 
 // A batch of B jobs, all on `stream`: the seeds, the segment sums, the

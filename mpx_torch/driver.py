@@ -1,38 +1,31 @@
 """Driver: job loop, on-device merging, and the public API.
 
-Counterpart of ``mpx/driver.py``.  The statistics are staged once, then a
-Python loop walks the job grid in mpx's order (k0 outer, r0 inner), sweeps
-each job with the selected kernel, and max-merges its ``BandOut`` into
-global (w + S + W,) row/column aggregates at offsets r0 and r0 + k0.  The
-merge order is mpx's, so ties across jobs resolve to the same job.  K3
-(``kernel='pallas'``) walks the grid a batch of jobs at a time
-(:func:`mpx_torch.kernels.recurrence.sweep_batches`), merging in the same
-order on the card.  Kernel launches and merges are queued on the device's
-current stream; the host never waits inside the loop.
+Counterpart of ``mpx/driver.py``.  The statistics are staged once, then
+the job loop (:func:`mpx_torch.kernels.sweep_jobs`) walks the job grid in
+mpx's order (k0 outer, r0 inner), sweeps it with the selected kernel, and
+max-merges each job's ``BandOut`` into global (w + S + W,) row/column
+aggregates at offsets r0 and r0 + k0.  The merge order is mpx's, so ties
+across jobs resolve to the same job.  Kernel launches and merges are
+queued on the device's current stream; the host never waits inside the
+loop.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from mpx_torch.config import MatrixProfileConfig, config_for, make_job_grid
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
 from mpx_torch.kernels import (
     band_geometry,
-    get_sweep_fn,
     is_recurrence,
     needs_windows,
     resolve_kernel,
+    sweep_jobs,
 )
-from mpx_torch.ops.aggregates import (
-    init_aggregates,
-    merge_window,
-    postcompute,
-    postcompute_left_right,
-)
+from mpx_torch.ops.aggregates import init_aggregates, postcompute, postcompute_left_right
 from mpx_torch.ops.precompute import precompute_statistics
 from mpx_torch.types import Stats
 from mpx_torch.utils.profile import phase, span
@@ -43,42 +36,14 @@ def _agg_length(w: int, S: int, W: int) -> int:
     return w + S + W
 
 
-def _ints(x) -> list:
-    """Job offsets (an array, a list or a tensor on any device) as ints."""
-    return x.tolist() if isinstance(x, torch.Tensor) else np.asarray(x).tolist()
-
-
-def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype: torch.dtype, kernel: str,
-               rows, cols, stats_c: Optional[Stats] = None):
-    """Sweep the jobs (r0s[j], k0s[j]) one at a time with ``kernel``,
-    max-merging each job's outputs into the ``rows`` and ``cols``
-    aggregates in place; a generator that yields after each job's
-    launches, so a caller can interleave the jobs of several devices.
-    ``stats_c`` is the columns' statistics (a ring's visiting shard)."""
-    sweep = get_sweep_fn(kernel)
-    kw = {} if stats_c is None else {"stats_c": stats_c}
-    for r0, k0 in zip(_ints(r0s), _ints(k0s)):
-        out = sweep(stats, r0, k0, geom, dtype, **kw)
-        merge_window(rows, out.row, r0)
-        merge_window(cols, out.col, r0 + k0)
-        yield
-
-
 def run_jobs(stats: Stats, grid, *, geom, dtype: torch.dtype, kernel: str):
     """Sweep every job of ``grid`` (its ``r0``/``k0`` arrays or tensors)
-    and merge the outputs, in the grid's order: K3 a batch of jobs at a
-    time, every other kernel a job at a time (:func:`sweep_jobs`).  Returns
-    (row Aggregates, column Aggregates), each (w + S + W,)."""
+    and merge the outputs, in the grid's order (:func:`sweep_jobs`).
+    Returns (row Aggregates, column Aggregates), each (w + S + W,)."""
     L = _agg_length(geom.w, geom.S, geom.W)
     dev = stats.T.device
     rows = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
     cols = init_aggregates(L, dtype, AGGREGATE_INIT, dev)
-    if kernel == "pallas":
-        from mpx_torch.kernels.recurrence import sweep_batches
-
-        sweep_batches(stats, _ints(grid.r0), _ints(grid.k0), geom=geom, dtype=dtype,
-                      rows=rows, cols=cols)
-        return rows, cols
     for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dtype, kernel=kernel,
                         rows=rows, cols=cols):
         pass

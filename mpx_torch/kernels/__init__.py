@@ -22,17 +22,24 @@ m.  On the CPU it follows mpx's policy for large m: float64 with
 ``m > MXU_MAX_M`` takes the plain recurrence, everything else the plain
 sweep.  ``hybrid`` (:mod:`mpx_torch.hybrid`) is not a band sweep: the
 driver hands it the whole self-join, and it is reached by name only.
-Beside the sweeps, :mod:`mpx_torch.kernels.stats` holds the window
+How a kernel's jobs are looped and merged is decided here too, by
+:func:`sweep_jobs`: K3 a batch of jobs a call, every other kernel a job at
+a time.  Beside the sweeps, :mod:`mpx_torch.kernels.stats` holds the window
 statistics kernel (``csrc/precompute.cu``) behind
 ``precompute_statistics``' ``device`` backend.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from mpx_torch.dtypes import torch_dtype
 from mpx_torch.kernels.common import BandOut, band_geometry
+from mpx_torch.ops.aggregates import merge_window
+from mpx_torch.types import Stats
 
 # mpx's ceiling for the windows-matmul tiers; past it float64 runs the
 # strict recurrence (mpx/kernels/__init__.py).  The CPU's route.
@@ -87,5 +94,38 @@ def get_sweep_fn(kernel: str):
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
+def _ints(x) -> list:
+    """Job offsets (an array, a list or a tensor on any device) as ints."""
+    return x.tolist() if isinstance(x, torch.Tensor) else np.asarray(x).tolist()
+
+
+def sweep_jobs(stats: Stats, r0s, k0s, *, geom, dtype, kernel: str, rows, cols,
+               stats_c: Optional[Stats] = None):
+    """Sweep the jobs (r0s[j], k0s[j]) with ``kernel``, max-merging their
+    outputs into the ``rows`` and ``cols`` aggregates in place, in the
+    jobs' order; a generator that yields after each unit of work, so a
+    caller can interleave the jobs of several devices.  K3's unit is a
+    batch (:func:`mpx_torch.kernels.recurrence.sweep_batches`), every other
+    kernel's a job: its sweep, then :func:`merge_window` twice.
+    ``stats_c`` is the columns' statistics (a ring's visiting shard); K3 is
+    a self-join kernel and takes none."""
+    r0s, k0s = _ints(r0s), _ints(k0s)
+    if kernel == "pallas":
+        from mpx_torch.kernels.recurrence import sweep_batches
+
+        if stats_c is not None:
+            raise ValueError("kernel='pallas' is a self-join kernel: it takes no stats_c")
+        yield from sweep_batches(stats, r0s, k0s, geom=geom, dtype=dtype, rows=rows,
+                                 cols=cols)
+        return
+    sweep = get_sweep_fn(kernel)
+    kw = {} if stats_c is None else {"stats_c": stats_c}
+    for r0, k0 in zip(r0s, k0s):
+        out = sweep(stats, r0, k0, geom, dtype, **kw)
+        merge_window(rows, out.row, r0)
+        merge_window(cols, out.col, r0 + k0)
+        yield
+
+
 __all__ = ["BandOut", "band_geometry", "resolve_kernel", "needs_windows",
-           "is_recurrence", "get_sweep_fn", "MXU_MAX_M", "K3_MIN_M_F64"]
+           "is_recurrence", "get_sweep_fn", "sweep_jobs", "MXU_MAX_M", "K3_MIN_M_F64"]

@@ -110,15 +110,6 @@ def load() -> ctypes.CDLL:
                                p, p, p, p,                # row/col outputs
                                p]                         # stream
                 fn.restype = i
-            for name in ("mpx_k3_sweep_f32", "mpx_k3_sweep_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p,        # T, mu, df, dg, inv
-                               i, i, i, i, i, i, i,  # m, r0, k0, S, W, w, excl
-                               p, p,                 # seed, segment sums
-                               p, p, p, p,           # row/col partials
-                               p, p, p, p,           # row/col outputs
-                               p]                    # stream
-                fn.restype = i
             for name in ("mpx_k3_sweep_batch_f32", "mpx_k3_sweep_batch_f64"):
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p,        # T, mu, df, dg, inv

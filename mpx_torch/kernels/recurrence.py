@@ -11,20 +11,15 @@ sums of the same update terms, which a first kernel writes.  Only
 per-block (value, index) partials reach device memory.  Scratch is
 allocated here; the kernels allocate nothing.
 
-Two entries:
-
-* :func:`sweep_band_recurrence`, one job: a last kernel reduces the
-  partials to the job's ``BandOut`` (rows (S,), columns (S + W,));
-* :func:`sweep_batches`, the driver's self-join loop: the jobs a batch at
-  a time (:func:`job_batches`), each batch one call that max-merges every
-  job's partials straight into the global aggregates, in the jobs' order
-  (:func:`merge_batch` is the plain version of that merge).  The checks,
-  the library and one scratch arena are set up once a call, not once a
-  job.
-
-Both compute each job's seed on the card with one kernel, in
-:func:`mpx_torch.kernels.common.seed_qt`'s form (the plain version's
-seed), so a job's values are the same whichever entry sweeps it.
+The library has one entry, a batch: :func:`sweep_batches` sweeps a job
+list a batch at a time (:func:`job_batches`), each batch one call that
+computes every job's seed on the card (in
+:func:`mpx_torch.kernels.common.seed_qt`'s form, the plain version's seed)
+and max-merges every job's partials straight into the global aggregates,
+in the jobs' order (:func:`merge_batch` is the plain version of that
+merge).  The checks, the library and one scratch arena are set up once a
+call, not once a job.  :func:`sweep_band_recurrence`, the band-sweep
+contract's one job, is a batch of one.
 
 A CPU tensor takes the plain PyTorch version
 (:func:`mpx_torch.kernels.xla.sweep_band_xla`); a CUDA tensor launches the
@@ -54,16 +49,19 @@ BATCH_JOBS = 16
 
 def sweep_band_recurrence(stats: Stats, r0: int, k0: int, geom: BandGeometry,
                           dtype) -> BandOut:
+    """One job's ``BandOut`` (rows (S,), columns (S + W,)): a batch of one
+    (:func:`sweep_batches`) into aggregates that start at the init."""
     if stats.df.device.type == "cpu":
         return sweep_band_xla(stats, r0, k0, geom, dtype)
-    launch, out = prepare_launch(stats, r0, k0, geom, dtype)
-    with torch.cuda.device(stats.df.device):
-        err = launch(torch.cuda.current_stream(stats.df.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
-    count("launches.k3")
-    count("jobs.k3")
-    return out
+    r0, k0 = int(r0), int(k0)
+    c0, S, W = r0 + k0, geom.S, geom.W
+    dt, dev = torch_dtype(dtype), stats.df.device
+    rows = init_aggregates(c0 + S + W, dt, AGGREGATE_INIT, dev)
+    cols = init_aggregates(c0 + S + W, dt, AGGREGATE_INIT, dev)
+    for _ in sweep_batches(stats, [r0], [k0], geom=geom, dtype=dtype, rows=rows, cols=cols):
+        pass
+    return BandOut(row=Aggregates(rows.value[r0:r0 + S], rows.index[r0:r0 + S]),
+                   col=Aggregates(cols.value[c0:c0 + S + W], cols.index[c0:c0 + S + W]))
 
 
 def _check(stats: Stats, geom: BandGeometry, dt: torch.dtype, r0s, k0s) -> None:
@@ -117,34 +115,6 @@ def _ptrs(args) -> list:
     return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-def prepare_launch(stats: Stats, r0: int, k0: int, geom: BandGeometry, dtype):
-    """Check the job and allocate the outputs and scratch on the card.
-    Returns (launch, out): ``launch(stream)`` launches the job's kernels
-    (its seed among them) on the CUDA stream handle ``stream`` and returns a
-    cudaError_t, without counting; ``out`` is the ``BandOut`` they fill."""
-    from mpx_torch.kernels import _build
-
-    dt = torch_dtype(dtype)
-    r0, k0 = int(r0), int(k0)
-    _check(stats, geom, dt, [r0], [k0])
-    lib = _build.load()
-    S, W = geom.S, geom.W
-    dev = stats.df.device
-    scratch = _scratch(lib, 1, geom, dt, dev)
-    out = BandOut(row=Aggregates(torch.empty(S, dtype=dt, device=dev),
-                                 torch.empty(S, dtype=torch.int32, device=dev)),
-                  col=Aggregates(torch.empty(S + W, dtype=dt, device=dev),
-                                 torch.empty(S + W, dtype=torch.int32, device=dev)))
-    fn = lib.mpx_k3_sweep_f64 if dt == torch.float64 else lib.mpx_k3_sweep_f32
-    args = (stats.T, stats.mu, stats.df, stats.dg, stats.inv, geom.m, r0, k0, S, W, geom.w,
-            geom.excl, *scratch, out.row.value, out.row.index, out.col.value, out.col.index)
-
-    def launch(stream):
-        return fn(*_ptrs(args), stream)
-
-    return launch, out
-
-
 def job_batches(k0s, cap: int) -> list:
     """Cut a job list into batches: runs of consecutive jobs that share one
     k0, at most ``cap`` jobs each, in the list's order.  Returns
@@ -173,15 +143,15 @@ def merge_batch(agg: Aggregates, windows, offsets) -> None:
 
 
 def sweep_batches(stats: Stats, r0s, k0s, *, geom: BandGeometry, dtype,
-                  rows: Aggregates, cols: Aggregates) -> None:
+                  rows: Aggregates, cols: Aggregates):
     """Sweep the jobs (r0s[j], k0s[j]) (lists of ints) of a self-join a batch
     at a time (:func:`job_batches` with ``BATCH_JOBS``), max-merging their
     outputs into the global ``rows`` and ``cols`` aggregates in place, in
     the jobs' order: the aggregates end as the per-job loop's of the same
-    ``BandOut`` values.  Each batch is one call of the library (seeds,
-    sweep, reduce and merge on the card: one ``launches.k3``, a
-    ``jobs.k3`` a job) inside a ``jobs.batch`` span; on the CPU the plain
-    sweep a job and :func:`merge_batch`."""
+    ``BandOut`` values.  A generator that yields after each batch.  Each
+    batch is one call of the library (seeds, sweep, reduce and merge on the
+    card: one ``launches.k3``, a ``jobs.k3`` a job) inside a ``jobs.batch``
+    span; on the CPU the plain sweep a job and :func:`merge_batch`."""
     batches = job_batches(k0s, BATCH_JOBS)
     c0s = [r + k for r, k in zip(r0s, k0s)]
     if stats.df.device.type == "cpu":
@@ -190,11 +160,13 @@ def sweep_batches(stats: Stats, r0s, k0s, *, geom: BandGeometry, dtype,
                 outs = [sweep_band_xla(stats, r0s[j], k0s[j], geom, dtype) for j in range(a, b)]
                 merge_batch(rows, [o.row for o in outs], r0s[a:b])
                 merge_batch(cols, [o.col for o in outs], c0s[a:b])
+            yield
         return
-    _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, torch_dtype(dtype), rows, cols)
+    yield from _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, torch_dtype(dtype),
+                                   rows, cols)
 
 
-def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols) -> None:
+def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols):
     from mpx_torch.kernels import _build
 
     if not batches:
@@ -214,15 +186,17 @@ def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols) -> 
     head = _ptrs((stats.T, stats.mu, stats.df, stats.dg, stats.inv))
     tail = _ptrs((*scratch, rows.value, rows.index, cols.value, cols.index))
     r0p, k0p, size = jobs[0].data_ptr(), jobs[1].data_ptr(), jobs.element_size()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for a, b in batches:
-            with span("jobs.batch"):
-                r0b, c0b = r0s[a:b], c0s[a:b]
-                err = fn(*head, r0p + a * size, k0p + a * size, b - a, geom.m, S, W, geom.w,
-                         geom.excl, min(r0b), max(r0b) + S, min(c0b), max(c0b) + S + W,
-                         *tail, stream)
-                if err != 0:
-                    raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
-                count("launches.k3")
-                count("jobs.k3", b - a)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in batches:
+        # The device is made current a batch at a time, not across a yield:
+        # the caller may sweep another device's jobs in between.
+        with span("jobs.batch"), torch.cuda.device(dev):
+            r0b, c0b = r0s[a:b], c0s[a:b]
+            err = fn(*head, r0p + a * size, k0p + a * size, b - a, geom.m, S, W, geom.w,
+                     geom.excl, min(r0b), max(r0b) + S, min(c0b), max(c0b) + S + W,
+                     *tail, stream)
+            if err != 0:
+                raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
+            count("launches.k3")
+            count("jobs.k3", b - a)
+        yield

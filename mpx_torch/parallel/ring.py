@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from mpx_torch.dtypes import AGGREGATE_INIT, INDEX_INIT
-from mpx_torch.kernels import band_geometry
+from mpx_torch.kernels import band_geometry, sweep_jobs
 from mpx_torch.kernels.mxu import SUSPECT_MAX_INIT, SUSPECT_MIN_INIT, SuspectWindow
 from mpx_torch.ops.aggregates import init_aggregates, merge_window, pearson_to_euclidean
 from mpx_torch.ops.precompute import build_windows, host_statistics
@@ -257,7 +257,6 @@ def run_ring_sharded(
     plain version for CPU tensors) or ``mxu`` (the plain sweep).  Returns
     (MP float32, MPI int32) tensors on ``mesh[0]``.  float64 requests run
     :func:`run_ring_hybrid_f64` (`compute_matrix_profile` routes them there)."""
-    from mpx_torch.driver import sweep_jobs
     from mpx_torch.dtypes import canonical_dtype
 
     if canonical_dtype(dtype) == np.dtype(np.float64):

@@ -9,11 +9,12 @@ with ``shard_map``; the port does it with one Python loop per shard:
   jobs ``d, d + D, ...``: mpx's placement, without its padding dummy
   jobs, which only exist to give XLA equal static shapes);
 * the statistics are copied once to each distinct device of the mesh,
-  and each shard sweeps its jobs there with the selected kernel (K1 or
-  K3 on the card) into its own partial aggregates;
-* the shards' launches are issued in turns, one job of each shard at a
-  time, so that distinct cards run at once and no card's launch queue
-  holds the host back;
+  and each shard sweeps its jobs there with the selected kernel through
+  the job loop (:func:`mpx_torch.kernels.sweep_jobs`) into its own
+  partial aggregates;
+* the shards' launches are issued in turns, one unit of each shard's
+  loop at a time, so that distinct cards run at once and no card's launch
+  queue holds the host back;
 * the partial (value, index) aggregates are stacked on ``mesh[0]`` and
   merged with mpx's rule: the first maximum along the shard axis, the
   lowest shard on a tie.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
-from mpx_torch.kernels import band_geometry
+from mpx_torch.kernels import band_geometry, sweep_jobs
 from mpx_torch.ops.aggregates import init_aggregates
 from mpx_torch.parallel.mesh import mesh_for
 from mpx_torch.types import Aggregates, JobGrid, Stats
@@ -94,8 +95,6 @@ def run_jobs_sharded(
     Returns (row Aggregates, column Aggregates), each (w + S + W,), on
     ``mesh[0]`` (default mesh: the first ``num_shards`` devices of the
     statistics' device type)."""
-    from mpx_torch.driver import sweep_jobs
-
     mesh = mesh_for(num_shards, mesh, stats.T.device)
     geom = band_geometry(S, W, m, w, tr, tc)
     dt = torch_dtype(dtype)

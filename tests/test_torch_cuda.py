@@ -917,7 +917,8 @@ def test_k1_f32_holds_2e3_at_large_m(card, m):
 @pytest.mark.parametrize("dtype,kernel", [("float32", "auto"), ("float64", "pallas")])
 def test_four_virtual_shards_equal_one_device(card, dtype, kernel):
     """Job sharding over four virtual shards of one card (K1 or K3 on each):
-    values bit-equal to the single-device run, indices equal or tied."""
+    values bit-equal to the single-device run, indices equal or tied.  K3's
+    shards sweep a batch of jobs a launch, as the single-device loop does."""
     from mpx_torch.config import make_job_grid
     from mpx_torch.ops.aggregates import postcompute
     from mpx_torch.ops.precompute import precompute_statistics as stage
@@ -930,12 +931,18 @@ def test_four_virtual_shards_equal_one_device(card, dtype, kernel):
     MP1, MPI1 = (o.cpu().numpy() for o in compute_matrix_profile(T, config=cfg))
     stats = stage(T, m, band=S, chunk=Wc, dtype=dtype, device=card, windows=kernel == "auto",
                   exact_mean=kernel == "pallas")
-    launches = (counters()["launches.k1"], counters()["launches.k3"])
-    rows, cols = run_jobs_sharded(stats, make_job_grid(w, S, Wc), num_shards=4, S=S, W=Wc,
+    before = counters()
+    launches = (before["launches.k1"], before["launches.k3"])
+    grid = make_job_grid(w, S, Wc)
+    rows, cols = run_jobs_sharded(stats, grid, num_shards=4, S=S, W=Wc,
                                   m=m, w=w, kernel="mxu_fused" if kernel == "auto" else kernel,
                                   dtype=dtype, mesh=(card,) * 4)
     MP4, MPI4 = (o.cpu().numpy() for o in postcompute(rows, cols, m, w))
-    assert (counters()["launches.k1"], counters()["launches.k3"]) != launches
+    after = counters()
+    assert (after["launches.k1"], after["launches.k3"]) != launches
+    if kernel == "pallas":
+        assert after["launches.k3"] - before["launches.k3"] < len(grid.r0)
+        assert after["jobs.k3"] - before["jobs.k3"] == len(grid.r0)
     np.testing.assert_array_equal(MP1, MP4)
     for i in np.nonzero(MPI1 != MPI4)[0]:
         assert abs(_znorm_distance(T, m, i, MPI1[i]) - _znorm_distance(T, m, i, MPI4[i])) \
@@ -1192,15 +1199,16 @@ def _tie_series(n: int, seed: int) -> np.ndarray:
     pytest.param("ties", 384, id="ties-chunk384"), pytest.param("walk", 200, id="walk-chunk200")])
 def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
     """The driver's K3 loop (``run_jobs``: batches of jobs, each one call
-    that merges on the card) against the per-job loop (``sweep_jobs``: K3's
-    one-job entry and two ``merge_window`` calls a job) at n = 2^16, m = 256
+    that merges on the card) against a per-job loop written out here
+    (``sweep_band_recurrence``, a batch of one, and two ``merge_window``
+    calls a job) at n = 2^16, m = 256
     with the library's band and chunk, or a chunk off K3's 256-diagonal
     blocks (384) or narrower than one (200).  Both compute a job's seed
     with the same kernel, so the row and column aggregates are equal bit for bit,
     values and indices: on a series with exact ties between jobs, the
     batched merge keeps the index the merges job after job keep."""
     from mpx_torch.config import make_job_grid
-    from mpx_torch.driver import _agg_length, run_jobs, sweep_jobs
+    from mpx_torch.driver import _agg_length, run_jobs
     from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
     from mpx_torch.ops.aggregates import init_aggregates
 
@@ -1219,9 +1227,10 @@ def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
     mid = counters()
     L = _agg_length(w, cfg.band, cfg.chunk)
     ref_rows, ref_cols = (init_aggregates(L, dt, AGGREGATE_INIT, card) for _ in range(2))
-    for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dt, kernel="pallas",
-                        rows=ref_rows, cols=ref_cols):
-        pass
+    for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
+        out = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dt)
+        merge_window(ref_rows, out.row, r0)
+        merge_window(ref_cols, out.col, r0 + k0)
     torch.cuda.synchronize()
     after = counters()
     batches = len(recurrence.job_batches(grid.k0.tolist(), recurrence.BATCH_JOBS))

@@ -3,11 +3,11 @@
 ``driver.run_jobs`` with ``kernel='pallas'`` sweeps the grid a batch at a
 time (``recurrence.sweep_batches``: on the CPU the plain sweep a job, then
 ``recurrence.merge_batch``, the plain version of the card's ``k3_merge``).
-Its row and column aggregates must equal the per-job loop's
-(``driver.sweep_jobs``: the same sweep, then ``merge_window`` job after
-job) bit for bit, values and indices, whatever the batch cap and the
-grid's order, on a series whose repeated pattern gives exact ties between
-jobs, so the merge order decides which index is kept.
+Its row and column aggregates must equal a per-job loop's (the same
+sweep, then ``merge_window`` job after job, written out here) bit for
+bit, values and indices, whatever the batch cap and the grid's order, on
+a series whose repeated pattern gives exact ties between jobs, so the
+merge order decides which index is kept.
 """
 
 import numpy as np
@@ -16,7 +16,7 @@ import torch
 
 from mpx_torch.anytime import _job_order
 from mpx_torch.config import make_job_grid
-from mpx_torch.driver import _agg_length, run_jobs, sweep_jobs
+from mpx_torch.driver import _agg_length, run_jobs
 from mpx_torch.dtypes import AGGREGATE_INIT
 from mpx_torch.kernels import band_geometry, recurrence
 from mpx_torch.kernels.xla import sweep_band_xla
@@ -64,9 +64,10 @@ def _per_job(stats, grid, geom, dtype):
     L = _agg_length(geom.w, geom.S, geom.W)
     rows = init_aggregates(L, stats.T.dtype, AGGREGATE_INIT, "cpu")
     cols = init_aggregates(L, stats.T.dtype, AGGREGATE_INIT, "cpu")
-    for _ in sweep_jobs(stats, grid.r0, grid.k0, geom=geom, dtype=dtype, kernel="pallas",
-                        rows=rows, cols=cols):
-        pass
+    for r0, k0 in zip(grid.r0.tolist(), grid.k0.tolist()):
+        out = sweep_band_xla(stats, r0, k0, geom, dtype)
+        merge_window(rows, out.row, r0)
+        merge_window(cols, out.col, r0 + k0)
     return rows, cols
 
 

@@ -44,7 +44,7 @@ from mpx.kernels.common import seed_qt as mpx_seed_qt
 from mpx.kernels.pallas_tpu import sweep_band_pallas as mpx_pallas
 from mpx.kernels.xla import sweep_band_xla as mpx_xla
 from mpx.ops.precompute import precompute_statistics as mpx_precompute
-from mpx_torch import MatrixProfileConfig, compute_matrix_profile, driver
+from mpx_torch import MatrixProfileConfig, compute_matrix_profile, kernels
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
 from mpx_torch.kernels import xla
 from mpx_torch.kernels.common import BandOut, band_geometry, seed_qt
@@ -312,7 +312,7 @@ def test_exact_band_matches_mpx_xla(series, r0, k0):
 def test_segment_order_profile_matches_mpx(monkeypatch, dtype):
     path, limit, m, band, chunk = DATASETS[1]  # data/test/16384.txt: 4 segments a band
     T = _load(path, limit)
-    monkeypatch.setattr(driver, "get_sweep_fn", lambda kernel: k3_order_sweep)
+    monkeypatch.setattr(kernels, "get_sweep_fn", lambda kernel: k3_order_sweep)
     cfg = MatrixProfileConfig(m=m, dtype=dtype, kernel="xla", band=band, chunk=chunk,
                               device="cpu")
     MP, MPI = (o.numpy() for o in compute_matrix_profile(T, config=cfg))

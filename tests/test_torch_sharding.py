@@ -97,6 +97,13 @@ def test_sharded_matches_mpx_and_golden(num_shards, kernel, dtype):
     assert_profile_close(T, m, MP, MPI, *(np.asarray(x) for x in ref), eps=EPS[dtype])
     assert_profile_close(T, m, MP, MPI, *compute_matrix_profile_reference(T, m),
                          eps=EPS[dtype])
+    if kernel == "pallas":
+        # K3's shards sweep a batch of jobs at a time, as the single-device
+        # loop (``run_jobs``) does: the same profile, bit for bit.
+        MP1, MPI1 = _np(compute_matrix_profile(T, config=MatrixProfileConfig(
+            kernel=kernel, device="cpu", **{**kw, "num_shards": 1})))
+        np.testing.assert_array_equal(MP, MP1)
+        np.testing.assert_array_equal(MPI, MPI1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -31,7 +31,7 @@ import torch
 import mpx
 from mpx.kernels import band_geometry as mpx_geometry
 from mpx.kernels.mxu_fused import sweep_band_mxu_fused as mpx_fused
-from mpx_torch import MatrixProfileConfig, compute_matrix_profile, driver
+from mpx_torch import MatrixProfileConfig, compute_matrix_profile, kernels
 from mpx_torch.kernels.common import band_geometry
 from mpx_torch.kernels.mxu import reduce_tile
 from tests.conftest import random_walk
@@ -205,7 +205,7 @@ def test_split_tf32_band_matches_mpx_fused_interpret(series, r0, k0):
                          [DATASETS[0], DATASETS[2], DATASETS[3]])
 def test_split_tf32_profile_matches_mpx(monkeypatch, path, limit, m, band, chunk):
     T = _load(path, limit)
-    monkeypatch.setattr(driver, "get_sweep_fn", lambda kernel: split_tf32_sweep)
+    monkeypatch.setattr(kernels, "get_sweep_fn", lambda kernel: split_tf32_sweep)
     cfg = MatrixProfileConfig(m=m, dtype="float32", band=band, chunk=chunk, device="cpu")
     MP, MPI = (o.numpy() for o in compute_matrix_profile(T, config=cfg))
     ref_cfg = mpx.MatrixProfileConfig(m=m, dtype="float32", kernel="mxu", band=band,
