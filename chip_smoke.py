@@ -43,7 +43,9 @@ script exits nonzero without the final line):
    band level, f32 and f64, on phase 2's series and edge jobs, with
    CUDA-event times of K3's wrapper (seed, allocations and launches, as
    the driver calls it; K3's ``ms``), of its kernels alone (the job's
-   three launches), of the plain version and of K1 at the same job shape;
+   launches), of a job inside a full batch (16 jobs in one call, its
+   CUDA-event and kernel times over 16), of the plain version and of K1
+   at the same job shape; the rows of a segment the wrapper picks;
    K3 at W = 32768 too, its grid, resident blocks per SM and share of the
    bound; and K3's and K1's wrapper times (with K3's kernels alone) per m
    (64, 128, 256, 512) and chunk (16384, 32768);
@@ -553,8 +555,8 @@ def sass_class(op: str) -> str:
 
 
 def k3_loop_census(sass: str) -> dict:
-    """The instructions of ``k3_tiles<double>``'s sub-tile loop (from its
-    longest backward branch's target to the branch) by class, per pair a
+    """The instructions of ``k3_tiles<double>``'s sub-tile loop (from the
+    target of its longest innermost backward branch to the branch) by class, per pair a
     lane sweeps in one pass (K3_LOOP_PAIRS), from the library's SASS."""
     section = next(sec for sec in sass.split("Function : ")[1:]
                    if K3_MANGLED["k3_tiles<double>"] in sec.split(None, 1)[0])
@@ -568,7 +570,11 @@ def k3_loop_census(sass: str) -> dict:
     back = [(int(last, 16), at) for at, op, last in ins
             if op.startswith("BRA") and last.startswith("0x") and int(last, 16) < at]
     require(bool(back), "k3_tiles<double> has no loop in the SASS")
-    lo, hi = max(back, key=lambda b: b[1] - b[0])
+    # The sub-tile loop: the longest loop with no loop inside it (the chunk
+    # loop around it also stages the next chunk).
+    inner = [(lo, hi) for lo, hi in back
+             if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in back)]
+    lo, hi = max(inner, key=lambda b: b[1] - b[0])
     counts = {}
     for at, op, _ in ins:
         if lo <= at <= hi:
@@ -1022,19 +1028,20 @@ def phase_stats_backends(torch, T4) -> dict:
 K3_KERNELS = ("k3_seed", "k3_segsum", "k3_tiles", "k3_merge")
 
 
-def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
-    """K3's kernels alone on one job: the summed torch.profiler device
-    time of the four kernels (seed, segment sums, sweep, merge) of one
-    ``sweep_band_recurrence`` call, over ``reps`` calls after a warm-up."""
+def k3_traced_ms(torch, fn, calls: int, reps: int) -> float:
+    """The device time of K3's kernels in one run of ``fn`` (``calls``
+    calls of the library: seed, sweep and merge once a call, the segment
+    sums once a call or never, one segment a job): each kernel's mean
+    torch.profiler time over ``reps`` runs after a warm-up, times
+    ``calls``, summed.  The profiler can miss a launch at its start, so a
+    kernel may be seen one time fewer."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mpx_torch.kernels.recurrence import sweep_band_recurrence
-
-    sweep_band_recurrence(stats, r0, k0, geom, dtype)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            sweep_band_recurrence(stats, r0, k0, geom, dtype)
+            fn()
         torch.cuda.synchronize()
     us = {k: [] for k in K3_KERNELS}
     for e in prof.events():
@@ -1042,9 +1049,46 @@ def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
             for k in K3_KERNELS:
                 if f"{k}<" in e.name:
                     us[k].append(e.time_range.elapsed_us())
-    require(all(len(v) == reps for v in us.values()),
-            f"K3 kernels traced per call: { {k: len(v) for k, v in us.items()} } of {reps}")
-    return sum(map(sum, us.values())) / reps / 1e3
+    n = calls * reps
+    require(all(n - 1 <= len(v) <= n or (k == "k3_segsum" and not v) for k, v in us.items()),
+            f"K3 kernels traced: { {k: len(v) for k, v in us.items()} } for {n} calls")
+    return sum(sum(v) / len(v) for v in us.values() if v) * calls / 1e3
+
+
+def k3_kernel_ms(torch, stats, r0, k0, geom, dtype, reps: int = 20) -> float:
+    """K3's kernels alone on one job: the summed torch.profiler device
+    time of the kernels (seed, segment sums where the job has several
+    segments, sweep, merge) of one ``sweep_band_recurrence`` call."""
+    from mpx_torch.kernels.recurrence import sweep_band_recurrence
+
+    return k3_traced_ms(torch, lambda: sweep_band_recurrence(stats, r0, k0, geom, dtype),
+                        1, reps)
+
+
+def k3_batch_ms(torch, stats, geom, dtype, reps: int = 10) -> dict:
+    """A job's time inside a full batch (``BATCH_JOBS`` jobs of the grid
+    from its ninth on, across its first k0 change, in one library call):
+    the batch's CUDA-event time through ``sweep_batches`` and its kernels'
+    profiler time, each over the batch's jobs."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
+    from mpx_torch.kernels.recurrence import BATCH_JOBS, sweep_batches
+    from mpx_torch.ops.aggregates import init_aggregates
+
+    grid = make_job_grid(geom.w, geom.S, geom.W)
+    r0s, k0s = (x[8:8 + BATCH_JOBS].tolist() for x in (grid.r0, grid.k0))
+    require(len(r0s) == BATCH_JOBS and len(set(k0s)) > 1,
+            f"a full batch across a k0 change: {list(zip(r0s, k0s))}")
+    pw = stats.df.shape[0]
+    dt = torch_dtype(dtype)
+    rows, cols = (init_aggregates(pw, dt, AGGREGATE_INIT, stats.df.device) for _ in range(2))
+
+    def batch():
+        for _ in sweep_batches(stats, r0s, k0s, geom=geom, dtype=dtype, rows=rows, cols=cols):
+            pass
+
+    return {"events_ms_per_job": time_ms(torch, batch, reps) / BATCH_JOBS,
+            "kernels_ms_per_job": k3_traced_ms(torch, batch, 1, reps) / BATCH_JOBS}
 
 
 def k3_wrapper_ms(torch, stats, r0, k0, geom, dtype, reps: int = 50) -> float:
@@ -1062,7 +1106,7 @@ def phase_band_k3(torch, dtype: str) -> dict:
     per m and chunk."""
     from mpx_torch.kernels import _build
     from mpx_torch.kernels.mxu_fused import sweep_band_mxu_fused
-    from mpx_torch.kernels.recurrence import SEGMENT_ROWS, sweep_band_recurrence
+    from mpx_torch.kernels.recurrence import _segment_rows_on, sweep_band_recurrence
     from mpx_torch.kernels.xla import sweep_band_xla
 
     stats, geom, jobs = band_setup(dtype)
@@ -1090,6 +1134,7 @@ def phase_band_k3(torch, dtype: str) -> dict:
         stats, r0, k0, geom, dtype), reps=1)
     plain1 = plain()
     k3a, alonea, k1a, k1b, aloneb, k3b = (f() for f in (k3, alone, k1, k1, alone, k3))
+    in_batch = [k3_batch_ms(torch, stats, geom, dtype) for _ in range(2)]
     plain2 = plain()
     ms, alone_ms = (k3a + k3b) / 2, (alonea + aloneb) / 2
     k1_ms, plain_ms = (k1a + k1b) / 2, (plain1 + plain2) / 2
@@ -1113,16 +1158,21 @@ def phase_band_k3(torch, dtype: str) -> dict:
     f64 = int(dtype == "float64")
     w2 = by_shape[f"W={2 * W} m={m}"]
     bound_w2 = k3_bound(S, 2 * W, stats.df.element_size(), dtype)["bound_ms"]
-    nbj, G = -(-W // lib.mpx_k3_block_w()), -(-S // SEGMENT_ROWS)
+    nbj = -(-W // lib.mpx_k3_block_w())
+    L = _segment_rows_on(lib, geom, stats.df.dtype, stats.df.device)
+    G = -(-S // L)
     say(f"6 band K3 {dtype}", shape=dict(S=S, W=W, m=m), jobs=list(jobs),
         max_abs_err=worst, tol=tol, k3_ms=[k3a, k3b], k3_kernels_ms=[alonea, aloneb],
+        full_batch_per_job=in_batch,
+        k3_full_batch_share_of_bound=bound["bound_ms"] / min(
+            b["kernels_ms_per_job"] for b in in_batch),
         k1_ms=[k1a, k1b], plain_ms=[plain1, plain2], **bound,
         k3_share_of_bound=bound["bound_ms"] / ms,
         k3_kernels_share_of_bound=bound["bound_ms"] / alone_ms,
         k3_pairs_per_s=pairs / ms * 1e3, k1_pairs_per_s=pairs / k1_ms * 1e3,
         plain_pairs_per_s=pairs / plain_ms * 1e3,
         grid={"k3_segsum": [nbj, G - 1], "k3_tiles": [nbj, G], "threads": 32,
-              "segment_rows": SEGMENT_ROWS},
+              "segment_rows": L, "chunk_rows": lib.mpx_k3_segment_rows()},
         resident_blocks_per_sm={k: lib.mpx_k3_resident_blocks(f64, i) for i, k in
                                 enumerate(("k3_segsum", "k3_tiles", "k3_merge"))},
         k3_ms_w32768=w2["k3_ms"], k3_kernels_ms_w32768=w2["k3_kernels_ms"],
@@ -1168,7 +1218,7 @@ def phase_showcase(torch, phase: str, kernel: str, counter: str, seed: int,
         from mpx_torch.kernels.recurrence import BATCH_JOBS, job_batches
 
         batched = _since_reset("launches.k3")
-        require(batched == len(job_batches(job_grid.k0.tolist(), BATCH_JOBS)),
+        require(batched == len(job_batches(jobs, BATCH_JOBS)),
                 f"K3 f64 showcase: {batched} batched launches for {jobs} jobs")
     st = stats_launches()
     require(st == 1, f"kernel={kernel!r} f64 showcase: {st} window statistics launches")

@@ -114,7 +114,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p,        # T, mu, df, dg, inv
                                p, p,                 # r0s, k0s
-                               i, i, i, i, i, i,     # B, m, S, W, w, excl
+                               i, i, i, i, i, i, i,  # B, m, S, W, L, w, excl
                                i, i, i, i,           # row_lo, row_hi, col_lo, col_hi
                                p, p,                 # seeds, segment sums
                                p, p, p, p,           # row/col partials
@@ -122,7 +122,7 @@ def load() -> ctypes.CDLL:
                                p]                    # stream
                 fn.restype = i
             for name in ("mpx_k1_block_m", "mpx_k1_block_n", "mpx_k3_block_w",
-                         "mpx_k3_segment_rows", "mpx_k3_block_columns"):
+                         "mpx_k3_segment_rows"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
             lib.mpx_k3_resident_blocks.argtypes = [i, i]  # f64, which kernel

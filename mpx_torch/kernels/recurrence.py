@@ -4,22 +4,30 @@ Counterpart of ``mpx/kernels/pallas_tpu.py:sweep_band_pallas``; the kernel
 itself is ``mpx_torch/csrc/band_recurrence.cu`` (CUDA C++ for sm_90a, f32
 and f64: the H100 has native FP64, so unlike mpx's Pallas kernel this is
 also the strict float64 tier, and it computes in float64 for float32
-statistics too, rounding only its outputs).  The band's rows are cut into
-segments of ``SEGMENT_ROWS`` rows, swept in parallel; each segment starts
-its diagonals from the job's one exact seed plus the earlier segments'
-sums of the same update terms, which a first kernel writes.  Only
-per-block (value, index) partials reach device memory.  Scratch is
-allocated here; the kernels allocate nothing.
+statistics too, rounding only its outputs).  A block of the sweep carries
+256 diagonals of one job from their exact seed down one row segment,
+staging ``SEGMENT_ROWS`` rows at a time.  :func:`segment_rows` picks the
+segment once a call from the job's shape and the card alone: the fewest
+segments for which one full batch of jobs fills the card.  At the
+library's band and chunk that is one segment, so each diagonal is carried
+from the seed down all S rows in the plain recurrence's own row order.
+Where a chunk is too narrow to fill the card, a job has several segments,
+and each starts its diagonals from the seed plus the earlier segments'
+sums of the same update terms, which a first kernel writes
+(``launches.k3_segsum`` counts those batches).  Only per-block (value,
+index) partials reach device memory.  Scratch is allocated here; the
+kernels allocate nothing.
 
 The library has one entry, a batch: :func:`sweep_batches` sweeps a job
-list a batch at a time (:func:`job_batches`), each batch one call that
-computes every job's seed on the card (in
-:func:`mpx_torch.kernels.common.seed_qt`'s form, the plain version's seed)
-and max-merges every job's partials straight into the global aggregates,
-in the jobs' order (:func:`merge_batch` is the plain version of that
-merge).  The checks, the library and one scratch arena are set up once a
-call, not once a job.  :func:`sweep_band_recurrence`, the band-sweep
-contract's one job, is a batch of one.
+list a batch at a time (:func:`job_batches`: runs of up to ``BATCH_JOBS``
+consecutive jobs, at any k0), each batch one call that computes every
+job's seed on the card (in :func:`mpx_torch.kernels.common.seed_qt`'s
+form, the plain version's seed) and max-merges every job's partials
+straight into the global aggregates, in the jobs' order
+(:func:`merge_batch` is the plain version of that merge).  The checks,
+the library, the segment and one scratch arena are set up once a call,
+not once a job.  :func:`sweep_band_recurrence`, the band-sweep contract's
+one job, is a batch of one, and rounds as the same job does in any batch.
 
 A CPU tensor takes the plain PyTorch version
 (:func:`mpx_torch.kernels.xla.sweep_band_xla`); a CUDA tensor launches the
@@ -38,8 +46,14 @@ from mpx_torch.ops.aggregates import init_aggregates, merge_window
 from mpx_torch.types import Aggregates, Stats
 from mpx_torch.utils.profile import count, span
 
-# Rows per segment, the kernel's R (checked against the built library).
+# Rows the kernel stages at a time, its R: a segment is a multiple of it
+# (checked against the built library).
 SEGMENT_ROWS = 256
+# Diagonals a block of the sweep, the kernel's BW (checked likewise).
+BLOCK_DIAGONALS = 256
+# A full batch's blocks must fill this share of one wave of the sweep's
+# blocks on the card (segment_rows).
+WAVE_FILL = 0.9
 # Jobs one batched call sweeps at most.  On an H100 a 2^20-point float64
 # self-join (S = 4096, W = 16384, m = 256) took the same time from 8 jobs a
 # batch up to 96, 7 % longer at 4 and 20 % at 1 (PERF.md section 6); 16 is
@@ -93,38 +107,64 @@ def _check(stats: Stats, geom: BandGeometry, dt: torch.dtype, r0s, k0s) -> None:
                          f"outside the {pw}-wide statistics")
 
 
-def _scratch(lib, jobs: int, geom: BandGeometry, dt: torch.dtype, device):
-    """Seeds, segment sums and partials for ``jobs`` jobs, each job's after
-    the one before (the layout the library's entries read)."""
-    if lib.mpx_k3_segment_rows() != SEGMENT_ROWS:
-        raise RuntimeError(f"K3 was built with {lib.mpx_k3_segment_rows()} rows per "
-                           f"segment, the wrapper expects {SEGMENT_ROWS}")
+def segment_rows(S: int, W: int, sms: int, resident: int, cap: int) -> int:
+    """Rows of a K3 job's row segment, a multiple of ``SEGMENT_ROWS``.  Of
+    G = 1, 2, 4, ... up to ceil(S / SEGMENT_ROWS) segments a job (that
+    count the last candidate), the fewest for which a full batch of ``cap``
+    jobs, cap x ceil(W / BLOCK_DIAGONALS) x G blocks of the sweep, fills
+    ``WAVE_FILL`` of one wave of ``sms`` SMs holding ``resident`` blocks
+    each; the last candidate if none does.  The segment is ceil(S / G)
+    rounded up to ``SEGMENT_ROWS`` rows, so a job has ceil(S / segment)
+    segments, the last one ragged where S is not a multiple.  It reads the
+    job's shape, the card and the cap, never a batch's own size: a job
+    rounds the same in every batch."""
+    chunks = -(-S // SEGMENT_ROWS)
+    blocks = cap * -(-W // BLOCK_DIAGONALS)
+    G = 1
+    while G < chunks and blocks * G < WAVE_FILL * sms * resident:
+        G = min(2 * G, chunks)
+    return -(-chunks // G) * SEGMENT_ROWS
+
+
+def _segment_rows_on(lib, geom: BandGeometry, dt: torch.dtype, device) -> int:
+    """:func:`segment_rows` for ``device`` (the current device), its wave
+    the SM count times the sweep's resident blocks an SM."""
+    if lib.mpx_k3_segment_rows() != SEGMENT_ROWS or lib.mpx_k3_block_w() != BLOCK_DIAGONALS:
+        raise RuntimeError(f"K3 was built with {lib.mpx_k3_segment_rows()} rows a chunk and "
+                           f"{lib.mpx_k3_block_w()} diagonals a block, the wrapper expects "
+                           f"{SEGMENT_ROWS} and {BLOCK_DIAGONALS}")
+    resident = lib.mpx_k3_resident_blocks(int(dt == torch.float64), 1)
+    if resident <= 0:
+        raise RuntimeError(f"K3's occupancy query failed: cudaError_t {-resident}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return segment_rows(geom.S, geom.W, sms, resident, BATCH_JOBS)
+
+
+def _scratch(jobs: int, geom: BandGeometry, L: int, dt: torch.dtype, device):
+    """Seeds, segment sums and partials for ``jobs`` jobs of segments of
+    ``L`` rows, each job's after the one before (the layout the library's
+    entries read)."""
     S, W = geom.S, geom.W
-    nbj, ncol = -(-W // lib.mpx_k3_block_w()), lib.mpx_k3_block_columns()
-    G = -(-S // SEGMENT_ROWS)
+    nbj, G = -(-W // BLOCK_DIAGONALS), -(-S // L)
     # The kernel computes in float64 for both dtypes (csrc header).
     return (torch.empty((jobs, W), dtype=torch.float64, device=device),
-            torch.empty((jobs, max(G - 1, 1), W), dtype=torch.float64, device=device),
+            torch.empty((jobs, G - 1, W), dtype=torch.float64, device=device),
             torch.empty((jobs, nbj, S), dtype=dt, device=device),
             torch.empty((jobs, nbj, S), dtype=torch.int32, device=device),
-            torch.empty((jobs, G * nbj, ncol), dtype=dt, device=device),
-            torch.empty((jobs, G * nbj, ncol), dtype=torch.int32, device=device))
+            torch.empty((jobs, G * nbj, L + BLOCK_DIAGONALS - 1), dtype=dt, device=device),
+            torch.empty((jobs, G * nbj, L + BLOCK_DIAGONALS - 1), dtype=torch.int32,
+                        device=device))
 
 
 def _ptrs(args) -> list:
     return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-def job_batches(k0s, cap: int) -> list:
-    """Cut a job list into batches: runs of consecutive jobs that share one
-    k0, at most ``cap`` jobs each, in the list's order.  Returns
-    (start, stop) pairs."""
-    out, start = [], 0
-    for j in range(1, len(k0s) + 1):
-        if j == len(k0s) or k0s[j] != k0s[start] or j - start == cap:
-            out.append((start, j))
-            start = j
-    return out
+def job_batches(jobs: int, cap: int) -> list:
+    """Cut a list of ``jobs`` jobs into batches: runs of ``cap`` consecutive
+    jobs in the list's order, whatever their k0, the last one shorter where
+    ``cap`` does not divide ``jobs``.  Returns (start, stop) pairs."""
+    return [(a, min(a + cap, jobs)) for a in range(0, jobs, cap)]
 
 
 def merge_batch(agg: Aggregates, windows, offsets) -> None:
@@ -150,9 +190,11 @@ def sweep_batches(stats: Stats, r0s, k0s, *, geom: BandGeometry, dtype,
     the jobs' order: the aggregates end as the per-job loop's of the same
     ``BandOut`` values.  A generator that yields after each batch.  Each
     batch is one call of the library (seeds, sweep, reduce and merge on the
-    card: one ``launches.k3``, a ``jobs.k3`` a job) inside a ``jobs.batch``
-    span; on the CPU the plain sweep a job and :func:`merge_batch`."""
-    batches = job_batches(k0s, BATCH_JOBS)
+    card: one ``launches.k3``, a ``jobs.k3`` a job, and a
+    ``launches.k3_segsum`` where a job has more than one segment) inside a
+    ``jobs.batch`` span; on the CPU the plain sweep a job and
+    :func:`merge_batch`."""
+    batches = job_batches(len(r0s), BATCH_JOBS)
     c0s = [r + k for r, k in zip(r0s, k0s)]
     if stats.df.device.type == "cpu":
         for a, b in batches:
@@ -180,7 +222,10 @@ def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols):
             raise ValueError(f"aggregates must be contiguous {dt} / int32 vectors of at "
                              f"least {hi} on {dev}")
     lib = _build.load()
-    scratch = _scratch(lib, max(b - a for a, b in batches), geom, dt, dev)
+    with torch.cuda.device(dev):
+        L = _segment_rows_on(lib, geom, dt, dev)
+    scratch = _scratch(max(b - a for a, b in batches), geom, L, dt, dev)
+    segsum = L < S
     jobs = torch.from_numpy(np.asarray([r0s, k0s], dtype=np.int32)).to(dev)
     fn = lib.mpx_k3_sweep_batch_f64 if dt == torch.float64 else lib.mpx_k3_sweep_batch_f32
     head = _ptrs((stats.T, stats.mu, stats.df, stats.dg, stats.inv))
@@ -192,11 +237,13 @@ def _sweep_batches_cuda(stats, r0s, k0s, c0s, batches, geom, dt, rows, cols):
         # the caller may sweep another device's jobs in between.
         with span("jobs.batch"), torch.cuda.device(dev):
             r0b, c0b = r0s[a:b], c0s[a:b]
-            err = fn(*head, r0p + a * size, k0p + a * size, b - a, geom.m, S, W, geom.w,
+            err = fn(*head, r0p + a * size, k0p + a * size, b - a, geom.m, S, W, L, geom.w,
                      geom.excl, min(r0b), max(r0b) + S, min(c0b), max(c0b) + S + W,
                      *tail, stream)
             if err != 0:
                 raise RuntimeError(f"recurrence kernel launch failed: cudaError_t {err}")
             count("launches.k3")
+            if segsum:
+                count("launches.k3_segsum")
             count("jobs.k3", b - a)
         yield

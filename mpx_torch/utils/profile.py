@@ -12,8 +12,8 @@ the profiler's timeline beside the kernels it launches, and a record of
 it (:class:`SpanRecord`, on ``time.perf_counter_ns``'s clock) is kept in
 memory for :func:`spans`.  Outside a profiler a span is one check and a
 shared no-op context.  :func:`count` adds to a process-wide registry of
-counters (kernel launches, K3's jobs, plain-version calls, the append's
-copies),
+counters (kernel launches, K3's batches that sum row segments first, K3's
+jobs, plain-version calls, the append's copies),
 always on; :func:`counters` returns a snapshot of it, and two snapshots'
 difference is what ran between them.
 """

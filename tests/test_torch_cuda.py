@@ -157,9 +157,12 @@ def assert_near_exact(out, exact, r0, k0, tol) -> float:
 @pytest.mark.parametrize("band,chunk", [(4096, 16384), (4096, 700), (1000, 16384),
                                         (1000, 700), (S, W), (1000, 384), (S, 200)])
 def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
-    """Bands of one to sixteen row segments (1000 rows: a ragged last
-    one), chunks on and off the kernel's 256-diagonal blocks (384 and 700
-    a part-filled last block, 200 a block part empty), on a series
+    """Bands of one to sixteen row segments, as the segment rule cuts them
+    on this card (on an H100 the 4096 x 16384 job is one segment of 4096
+    rows, the narrow chunks several; 1000 rows end in a ragged chunk, and
+    ``launches.k3_segsum`` counts a lone job's batch where it has more than
+    one segment), chunks on and off the kernel's 256-diagonal blocks (384
+    and 700 a part-filled last block, 200 a block part empty), on a series
     with a constant run (zero-variance windows, and near-constant ones
     beside them whose large inverse norms amplify the recurrence's
     rounding); jobs on the first band (its exclusion edge, m // 4, inside
@@ -180,7 +183,7 @@ def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
     geom = band_geometry(band, chunk, m, w)
     jobs = [(0, 0), (n // 3 - band // 2, 0), (w - band // 2, 0),
             (w - chunk - band // 2, chunk)]
-    launches = counters()["launches.k3"]
+    launches, segsums = counters()["launches.k3"], counters()["launches.k3_segsum"]
     k3_err = plain_err = 0.0
     for r0, k0 in jobs:
         ours = recurrence.sweep_band_recurrence(stats, r0, k0, geom, dtype)
@@ -195,8 +198,60 @@ def test_k3_matches_plain_on_card(card, dtype, m, band, chunk):
             _assert_band_close(ours, ref, stats.windows.double(), r0, k0,
                                K3_BAND_TOL[dtype])
     assert counters()["launches.k3"] == launches + len(jobs)
-    print(f"\nK3 readings {dtype} m={m} band={band} chunk={chunk}: "
+    L = _segment_rows(geom, dtype, card)
+    assert counters()["launches.k3_segsum"] == segsums + len(jobs) * (L < band)
+    print(f"\nK3 readings {dtype} m={m} band={band} chunk={chunk} segment {L}: "
           f"K3 vs exact {k3_err:.3e}, plain vs exact {plain_err:.3e}")
+
+
+def _segment_rows(geom, dtype, card) -> int:
+    """The rows of a K3 segment that the wrapper picks for ``geom`` on the
+    card."""
+    from mpx_torch.dtypes import torch_dtype
+    from mpx_torch.kernels import _build
+
+    with torch.cuda.device(card):
+        return recurrence._segment_rows_on(_build.load(), geom, torch_dtype(dtype), card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("chunk,segments", [(16384, 1), (700, 16)])
+def test_k3_segment_rule_on_card(card, dtype, chunk, segments):
+    """The segment rule on an H100 (132 SMs, 8 sweep blocks each): the
+    self-join's 4096 x 16384 job is one segment, since a full batch of 16
+    jobs is 1,024 blocks, 97 % of the wave; a 4096 x 700 job, 3 blocks
+    wide, gets every chunk a segment (16 jobs x 3 x 16 = 768 blocks,
+    below 90 %).  The rule reads the card, not the batch: a lone job and a
+    full batch get the same segment, and only the narrow chunk's batches
+    launch ``k3_segsum``, one a batch."""
+    from mpx_torch.config import make_job_grid
+    from mpx_torch.driver import run_jobs
+
+    props = torch.cuda.get_device_properties(card)
+    if "H100" not in props.name:
+        pytest.skip(f"the readings are an H100's, not a {props.name}'s")
+    band, m = 4096, 256
+    n = 4 * band + chunk + m
+    w = n - m + 1
+    stats = precompute_statistics(_series(n, 3), m, band=band, chunk=chunk, dtype=dtype,
+                                  device=card, windows=False, exact_mean=True)
+    geom = band_geometry(band, chunk, m, w)
+    L = _segment_rows(geom, dtype, card)
+    assert -(-band // L) == segments
+    assert L == recurrence.segment_rows(band, chunk, props.multi_processor_count, 8,
+                                        recurrence.BATCH_JOBS)
+    before = counters()
+    recurrence.sweep_band_recurrence(stats, 0, 0, geom, dtype)
+    mid = counters()
+    grid = make_job_grid(w, band, chunk)
+    run_jobs(stats, grid, geom=geom, dtype=stats.T.dtype, kernel="pallas")
+    torch.cuda.synchronize()
+    after = counters()
+    batches = len(recurrence.job_batches(len(grid.r0), recurrence.BATCH_JOBS))
+    assert mid["launches.k3_segsum"] - before["launches.k3_segsum"] == (segments > 1)
+    assert after["launches.k3_segsum"] - mid["launches.k3_segsum"] == batches * (segments > 1)
+    assert after["launches.k3"] - mid["launches.k3"] == batches
 
 
 @pytest.mark.cuda
@@ -1168,7 +1223,10 @@ def test_auto_f64_takes_k3_on_level_heavy_walk(card):
     after = counters()
     grid = make_job_grid(w, cfg.band, cfg.chunk)
     assert after["launches.k3"] - before["launches.k3"] == len(
-        job_batches(grid.k0.tolist(), BATCH_JOBS))
+        job_batches(len(grid.r0), BATCH_JOBS))
+    L = _segment_rows(band_geometry(cfg.band, cfg.chunk, m, w), "float64", card)
+    assert after["launches.k3_segsum"] - before["launches.k3_segsum"] == (
+        after["launches.k3"] - before["launches.k3"]) * (L < cfg.band)
     assert after["jobs.k3"] - before["jobs.k3"] == len(grid.r0)
     assert after["launches.k1"] == before["launches.k1"]
     best, first, _ = exact_rows(T, m, np.arange(w), device=card)
@@ -1194,19 +1252,26 @@ def _tie_series(n: int, seed: int) -> np.ndarray:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("series,chunk", [
-    pytest.param("walk", None, id="walk"), pytest.param("ties", None, id="ties"),
-    pytest.param("ties", 384, id="ties-chunk384"), pytest.param("walk", 200, id="walk-chunk200")])
-def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
+@pytest.mark.parametrize("series,chunk,order", [
+    pytest.param("walk", None, "grid", id="walk"), pytest.param("ties", None, "grid", id="ties"),
+    pytest.param("ties", 384, "grid", id="ties-chunk384"),
+    pytest.param("walk", 200, "grid", id="walk-chunk200"),
+    pytest.param("ties", None, "shuffled", id="ties-shuffled")])
+def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk, order):
     """The driver's K3 loop (``run_jobs``: batches of jobs, each one call
     that merges on the card) against a per-job loop written out here
     (``sweep_band_recurrence``, a batch of one, and two ``merge_window``
     calls a job) at n = 2^16, m = 256
     with the library's band and chunk, or a chunk off K3's 256-diagonal
-    blocks (384) or narrower than one (200).  Both compute a job's seed
-    with the same kernel, so the row and column aggregates are equal bit for bit,
-    values and indices: on a series with exact ties between jobs, the
-    batched merge keeps the index the merges job after job keep."""
+    blocks (384) or narrower than one (200), over the grid in mpx's order
+    (batches across each k0 change) or anytime's shuffled order (every
+    batch's jobs far apart).  Both compute a job's seed with the same
+    kernel and cut its rows into the same segments, so the row and column
+    aggregates are equal bit for bit, values and indices: on a series with
+    exact ties between jobs, the batched merge keeps the index the merges
+    job after job keep."""
+    from mpx_torch.anytime import _job_order
+    from mpx_torch.types import JobGrid
     from mpx_torch.config import make_job_grid
     from mpx_torch.driver import _agg_length, run_jobs
     from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
@@ -1222,6 +1287,12 @@ def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
                                   device=card, windows=False, exact_mean=True)
     geom = band_geometry(cfg.band, cfg.chunk, m, w)
     grid = make_job_grid(w, cfg.band, cfg.chunk)
+    if order == "shuffled":
+        perm = _job_order(grid, "shuffled", 3)
+        grid = JobGrid(grid.r0[perm], grid.k0[perm], grid.band, grid.chunk)
+    k0s = grid.k0.tolist()
+    assert any(len(set(k0s[a:b])) > 1
+               for a, b in recurrence.job_batches(len(k0s), recurrence.BATCH_JOBS))
     before = counters()
     rows, cols = run_jobs(stats, grid, geom=geom, dtype=dt, kernel="pallas")
     mid = counters()
@@ -1233,7 +1304,7 @@ def test_k3_batches_match_the_per_job_loop(card, dtype, series, chunk):
         merge_window(ref_cols, out.col, r0 + k0)
     torch.cuda.synchronize()
     after = counters()
-    batches = len(recurrence.job_batches(grid.k0.tolist(), recurrence.BATCH_JOBS))
+    batches = len(recurrence.job_batches(len(grid.r0), recurrence.BATCH_JOBS))
     assert batches < len(grid.r0)
     assert mid["launches.k3"] - before["launches.k3"] == batches
     assert mid["jobs.k3"] - before["jobs.k3"] == len(grid.r0)

@@ -7,7 +7,8 @@ Its row and column aggregates must equal a per-job loop's (the same
 sweep, then ``merge_window`` job after job, written out here) bit for
 bit, values and indices, whatever the batch cap and the grid's order, on
 a series whose repeated pattern gives exact ties between jobs, so the
-merge order decides which index is kept.
+merge order decides which index is kept.  A batch is any run of
+consecutive jobs, so at caps above one batches hold jobs of several k0s.
 """
 
 import numpy as np
@@ -94,8 +95,9 @@ def test_batched_loop_equals_per_job_loop(monkeypatch, dtype, cap, order):
 
 def test_cap_leaves_partial_batches_and_ties_decide_indices():
     """What the cases above cover: a cap of 3 divides neither the first
-    k0's jobs nor every other k0's, and the tie series has positions where
-    merging the same jobs in reverse order keeps another index."""
+    k0's jobs nor every other k0's, so batches cross k0 changes, and the
+    tie series has positions where merging the same jobs in reverse order
+    keeps another index."""
     stats, geom, grid = _setup("float64")
     per_k0 = np.unique(grid.k0, return_counts=True)[1]
     assert (per_k0 % 3 != 0).any() and per_k0.max() < 64
@@ -114,18 +116,19 @@ def test_cap_leaves_partial_batches_and_ties_decide_indices():
 
 @pytest.mark.parametrize("cap", [1, 3, 64])
 @pytest.mark.parametrize("order", ["grid", "shuffled", "k0_then_shuffled_bands"])
-def test_job_batches_never_cross_a_k0_change(cap, order):
+def test_job_batches_are_maximal_runs_of_the_list(cap, order):
+    """Batches are runs of consecutive jobs in the list's order that cover
+    it, each of ``cap`` jobs but the last, whatever their k0: at a cap of 3
+    and 64 some batch holds jobs of two k0s."""
     *_, grid = _setup("float64")
     k0s = _grid(grid, order).k0.tolist()
-    batches = recurrence.job_batches(k0s, cap)
+    batches = recurrence.job_batches(len(k0s), cap)
     assert [a for a, _ in batches] == [0] + [b for _, b in batches[:-1]]
     assert batches[-1][1] == len(k0s)
-    for a, b in batches:
-        assert 0 < b - a <= cap and len(set(k0s[a:b])) == 1
-    # Maximal runs: a batch ends only at a k0 change or at the cap.
-    for a, b in batches[:-1]:
-        assert b - a == cap or k0s[b] != k0s[a]
-    assert recurrence.job_batches([], cap) == []
+    assert all(b - a == cap for a, b in batches[:-1])
+    assert 0 < batches[-1][1] - batches[-1][0] <= cap
+    assert any(len(set(k0s[a:b])) > 1 for a, b in batches) == (cap > 1)
+    assert recurrence.job_batches(0, cap) == []
 
 
 def test_merge_batch_keeps_the_per_window_order():

@@ -1,9 +1,14 @@
 """K3's arithmetic and summation order, emulated on the CPU, against mpx.
 
 On the card K3 (``mpx_torch/csrc/band_recurrence.cu``) cuts a job's S rows
-into segments of ``SEGMENT_ROWS`` rows and sweeps them in parallel.  It
-never reseeds a segment: along each diagonal QT is a prefix sum of the
-update terms ``U(i, j) = df_r[i] dg_c[i+j] + df_c[i+j] dg_r[i]``, so
+into row segments of L rows, a multiple of ``SEGMENT_ROWS`` that
+``recurrence.segment_rows`` picks from the job's shape and the card: the
+fewest segments for which a full batch of jobs fills the card.  With one
+segment (the library's band and chunk on an H100) each diagonal is carried
+from its seed down all S rows in row order, the plain recurrence's own
+order.  With several, it never reseeds a segment: along each diagonal QT is
+a prefix sum of the update terms
+``U(i, j) = df_r[i] dg_c[i+j] + df_c[i+j] dg_r[i]``, so
 
 * a first kernel sums each segment's update terms in row order (band row 0
   takes none: it is the seed alone);
@@ -12,8 +17,9 @@ update terms ``U(i, j) = df_r[i] dg_c[i+j] + df_c[i+j] dg_r[i]``, so
 
 It computes in float64 for float32 statistics too and rounds only the
 aggregates.  This file emulates exactly that order in numpy
-(:func:`k3_order_sweep`) and holds it to mpx, as the card-only tests hold
-the kernel to the plain version:
+(:func:`k3_order_sweep`, segments of R rows: 256 and 100, and R = S for
+one segment) and holds it to mpx, as the card-only tests hold the kernel
+to the plain version:
 
 * float64: within 1e-12 of mpx's ``sweep_band_xla`` under x64;
 * float32: within 1e-4 of mpx's Pallas kernel in interpret mode, with
@@ -22,6 +28,8 @@ the kernel to the plain version:
   mpx's, indices equal or equidistant;
 * with one segment the emulation is the plain ``sweep_band_xla`` bit for
   bit.
+
+It also holds ``segment_rows`` to the rule written out on its own.
 
 The kernel adds a row's two update products one at a time, as two
 dependent FMAs: ``fma(c, d, fma(a, b, q))``.  On float32 statistics both
@@ -48,7 +56,7 @@ from mpx_torch import MatrixProfileConfig, compute_matrix_profile, kernels
 from mpx_torch.dtypes import AGGREGATE_INIT, torch_dtype
 from mpx_torch.kernels import xla
 from mpx_torch.kernels.common import BandOut, band_geometry, seed_qt
-from mpx_torch.kernels.recurrence import SEGMENT_ROWS
+from mpx_torch.kernels.recurrence import SEGMENT_ROWS, segment_rows
 from mpx_torch.ops.precompute import precompute_statistics, stats_from_numpy
 from mpx_torch.types import Aggregates
 from tests.conftest import random_walk
@@ -320,3 +328,44 @@ def test_segment_order_profile_matches_mpx(monkeypatch, dtype):
     MP_ref, MPI_ref = (np.asarray(x) for x in mpx.compute_matrix_profile(T, config=ref_cfg))
     assert_profile_close(T, m, MP, MPI, MP_ref, MPI_ref,
                          eps={"float32": 2e-3, "float64": 1e-8}[dtype])
+
+
+def _rule(S, W, sms, resident, cap):
+    """``segment_rows``'s rule written out: the candidates 1, 2, 4, ...
+    below ceil(S / 256), then that count; the first whose full batch fills
+    90 % of a wave, or the last."""
+    chunks = -(-S // 256)
+    cands = [1 << k for k in range(chunks.bit_length()) if 1 << k < chunks] + [chunks]
+    blocks = cap * -(-W // 256)
+    G = next((g for g in cands if 10 * blocks * g >= 9 * sms * resident), cands[-1])
+    return -(-chunks // G) * 256
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+@pytest.mark.parametrize("resident", [1, 2])
+@pytest.mark.parametrize("sms", [1, 2])
+@pytest.mark.parametrize("S,W", [(256, 256), (1000, 256), (1000, 700), (4096, 200),
+                                 (696, 512), (5000, 16384)])
+def test_segment_rule_is_a_function_of_shape_card_and_cap(S, W, sms, resident, cap):
+    L = segment_rows(S, W, sms, resident, cap)
+    assert L == _rule(S, W, sms, resident, cap)
+    G = -(-S // L)
+    assert L % SEGMENT_ROWS == 0 and 0 < S - (G - 1) * L <= L  # the last one ragged or full
+    # Never more segments than chunks, and one more segment a job only
+    # where the full batch falls short of the wave.
+    assert G <= -(-S // SEGMENT_ROWS)
+    if G > 1:
+        assert 10 * cap * -(-W // 256) * (G // 2) < 9 * sms * resident
+
+
+@pytest.mark.parametrize("S,W,sms,resident,cap,rows,segments", [
+    (4096, 16384, 132, 8, 16, 4096, 1),  # the self-join on an H100: one segment
+    (4096, 700, 132, 8, 16, 256, 16),    # a narrow chunk: every chunk a segment
+    (1000, 256, 1, 2, 1, 512, 2),        # two segments, the last ragged (488 rows)
+    (1000, 256, 1, 1, 1, 1024, 1),       # one block fills the one-block wave
+    (696, 512, 2, 2, 1, 512, 2),         # two segments of a three-chunk job (512 + 184)
+    (696, 512, 1, 2, 1, 768, 1),         # one ragged segment (696 of 768 rows)
+])
+def test_segment_rule_readings(S, W, sms, resident, cap, rows, segments):
+    assert segment_rows(S, W, sms, resident, cap) == rows
+    assert -(-S // rows) == segments

@@ -89,7 +89,7 @@ def test_k3_batches_have_a_span_each(monkeypatch):
     _, recs, prof = _recorded(lambda: matrix_profile(T, M, dtype="float64", kernel="pallas",
                                                      band=128, chunk=256, device="cpu"))
     grid = make_job_grid(w, cfg.band, cfg.chunk)
-    batches = recurrence.job_batches(grid.k0.tolist(), 2)
+    batches = recurrence.job_batches(len(grid.r0), 2)
     (loop,) = _named(recs, "jobs")
     spans_ = _named(recs, "jobs.batch")
     assert len(spans_) == len(batches) < len(grid.r0)
